@@ -1,0 +1,142 @@
+"""The port's int8 pool kernel module (vector_db_torch/ops/kernels.py)
+against the reference's Pallas kernel, run in interpret mode on the CPU.
+
+Tolerance: slots equal; values within rtol 1e-6 + atol 1e-6 * max|vals|.
+The cross term is exact integer arithmetic in both; the f32 epilogue can
+differ only in the last ulp where XLA-CPU fuses a multiply-add.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from vector_db_tpu.index import hnsw_pq as ref_hp  # noqa: E402
+from vector_db_tpu.ops import pallas_kernels as ref_pk  # noqa: E402
+from vector_db_torch.ops import kernels as tk  # noqa: E402
+
+
+def _shadow(n, d, metric, dead, seed, offset=2.0):
+    """A reference-built int8 shadow (numpy) of a seeded corpus."""
+    r = np.random.default_rng(seed)
+    base = (r.standard_normal((n, d)) + offset).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[r.choice(n, int(dead * n), replace=False)] = False
+    b = jnp.asarray(base)
+    base8, off, sc, cvec, _ = ref_hp._build_scan8_shadow(
+        b, jnp.sum(b * b, axis=1), jnp.asarray(valid), metric, 1)
+    return (np.array(base8), np.array(off), np.array(sc), np.array(cvec), r)
+
+
+def _queries(r, qn, d, cvec, metric, offset=2.0):
+    q = (r.standard_normal((qn, d)) + offset).astype(np.float32)
+    if metric == "cosine":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return q - cvec[None, :]
+
+
+def test_quantize_rows_bit_equal_to_reference():
+    r = np.random.default_rng(0)
+    q = (r.standard_normal((37, 64))
+         * r.uniform(0.01, 50.0, (37, 1))).astype(np.float32)
+    q[3] = 0.0  # all-zero row: the 1e-12 scale floor
+    q[5, :4] = [127.0, -63.5, 0.5, 1.5]  # exact .5 ties: half-to-even
+    j8, jsq = ref_pk._quantize_rows_int8(jnp.asarray(q))
+    t8, tsq = tk._quantize_rows_int8(torch.from_numpy(q))
+    np.testing.assert_array_equal(np.asarray(j8), t8.numpy())
+    np.testing.assert_array_equal(np.asarray(jsq), tsq.numpy())
+
+
+@pytest.mark.parametrize(
+    "qn,n,d,w,metric,dead",
+    [
+        (13, 3000, 64, 64, "l2", 0.1),        # w below block_n, ragged N
+        (1, 3000, 32, 2048, "cosine", 0.0),   # w above block_n, one query
+        (37, 2500, 64, 700, "l2", 0.3),       # w rounds to 1024, ragged N
+        (8, 4096, 32, 512, "cosine", 0.2),    # N a multiple of w
+        (5, 1111, 32, 256, "l2", 0.0),        # fewer rows than two passes
+    ],
+)
+def test_plain_pool_matches_reference_kernel(qn, n, d, w, metric, dead):
+    base8, off, sc, cvec, r = _shadow(n, d, metric, dead, seed=qn + n)
+    qc = _queries(r, qn, d, cvec, metric)
+    jv, js = ref_pk.fused_int8_pool(jnp.asarray(qc), jnp.asarray(base8),
+                                    jnp.asarray(off), jnp.asarray(sc), w,
+                                    interpret=True)
+    tv, ts = tk.fused_int8_pool(torch.from_numpy(qc), torch.from_numpy(base8),
+                                torch.from_numpy(off), torch.from_numpy(sc), w)
+    jv, js = np.asarray(jv), np.asarray(js)
+    tv, ts = tv.numpy(), ts.numpy()
+    assert tv.shape == jv.shape == (qn, tk.pool_width(w))
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(np.isfinite(tv), np.isfinite(jv))
+    fin = np.isfinite(jv)
+    scale = np.abs(jv[fin]).max()
+    np.testing.assert_allclose(tv[fin], jv[fin], rtol=1e-6, atol=1e-6 * scale)
+    # dead rows and rows past N never come back
+    live = ts[ts >= 0]
+    assert live.max() < n and np.isfinite(off[live]).all()
+
+
+def test_pool_width_matches_reference_rounding():
+    for w in (1, 64, 128, 129, 300, 512, 513, 700, 2048, 2049):
+        b = min(512, max(128, -(-w // 128) * 128))
+        assert tk.pool_width(w) == -(-(-(-w // 128) * 128) // b) * b
+
+
+def test_shadow_columns_padded_to_words_match_unpadded():
+    """A shadow padded with zero columns (d % 4 != 0) pools exactly like
+    the unpadded one: the queries are padded to its width."""
+    r = np.random.default_rng(5)
+    base8 = r.integers(-127, 128, (900, 30), dtype=np.int8)
+    off = r.uniform(0, 10, 900).astype(np.float32)
+    sc = -r.uniform(0.01, 1, 900).astype(np.float32)
+    q = torch.from_numpy(r.standard_normal((6, 30)).astype(np.float32))
+    padded = np.zeros((900, 32), np.int8)
+    padded[:, :30] = base8
+    args = (torch.from_numpy(off), torch.from_numpy(sc), 256)
+    v1, s1 = tk.fused_int8_pool(q, torch.from_numpy(base8), *args)
+    v2, s2 = tk.fused_int8_pool(q, torch.from_numpy(padded), *args)
+    assert torch.equal(v1, v2) and torch.equal(s1, s2)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc: building the CUDA library is an error, never a fallback."""
+    import torch.utils.cpp_extension as ext
+
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tk._Library().get()
+
+
+def test_unsupported_device_raises():
+    q = torch.empty((2, 8), device="meta")
+    b = torch.empty((16, 8), dtype=torch.int8, device="meta")
+    v = torch.empty((16,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.fused_int8_pool(q, b, v, v, 128)
+
+
+@pytest.mark.cuda
+def test_kernel_bit_equal_to_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for qn, n, d, w in [(13, 4000, 512, 64), (70, 5000, 36, 300),
+                        (1, 9000, 64, 2048)]:
+        q = torch.randn(qn, d, device="cuda", generator=g)
+        b8 = torch.randint(-127, 128, (n, d), device="cuda", generator=g,
+                           dtype=torch.int8)
+        off = torch.rand(n, device="cuda", generator=g)
+        off[::7] = float("inf")
+        sc = -torch.rand(n, device="cuda", generator=g)
+        before = tk.fused_int8_pool.launches
+        v1, s1 = tk.fused_int8_pool(q, b8, off, sc, w)
+        v2, s2 = tk.fused_int8_pool_plain(q, b8, off, sc, w)
+        torch.cuda.synchronize()
+        assert tk.fused_int8_pool.launches == before + 1
+        assert torch.equal(v1, v2) and torch.equal(s1, s2)

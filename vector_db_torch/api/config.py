@@ -1,0 +1,179 @@
+"""Compression and index configuration.
+
+A copy of ``vector_db_tpu/api/config.py``: the same dataclasses, fields and
+defaults, so a configuration means the same thing to both packages.  The
+field comments of the reference record why each default was chosen there;
+they are shortened here.  Copied rather than imported because importing the
+reference package loads JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class CompressionType(enum.Enum):
+    NONE = "none"
+    PQ = "pq"
+    HNSWPQ = "hnswpq"
+
+
+@dataclasses.dataclass
+class CompressionConfig:
+    """Product-quantization compression settings.
+
+    compression ratio = 4 * dim / num_subspaces: each float32 subvector of
+    dim/num_subspaces floats becomes one uint8 code.
+    """
+
+    enabled: bool = False
+    compression_type: CompressionType = CompressionType.NONE
+    num_subspaces: int = 8
+    num_centroids: int = 256
+    training_iterations: int = 25
+
+    @classmethod
+    def default_config(cls) -> "CompressionConfig":
+        return cls()
+
+    @classmethod
+    def pq_config(cls, num_subspaces: int = 8) -> "CompressionConfig":
+        return cls(True, CompressionType.PQ, num_subspaces)
+
+    @classmethod
+    def hnsw_pq_config(cls, num_subspaces: int = 8) -> "CompressionConfig":
+        return cls(True, CompressionType.HNSWPQ, num_subspaces)
+
+    @classmethod
+    def recommended_config(cls, dimension: int) -> "CompressionConfig":
+        """dim/8 subspaces -> 32x at 512-dim."""
+        return cls(True, CompressionType.HNSWPQ, max(1, dimension // 8))
+
+    @classmethod
+    def high_recall_config(cls, dimension: int) -> "CompressionConfig":
+        """dim/4 subspaces -> 16x."""
+        return cls(True, CompressionType.HNSWPQ, max(1, dimension // 4))
+
+    @classmethod
+    def high_compression_config(cls, dimension: int) -> "CompressionConfig":
+        """dim/16 subspaces -> 64x."""
+        return cls(True, CompressionType.HNSWPQ, max(1, dimension // 16))
+
+    def compression_ratio(self, dimension: int) -> float:
+        if not self.enabled or self.num_subspaces <= 0:
+            return 1.0
+        return 4.0 * dimension / self.num_subspaces
+
+    def memory_savings_pct(self, dimension: int) -> float:
+        r = self.compression_ratio(dimension)
+        return (1.0 - 1.0 / r) * 100.0 if r > 0 else 0.0
+
+    def effective_subspaces(self, dimension: int) -> int:
+        """Largest subspace count <= num_subspaces that divides dimension."""
+        sub = min(self.num_subspaces, dimension)
+        for cand in range(sub, 0, -1):
+            if dimension % cand == 0:
+                return cand
+        return 1
+
+
+@dataclasses.dataclass
+class HnswConfig:
+    """HNSW graph index settings (index not ported yet: ROADMAP A11)."""
+
+    m: int = 32
+    ef_construction: int = 400
+    ef_search: int = 0
+    ef_delta: int = 32
+    max_level: int = 0
+    expand_per_iter: int = 4
+    batch_insert: int = 64
+    heuristic: bool = True
+    bulk_build: bool = True
+    insert_policy: str = "defer"
+    flush_min: int = 1024
+    flush_frac: float = 0.25
+    flush_max: int = 32768
+    flush_chunk: int = 0
+
+
+@dataclasses.dataclass
+class HnswPqConfig:
+    """Flagship HNSW+PQ settings (same fields and defaults as the reference).
+
+    The port serves ``raw_store=True`` with ``use_graph=False`` and the
+    search modes ``auto``, ``scan_exact`` and ``scan_pallas_int8`` (the
+    int8 pool kernel, ``ops/kernels.fused_int8_pool``); every other value
+    raises ``NotImplementedError`` naming its ROADMAP item.
+    """
+
+    m: int = 32
+    ef_construction: int = 64
+    ef_search: int = 64
+    num_subspaces: int = 64
+    num_centroids: int = 256
+    training_iterations: int = 25
+    training_samples: int = 10000  # lazy-train threshold and sample cap
+    refine_k: int = 1024
+    use_graph: bool = False  # True -> graph traversal (ROADMAP A10)
+    insert_policy: str = "defer"
+    flush_min: int = 1024
+    flush_frac: float = 0.25
+    flush_max: int = 32768
+    flush_chunk: int = 0
+    nlist: int = 0
+    nprobe: int = 32
+    ivf_p_cap: int = 0
+    ivf_winners: int = 4
+    ivf_pool: int = 0
+    # auto: scan_exact below 700k live rows, scan_pallas_int8 at and above
+    # (the reference's crossover, kept until an H100 sweep sets the port's:
+    # ROADMAP A8)
+    search_mode: str = "auto"
+    scan_recall_target: float = 0.99  # the port's scans select exactly
+    int8_epilogue: str = "per_row"  # "global" -> ROADMAP A10 (kernel B7)
+    adc_bucket: int = 32
+    adc_winners: int = 1
+    adc_pool: str = "bucket"
+    balance_dims: bool = True  # variance-balanced PQ dimension permutation
+    refine_store: str = "f32"
+    raw_store: bool = True  # False -> compressed tier (ROADMAP A9)
+    refine_residual: bool = False
+    adc_select_r: int = 0
+    proxy_dims: int = 32
+    pca_r: int = 256
+
+
+@dataclasses.dataclass
+class PqConfig:
+    num_subspaces: int = 8
+    num_centroids: int = 256
+    training_iterations: int = 10
+    refine_k: int = 0
+    balance_dims: bool = True
+
+
+@dataclasses.dataclass
+class IvfConfig:
+    num_clusters: int = 100
+    num_probes: int = 10
+    training_iterations: int = 25
+    multi_assign: int = 8
+
+
+@dataclasses.dataclass
+class LshConfig:
+    num_tables: int = 0
+    num_bits: int = 0
+    hamming_radius: int = -1
+    bucket_width: float = 0.0
+    backfill: bool = True
+
+
+@dataclasses.dataclass
+class AnnoyConfig:
+    num_trees: int = 12
+    leaf_size: int = 16
+    search_k: int = 0
+    backfill: bool = True
