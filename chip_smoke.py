@@ -7,21 +7,37 @@ name and power limit):
 
   1. device  — CUDA present, TF32 off for f32 matmuls;
   2. build   — the CUDA kernels compiled from vector_db_torch/csrc;
-  3. kernel  — fused_int8_pool against its plain PyTorch version on the card
-               at the main path's shapes (bit-equal required), and both
-               timed at Q=1024, N=1,001,472, d=512, w=2048;
+  3. kernels — each kernel against its plain PyTorch version on the card at
+               the main path's shapes (bit-equal required), both timed
+               (CUDA events, warm-up, best of 3):
+               a. fused_int8_pool at Q=1024, N=1,001,472, d=512, w=2048;
+               b. pq_decode_recon_t at S=64, sd=8, K=256, N=524,288;
+               c. fused_packed_pool at Q=1024, N=1,001,472, d=512, w=2048
+                  (and an N that w does not divide must raise);
   4. 100k    — the flagship through VectorDatabase: 512-d x 100,000 rows,
                HnswPqConfig(num_subspaces=64, training_samples=20000),
                add_batch through the WAL, auto -> scan_exact, recall@10
                against the exact scan >= 0.99, close + reopen with the same
                ids;
   5. 1M      — the same config at 512-d x 1,000,000 rows by bulk_load of the
-               device tensor, auto -> scan_pallas_int8 (the kernel's launch
-               count must rise), recall@10 >= 0.95.
+               device tensor, auto -> scan_pallas_int8 (fused_int8_pool must
+               launch), recall@10 >= 0.95;
+  6. 10M     — the compressed tier (raw_store=False, refine_residual=True,
+               adc_pool="approx", adc_select_r=512) through VectorDatabase:
+               9,961,472 x 512 spectral rows by bulk_load_stream in 76
+               chunks of 131,072, exact ground truth merged per chunk;
+               auto -> adc_fast (pq_decode_recon_t must launch), recall@10
+               >= 0.94; scan_pallas_int8 (fused_packed_pool must launch),
+               recall@10 >= 0.96; CRUD at 10M live;
+  7. 100k memory-bound — the raw store with search_mode="adc_fast",
+               adc_pool="approx", adc_select_r=128, refine_store="bf16" on
+               512-d x 100,000 spectral rows by bulk_load
+               (pq_decode_recon_t must launch), recall@10 >= 0.96.
 
-Then a JSON line of the kernels, and as the last line
-{"ok": true, "device": {...}}.  A failed phase raises and the script exits
-non-zero without that line; so does a machine without CUDA.
+Every path of phases 4-7 runs with all kernel launch counts set to 0 just
+before it and read just after.  Then a JSON line of the kernels, and as the
+last line {"ok": true, "device": {...}}.  A failed phase raises and the
+script exits non-zero without that line; so does a machine without CUDA.
 """
 
 import json
@@ -31,6 +47,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 DEVICE = "cuda"
@@ -42,6 +59,26 @@ N_KERNEL = 1_000_000
 CFG = dict(num_subspaces=64, training_samples=20000)
 KERNEL_SHAPES_Q = (1, 13, 1024)
 KERNEL_SHAPES_W = (64, 2048)
+PACKED_SHAPES_N = (4096, 1_001_472)
+PACKED_SHAPES_W = (512, 2048)
+DECODE_SHAPES = ((64, 8), (16, 4))  # (S, sd)
+DECODE_SHAPES_K = (256, 200)
+DECODE_SHAPES_N = (4000, 524_288)
+N_10M_CHUNK = 131_072
+N_10M_CHUNKS = 76
+CFG_10M = dict(raw_store=False, num_subspaces=64, training_samples=20000,
+               adc_pool="approx", adc_select_r=512, refine_residual=True)
+CFG_MEMBOUND = dict(num_subspaces=64, training_samples=20000,
+                    search_mode="adc_fast", adc_pool="approx",
+                    adc_select_r=128, refine_store="bf16")
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "fused_int8_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
+                        "vector_db_tpu/ops/pallas_kernels.py:585"),
+    "pq_decode_recon_t": ("vector_db_torch/csrc/pq_decode.cu",
+                          "vector_db_tpu/ops/pallas_kernels.py:174"),
+    "fused_packed_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
+                          "vector_db_tpu/ops/pallas_kernels.py:900"),
+}
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -175,18 +212,164 @@ def phase_kernel():
            "(best of 3)", plain_ms, "ms")
     del shadows, base8, off, sc
     torch.cuda.empty_cache()
-    return {"name": "fused_int8_pool", "route": "cuda",
-            "source": "vector_db_torch/csrc/fused_int8_pool.cu",
-            "replaces": "vector_db_tpu/ops/pallas_kernels.py:585",
-            "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return kernel_entry("fused_int8_pool", worst, ms, plain_ms)
 
 
-def make_db(n, path=None):
+def kernel_entry(name, err, ms, plain_ms):
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def max_abs_err(got, want):
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def phase_decode():
+    """pq_decode_recon_t vs plain on the card; returns the kernels entry.
+    The wide case reads a column slice of a wider code matrix, as the
+    chunked adc_fast scan does."""
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    worst = 0.0
+    for s, sd in DECODE_SHAPES:
+        for k in DECODE_SHAPES_K:
+            for n in DECODE_SHAPES_N:
+                wide = torch.randint(0, k, (s, 2 * n), device=DEVICE,
+                                     generator=g, dtype=torch.uint8)
+                codes = wide[:, n // 2:n // 2 + n]
+                cbt = torch.randn(s * sd, k, device=DEVICE, generator=g)
+                got = kn.pq_decode_recon_t(codes, cbt)
+                want = kn.pq_decode_recon_t_plain(codes, cbt)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                err = max_abs_err(got, want)
+                say(f"phase 3b decode: S={s} sd={sd} K={k} N={n} "
+                    f"out={tuple(got.shape)} bit_equal={same} "
+                    f"max_abs_err={err}")
+                if not same:
+                    raise RuntimeError("pq_decode_recon_t disagrees with its "
+                                       f"plain version at S={s} K={k} N={n}")
+                worst = max(worst, err)
+    n = DECODE_SHAPES_N[-1]
+    codes = torch.randint(0, 256, (64, 2 * n), device=DEVICE, generator=g,
+                          dtype=torch.uint8)[:, :n]
+    cbt = torch.randn(512, 256, device=DEVICE, generator=g)
+    plain_ms = cuda_ms(lambda: kn.pq_decode_recon_t_plain(codes, cbt))
+    ms = cuda_ms(lambda: kn.pq_decode_recon_t(codes, cbt))
+    plain_ms = min(plain_ms, cuda_ms(
+        lambda: kn.pq_decode_recon_t_plain(codes, cbt)))
+    timing("phase 3b pq_decode_recon_t kernel S=64 sd=8 K=256 N=524288 "
+           "(best of 3)", ms, "ms")
+    timing("phase 3b pq_decode_recon_t plain  S=64 sd=8 K=256 N=524288 "
+           "(best of 3)", plain_ms, "ms")
+    del codes, cbt
+    torch.cuda.empty_cache()
+    return kernel_entry("pq_decode_recon_t", worst, ms, plain_ms)
+
+
+def phase_packed():
+    """fused_packed_pool vs plain on the card over a compressed store's
+    packed rows and scan conditioning; returns the kernels entry."""
+    from vector_db_torch.index.hnsw_pq import _build_scan8p_shadow
+    from vector_db_torch.ops import kernels as kn
+    from vector_db_torch.ops.distance import pack_int8_rows
+
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    scale = spectrum()
+    stores = {}
+    for n in PACKED_SHAPES_N:
+        rows = torch.randn(n, DIM, device=DEVICE, generator=g) * scale
+        valid = torch.rand(n, device=DEVICE, generator=g) > 0.05  # dead
+        packed, scales = pack_int8_rows(rows)
+        off, sc, cvec = _build_scan8p_shadow(
+            packed, scales, (rows * rows).sum(1), valid, "l2")
+        stores[n] = (packed, off, sc, cvec)
+        del rows
+    queries = torch.randn(NQ, DIM, device=DEVICE, generator=g) * scale
+    worst = 0.0
+    for n, (packed, off, sc, cvec) in stores.items():
+        qc = queries - cvec[None, :]
+        for qn in KERNEL_SHAPES_Q:
+            for w in PACKED_SHAPES_W:
+                kv, ks = kn.fused_packed_pool(qc[:qn], packed, off, sc, w)
+                pv, ps = kn.fused_packed_pool_plain(qc[:qn], packed, off, sc,
+                                                    w)
+                torch.cuda.synchronize()
+                same = torch.equal(kv, pv) and torch.equal(ks, ps)
+                err = max_abs_err(kv, pv)
+                say(f"phase 3c packed: Q={qn} N={n} d={DIM} w={w} "
+                    f"pool={tuple(kv.shape)} bit_equal={same} "
+                    f"max_abs_err={err} live_slots={int((ks >= 0).sum())}")
+                if not same:
+                    raise RuntimeError("fused_packed_pool disagrees with its "
+                                       f"plain version at Q={qn} N={n} w={w}")
+                worst = max(worst, err)
+    packed, off, sc, cvec = stores[PACKED_SHAPES_N[0]]
+    cut = PACKED_SHAPES_N[0] - 128
+    try:
+        kn.fused_packed_pool(queries[:4], packed[:cut], off[:cut], sc[:cut],
+                             2048)
+    except ValueError as e:
+        say(f"phase 3c packed: N={cut}, w=2048 raises ValueError: {e}")
+    else:
+        raise RuntimeError("fused_packed_pool accepted N % w != 0")
+    packed, off, sc, cvec = stores[PACKED_SHAPES_N[-1]]
+    qc = queries - cvec[None, :]
+    plain_ms = cuda_ms(
+        lambda: kn.fused_packed_pool_plain(qc, packed, off, sc, 2048))
+    ms = cuda_ms(lambda: kn.fused_packed_pool(qc, packed, off, sc, 2048))
+    plain_ms = min(plain_ms, cuda_ms(
+        lambda: kn.fused_packed_pool_plain(qc, packed, off, sc, 2048)))
+    timing("phase 3c fused_packed_pool kernel Q=1024 N=1001472 d=512 w=2048 "
+           "(best of 3)", ms, "ms")
+    timing("phase 3c fused_packed_pool plain  Q=1024 N=1001472 d=512 w=2048 "
+           "(best of 3)", plain_ms, "ms")
+    del stores, packed, off, sc
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_packed_pool", worst, ms, plain_ms)
+
+
+def spectrum():
+    """The spectral corpus' per-dim scale (i + 1)^-0.5 (bench.py's
+    memory-bound corpus, benchmarks/bench_10m_api.py)."""
+    return (torch.arange(DIM, device=DEVICE, dtype=torch.float32) + 1) ** -0.5
+
+
+def reset_launches():
+    from vector_db_torch.ops import kernels as kn
+
+    for name in KERNELS:
+        getattr(kn, name).launches = 0
+
+
+def read_launches(label, must_launch=(), must_not=()):
+    """Launch counts of the path just driven; raises if a kernel of the
+    path never launched (or one that must not did)."""
+    from vector_db_torch.ops import kernels as kn
+
+    counts = {name: getattr(kn, name).launches for name in KERNELS}
+    say(f"phase {label}: kernel launches {json.dumps(counts)}")
+    for name in must_launch:
+        if counts[name] == 0:
+            raise RuntimeError(f"{label}: the path never launched {name}")
+    for name in must_not:
+        if counts[name] != 0:
+            raise RuntimeError(f"{label}: the path launched {name}")
+    return counts
+
+
+
+def make_db(n, path=None, cfg=None):
     from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
 
     b = (VectorDatabase.builder().with_dimension(DIM).with_max_elements(n)
          .with_index_type(IndexType.HNSWPQ)
-         .with_index_config(HnswPqConfig(**CFG)).with_device(DEVICE))
+         .with_index_config(HnswPqConfig(**(cfg or CFG))).with_device(DEVICE))
     if path:
         b = b.with_storage_path(path)
     return b.build()
@@ -202,12 +385,11 @@ def exact_ids(corpus, queries):
 
 def serve(db, label, queries, gt):
     """Recall, batched QPS and Q=1 latency of db; returns the ids."""
-    from vector_db_torch.index.hnsw_pq import _auto_scan_mode
-
-    mode = _auto_scan_mode(db.index.config.use_graph, db.size())
+    mode = db.index.resolve_mode(db.size())
     ids = result_ids(db.search_batch(queries, K))
     rec = recall(ids, gt)
-    say(f"phase {label}: rows={db.size()} auto -> {mode} recall@10={rec}")
+    say(f"phase {label}: rows={db.size()} {db.index.config.search_mode} -> "
+        f"{mode} recall@10={rec}")
     t = host_s(lambda: db.search_batch(queries, K))
     timing(f"phase {label} batched QPS (Q={NQ}, k={K}, best of 3)",
            NQ / t, "queries/s")
@@ -218,8 +400,6 @@ def serve(db, label, queries, gt):
 
 
 def phase_100k():
-    from vector_db_torch.ops import kernels as kn
-
     n = N_FLAGSHIP
     path = os.path.join(WORK, "db100k")
     shutil.rmtree(path, ignore_errors=True)
@@ -228,15 +408,15 @@ def phase_100k():
     queries = torch.randn(NQ, DIM, device=DEVICE,
                           generator=torch.Generator(device=DEVICE).manual_seed(7))
     gt = exact_ids(corpus, queries)
+    reset_launches()
     db = make_db(n, path)
     t0 = time.perf_counter()
     db.add_batch(range(n), corpus)
     torch.cuda.synchronize()
     timing("phase 4 100k build (add_batch + WAL + train + encode)",
            time.perf_counter() - t0, "s")
-    before = kn.fused_int8_pool.launches
     mode, rec, ids = serve(db, "4 100k", queries, gt)
-    if mode != "scan_exact" or kn.fused_int8_pool.launches != before:
+    if mode != "scan_exact":
         raise RuntimeError(f"100k: auto resolved to {mode}, not scan_exact")
     if rec < 0.99:
         raise RuntimeError(f"100k recall@10 {rec} < 0.99")
@@ -250,11 +430,10 @@ def phase_100k():
         raise RuntimeError("100k: ids differ after close/reopen")
     db.close()
     shutil.rmtree(path, ignore_errors=True)
+    return read_launches("4 100k", must_not=tuple(KERNELS))
 
 
 def phase_1m():
-    from vector_db_torch.ops import kernels as kn
-
     n = N_KERNEL
     torch.cuda.reset_peak_memory_stats()
     corpus = torch.randn(n, DIM, device=DEVICE,
@@ -262,24 +441,160 @@ def phase_1m():
     queries = torch.randn(NQ, DIM, device=DEVICE,
                           generator=torch.Generator(device=DEVICE).manual_seed(7))
     gt = exact_ids(corpus, queries)
+    reset_launches()
     db = make_db(n)
     t0 = time.perf_counter()
     db.bulk_load(range(n), corpus)
     torch.cuda.synchronize()
     timing("phase 5 1M build (bulk_load + train + encode)",
            time.perf_counter() - t0, "s")
-    before = kn.fused_int8_pool.launches
     mode, rec, _ = serve(db, "5 1M", queries, gt)
-    launched = kn.fused_int8_pool.launches - before
-    say(f"phase 5 1M: fused_int8_pool launches during the searches: {launched}")
-    if mode != "scan_pallas_int8" or launched == 0:
-        raise RuntimeError(f"1M: auto resolved to {mode}; kernel launches "
-                           f"{launched}")
+    counts = read_launches("5 1M", must_launch=("fused_int8_pool",))
+    if mode != "scan_pallas_int8":
+        raise RuntimeError(f"1M: auto resolved to {mode}")
     if rec < 0.95:
         raise RuntimeError(f"1M recall@10 {rec} < 0.95")
     timing("phase 5 1M peak device memory",
            torch.cuda.max_memory_allocated() / 2**30, "GiB")
     db.close()
+    return counts
+
+
+def stream_10m(queries, work):
+    """The 10M corpus as bulk_load_stream chunks: chunk c is randn from a
+    CUDA generator seeded 42 + c times the spectrum, ids c*131072 + i.
+    Exact top-10 ground truth is merged per chunk on the way (so the f32
+    corpus never exists whole); ``work`` accumulates the seconds spent on
+    generation and ground truth."""
+    from vector_db_torch.ops.distance import blocked_knn
+    from vector_db_torch.ops.topk import merge_topk
+
+    scale = spectrum()
+    ones = torch.ones(N_10M_CHUNK, dtype=torch.bool, device=DEVICE)
+    gt_d = torch.full((NQ, K), float("inf"), device=DEVICE)
+    gt_i = torch.full((NQ, K), -1, dtype=torch.int32, device=DEVICE)
+    for c in range(N_10M_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = torch.Generator(device=DEVICE).manual_seed(42 + c)
+        chunk = torch.randn(N_10M_CHUNK, DIM, device=DEVICE, generator=g) * scale
+        d, i = blocked_knn(queries, chunk, ones, K, block_n=N_10M_CHUNK)
+        gt_d, gt_i = merge_topk(gt_d, gt_i, d, i + c * N_10M_CHUNK, K)
+        torch.cuda.synchronize()
+        work["seconds"] += time.perf_counter() - t0
+        yield np.arange(c * N_10M_CHUNK, (c + 1) * N_10M_CHUNK), chunk
+    work["gt"] = gt_i.cpu().tolist()
+
+
+def phase_10m():
+    """The compressed tier at 10M through VectorDatabase; returns the
+    launch counts of its paths."""
+    n = N_10M_CHUNK * N_10M_CHUNKS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    queries = torch.randn(
+        NQ, DIM, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(7)) * spectrum()
+    work = {"seconds": 0.0}
+    reset_launches()
+    db = make_db(n + 1024, cfg=CFG_10M)
+    t0 = time.perf_counter()
+    rows = db.bulk_load_stream(stream_10m(queries, work))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    gt = work["gt"]
+    timing(f"phase 6 10M ingest (bulk_load_stream of {rows} rows: train + "
+           "pack + residual + encode; generation and ground truth excluded)",
+           total - work["seconds"], "s")
+    timing("phase 6 10M corpus generation + ground truth (inside the stream)",
+           work["seconds"], "s")
+    stats = db.stats()
+    say(f"phase 6 10M: rows={db.size()} capacity={stats['capacity']} "
+        f"store_bytes={stats['store_bytes']} raw_bytes={stats['raw_bytes']} "
+        f"index_bytes={stats['index_bytes']} wal={db._engine is not None}")
+    if db.size() != n or db._engine is not None:
+        raise RuntimeError("10M: wrong row count, or a WAL was opened")
+    counts = {name: 0 for name in KERNELS}
+
+    def add(c):
+        for name in counts:
+            counts[name] += c[name]
+
+    add(read_launches("6 10M ingest"))
+    results = {}
+    for mode, floor, kernel, other in (
+            ("auto", 0.94, "pq_decode_recon_t", "fused_packed_pool"),
+            ("scan_pallas_int8", 0.96, "fused_packed_pool",
+             "pq_decode_recon_t")):
+        db.index.config.search_mode = mode
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        resolved, rec, ids = serve(db, f"6 10M {mode}", queries, gt)
+        add(read_launches(f"6 10M {mode}", must_launch=(kernel,),
+                          must_not=(other, "fused_int8_pool")))
+        timing(f"phase 6 10M {mode} peak device memory",
+               torch.cuda.max_memory_allocated() / 2**30, "GiB")
+        if mode == "auto" and resolved != "adc_fast":
+            raise RuntimeError(f"10M: auto resolved to {resolved}")
+        if rec < floor:
+            raise RuntimeError(f"10M {mode} recall@10 {rec} < {floor}")
+        results[mode] = rec
+    # CRUD at 10M live: add, get, a search that hits it in both modes,
+    # delete, and a search that no longer returns it
+    reset_launches()
+    vid = 10**8
+    far = torch.full((DIM,), 3.0, device=DEVICE) * spectrum()
+    if not db.add_vector(vid, far):
+        raise RuntimeError("10M CRUD: add_vector refused")
+    got = db.get_vector(vid)
+    err = float(np.abs(got.values - far.cpu().numpy()).max())
+    hits = {}
+    for mode in ("adc_fast", "scan_pallas_int8"):
+        db.index.config.search_mode = mode
+        hits[mode] = db.search(far, K)[0].id == vid
+    if not db.delete_vector(vid):
+        raise RuntimeError("10M CRUD: delete_vector failed")
+    gone = {}
+    for mode in ("adc_fast", "scan_pallas_int8"):
+        db.index.config.search_mode = mode
+        gone[mode] = vid not in [r.id for r in db.search(far, K)]
+    say(f"phase 6 10M CRUD: add ok, get max_abs_err={err}, hit={hits}, "
+        f"gone after delete={gone}, rows={db.size()}")
+    add(read_launches("6 10M CRUD", must_launch=("pq_decode_recon_t",
+                                                   "fused_packed_pool")))
+    if not (all(hits.values()) and all(gone.values()) and db.size() == n
+            and err < 1e-3):
+        raise RuntimeError("10M CRUD failed")
+    db.close()
+    del db
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_membound():
+    """The raw store's memory-bound adc_fast with a bf16 refine store."""
+    n = N_FLAGSHIP
+    scale = spectrum()
+    corpus = torch.randn(n, DIM, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(42)) * scale
+    queries = torch.randn(NQ, DIM, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(7)) * scale
+    gt = exact_ids(corpus, queries)
+    reset_launches()
+    db = make_db(n, cfg=CFG_MEMBOUND)
+    t0 = time.perf_counter()
+    db.bulk_load(range(n), corpus)
+    torch.cuda.synchronize()
+    timing("phase 7 100k memory-bound build (bulk_load + train + encode)",
+           time.perf_counter() - t0, "s")
+    mode, rec, _ = serve(db, "7 100k memory-bound", queries, gt)
+    counts = read_launches("7 100k memory-bound",
+                           must_launch=("pq_decode_recon_t",),
+                           must_not=("fused_int8_pool", "fused_packed_pool"))
+    if mode != "adc_fast" or rec < 0.96:
+        raise RuntimeError(f"memory-bound: {mode} recall@10 {rec} < 0.96")
+    db.close()
+    return counts
 
 
 def main():
@@ -287,21 +602,24 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
               file=sys.stderr)
         sys.exit(1)
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
-    entry = phase_kernel()
-    from vector_db_torch.ops import kernels as kn
-
-    # the main path: every launch count starts at 0 here
-    kn.fused_int8_pool.launches = 0
-    phase_100k()
-    phase_1m()
-    entry["launches"] = kn.fused_int8_pool.launches
-    if entry["launches"] == 0:
-        raise RuntimeError("the main path never launched fused_int8_pool")
+    entries = {"fused_int8_pool": phase_kernel(),
+               "pq_decode_recon_t": phase_decode(),
+               "fused_packed_pool": phase_packed()}
+    # the main path: each phase sets every launch count to 0 just before
+    # its paths and reads them just after
+    for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound()):
+        for name, c in counts.items():
+            entries[name]["launches"] += c
+    for name, entry in entries.items():
+        if entry["launches"] == 0:
+            raise RuntimeError(f"the main path never launched {name}")
     shutil.rmtree(WORK, ignore_errors=True)
+    timing("chip_smoke total", time.perf_counter() - t_start, "s")
     say(CARD)
-    say(json.dumps({"kernels": [entry]}))
+    say(json.dumps({"kernels": list(entries.values())}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,12 @@
-"""The port's int8 pool kernel module (vector_db_torch/ops/kernels.py)
-against the reference's Pallas kernel, run in interpret mode on the CPU.
+"""The port's kernel module (vector_db_torch/ops/kernels.py) against the
+reference's Pallas kernels, run in interpret mode on the CPU: the int8 pool
+(fused_int8_pool), its packed-store entry (fused_packed_pool) and the PQ
+decode (pq_decode_recon_t).
 
-Tolerance: slots equal; values within rtol 1e-6 + atol 1e-6 * max|vals|.
-The cross term is exact integer arithmetic in both; the f32 epilogue can
-differ only in the last ulp where XLA-CPU fuses a multiply-add.
+Tolerance of the pools: slots equal; values within rtol 1e-6 + atol 1e-6 *
+max|vals|.  The cross term is exact integer arithmetic in both; the f32
+epilogue can differ only in the last ulp where XLA-CPU fuses a
+multiply-add.  The decode is a gather and a round to bf16: bit-equal.
 """
 
 import numpy as np
@@ -139,4 +142,150 @@ def test_kernel_bit_equal_to_plain_on_card():
         v2, s2 = tk.fused_int8_pool_plain(q, b8, off, sc, w)
         torch.cuda.synchronize()
         assert tk.fused_int8_pool.launches == before + 1
+        assert torch.equal(v1, v2) and torch.equal(s1, s2)
+
+
+# ---------------------------------------------------- pq_decode_recon_t (B3)
+@pytest.mark.parametrize(
+    "s,sd,k,n",
+    [
+        (8, 4, 256, 2500),    # K = 256: the reference's lo/hi lane halves
+        (4, 8, 128, 3000),    # K = 128: one lane vreg
+        (16, 2, 200, 1000),   # K = 200: padded to 256 by the reference
+        (2, 3, 256, 4096),    # sd = 3, N a multiple of the reference's block
+    ],
+)
+def test_decode_plain_bit_equal_to_reference_kernel(s, sd, k, n):
+    """bf16 values equal bit for bit (compared as float32); uint8 codes
+    pass as stored."""
+    r = np.random.default_rng(s * 100 + k)
+    codes_t = r.integers(0, k, (s, n), dtype=np.uint8)
+    cbt = (r.standard_normal((s * sd, k)) * 3).astype(np.float32)
+    want = ref_pk.pq_decode_recon_t(jnp.asarray(codes_t), jnp.asarray(cbt),
+                                    interpret=True)
+    got = tk.pq_decode_recon_t(torch.from_numpy(codes_t),
+                               torch.from_numpy(cbt))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (s * sd, n)
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_decode_reads_a_column_slice_without_copy():
+    r = np.random.default_rng(4)
+    codes_t = torch.from_numpy(r.integers(0, 256, (8, 5000), dtype=np.uint8))
+    cbt = torch.from_numpy(r.standard_normal((32, 256)).astype(np.float32))
+    part = codes_t[:, 1000:3000]
+    assert not part.is_contiguous()
+    assert torch.equal(tk.pq_decode_recon_t(part, cbt),
+                       tk.pq_decode_recon_t(part.contiguous(), cbt))
+
+
+# ---------------------------------------------------- fused_packed_pool (B4)
+def _packed_store(n, d, metric, dead, seed):
+    """The reference's packed rows (pack_int8_rows) and scan conditioning
+    (_build_scan8p_shadow) of a seeded corpus, as numpy."""
+    from vector_db_tpu.ops.distance import pack_int8_rows as ref_pack
+
+    r = np.random.default_rng(seed)
+    base = (r.standard_normal((n, d)) + 1.5).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[r.choice(n, int(dead * n), replace=False)] = False
+    b = jnp.asarray(base)
+    packed, scales = ref_pack(b)
+    off, sc, cvec = ref_hp._build_scan8p_shadow(
+        packed, scales, jnp.sum(b * b, axis=1), jnp.asarray(valid), metric)
+    return (np.array(packed), np.array(off), np.array(sc), np.array(cvec), r)
+
+
+@pytest.mark.parametrize(
+    "qn,n,d,w,metric,dead",
+    [
+        (13, 4096, 64, 128, "l2", 0.1),      # ragged Q, w below block_n
+        (1, 4096, 32, 2048, "cosine", 0.0),  # one query, w above block_n
+        (37, 6144, 64, 512, "l2", 0.3),      # several passes, dead slots
+        (8, 2048, 32, 2048, "cosine", 0.2),  # one pass
+    ],
+)
+def test_packed_plain_matches_reference_kernel(qn, n, d, w, metric, dead):
+    """The same int32 words (the reference's pack_int8_rows) through both:
+    slots equal, values within rtol 1e-6 + atol 1e-6 * max|vals|."""
+    packed, off, sc, cvec, r = _packed_store(n, d, metric, dead, qn + n)
+    qc = _queries(r, qn, d, cvec, metric, offset=1.5)
+    jv, js = ref_pk.fused_packed_pool(jnp.asarray(qc), jnp.asarray(packed),
+                                      jnp.asarray(off), jnp.asarray(sc), w,
+                                      interpret=True)
+    tv, ts = tk.fused_packed_pool(torch.from_numpy(qc),
+                                  torch.from_numpy(packed),
+                                  torch.from_numpy(off), torch.from_numpy(sc),
+                                  w)
+    jv, js, tv, ts = np.asarray(jv), np.asarray(js), tv.numpy(), ts.numpy()
+    assert tv.shape == jv.shape == (qn, tk.pool_width(w))
+    np.testing.assert_array_equal(ts, js)
+    fin = np.isfinite(jv)
+    np.testing.assert_array_equal(np.isfinite(tv), fin)
+    scale = np.abs(jv[fin]).max()
+    np.testing.assert_allclose(tv[fin], jv[fin], rtol=1e-6, atol=1e-6 * scale)
+
+
+def test_packed_words_unpack_in_true_dim_order():
+    """Shift-unpacking the reference's words gives the same int8 rows as
+    viewing them as bytes, so the packed pool equals the int8 pool over
+    those rows."""
+    packed, off, sc, cvec, r = _packed_store(2048, 32, "l2", 0.1, 3)
+    p = torch.from_numpy(packed)
+    rows8 = tk.unpack_words_int8(p)
+    assert torch.equal(rows8, p.view(torch.int8).reshape(2048, 32))
+    q = torch.from_numpy(_queries(r, 5, 32, cvec, "l2", offset=1.5))
+    args = (torch.from_numpy(off), torch.from_numpy(sc), 512)
+    a, b = tk.fused_packed_pool(q, p, *args), tk.fused_int8_pool(q, rows8, *args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_packed_rows_not_a_multiple_of_w_raise_in_both():
+    packed, off, sc, cvec, r = _packed_store(2048, 32, "l2", 0.0, 5)
+    qc = _queries(r, 3, 32, cvec, "l2")
+    with pytest.raises(ValueError, match="multiple of the pool width"):
+        ref_pk.fused_packed_pool(jnp.asarray(qc), jnp.asarray(packed[:1920]),
+                                 jnp.asarray(off[:1920]), jnp.asarray(sc[:1920]),
+                                 2048, interpret=True)
+    with pytest.raises(ValueError, match="multiple of the pool width"):
+        tk.fused_packed_pool(torch.from_numpy(qc),
+                             torch.from_numpy(packed[:1920]),
+                             torch.from_numpy(off[:1920]),
+                             torch.from_numpy(sc[:1920]), 2048)
+
+
+def test_preserved_pool_width_matches_reference():
+    for n in (128, 1920, 2048, 4096, 6144, 9_963_520, 1_000_064):
+        w = tk.preserved_pool_width(n)
+        assert w == ref_pk.preserved_pool_width(n)
+        assert n % w == 0 and tk.pool_width(w) == w
+
+
+@pytest.mark.cuda
+def test_decode_and_packed_kernels_bit_equal_to_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for s, sd, k, n in [(64, 8, 256, 4000), (16, 4, 200, 5003)]:
+        codes = torch.randint(0, k, (s, n + 64), device="cuda", generator=g,
+                              dtype=torch.uint8)[:, 32:32 + n]
+        cbt = torch.randn(s * sd, k, device="cuda", generator=g)
+        before = tk.pq_decode_recon_t.launches
+        got = tk.pq_decode_recon_t(codes, cbt)
+        assert torch.equal(got, tk.pq_decode_recon_t_plain(codes, cbt))
+        assert tk.pq_decode_recon_t.launches == before + 1
+    for qn, n, d, w in [(13, 4096, 512, 512), (1, 8192, 64, 2048)]:
+        b8 = torch.randint(-127, 128, (n, d), device="cuda", generator=g,
+                           dtype=torch.int8)
+        packed = b8.view(torch.int32)
+        q = torch.randn(qn, d, device="cuda", generator=g)
+        off = torch.rand(n, device="cuda", generator=g)
+        off[::9] = float("inf")
+        sc = -torch.rand(n, device="cuda", generator=g)
+        before = tk.fused_packed_pool.launches
+        v1, s1 = tk.fused_packed_pool(q, packed, off, sc, w)
+        v2, s2 = tk.fused_packed_pool_plain(q, packed, off, sc, w)
+        torch.cuda.synchronize()
+        assert tk.fused_packed_pool.launches == before + 1
         assert torch.equal(v1, v2) and torch.equal(s1, s2)

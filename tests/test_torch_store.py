@@ -62,5 +62,12 @@ def test_bulk_load_and_round_trip_through_host():
 
 
 def test_compressed_store_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        VectorStore(128, 8, raw=False, device="cpu")
+    """The compressed store is ported now; what it still does not take is
+    the reference's: rows that are not whole int32 words (dim % 4), and a
+    residual level on a raw store."""
+    st = VectorStore(128, 8, raw=False, device="cpu")
+    assert not st.raw and st.capacity == 2048
+    with pytest.raises(ValueError, match="dim % 4"):
+        VectorStore(128, 6, raw=False, device="cpu")
+    with pytest.raises(ValueError, match="raw=False"):
+        VectorStore(128, 8, device="cpu", residual=True)

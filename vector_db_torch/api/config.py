@@ -102,10 +102,11 @@ class HnswConfig:
 class HnswPqConfig:
     """Flagship HNSW+PQ settings (same fields and defaults as the reference).
 
-    The port serves ``raw_store=True`` with ``use_graph=False`` and the
-    search modes ``auto``, ``scan_exact`` and ``scan_pallas_int8`` (the
-    int8 pool kernel, ``ops/kernels.fused_int8_pool``); every other value
-    raises ``NotImplementedError`` naming its ROADMAP item.
+    The port serves both stores (``raw_store``; the compressed one with
+    ``refine_residual``) with ``use_graph=False``, and the search modes
+    ``auto``, ``scan_exact``, ``scan_pallas_int8``, ``adc_fast`` (pools
+    ``bucket`` and ``approx``) and ``scan_int8``; every other value raises
+    ``NotImplementedError`` naming its ROADMAP item.
     """
 
     m: int = 32
@@ -138,7 +139,7 @@ class HnswPqConfig:
     adc_pool: str = "bucket"
     balance_dims: bool = True  # variance-balanced PQ dimension permutation
     refine_store: str = "f32"
-    raw_store: bool = True  # False -> compressed tier (ROADMAP A9)
+    raw_store: bool = True  # False -> the compressed int8 tier
     refine_residual: bool = False
     adc_select_r: int = 0
     proxy_dims: int = 32

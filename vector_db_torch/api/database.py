@@ -132,10 +132,15 @@ class VectorDatabase:
                                    self.compression, index_config, self.device)
         # write-ahead log (native/ engine or its format-identical Python
         # twin): "buffered" | "flush" (default, survives a process crash) |
-        # "fsync" (survives an OS crash)
+        # "fsync" (survives an OS crash).  A compressed index
+        # (HnswPqConfig.raw_store=False) opens none, as in the reference:
+        # its WAL would hold the f32 rows the store exists not to hold, so
+        # its durability is the checkpoint (save / close / bulk loads).
         self.durability = durability
         self._engine = None
-        if storage_path:
+        compressed = getattr(getattr(self.index, "store", None), "raw",
+                             True) is False
+        if storage_path and not compressed:
             from ..storage.native import open_engine
 
             wal_dir = os.path.join(storage_path, "wal")
@@ -278,6 +283,22 @@ class VectorDatabase:
         if accepted and self.storage_path:
             self._save_unlocked()
         return accepted
+
+    @_writes
+    def bulk_load_stream(self, chunks) -> int:
+        """Streamed bulk ingest into an empty database (``chunks`` yields
+        (ids, vectors) pairs; see HnswPqIndex.bulk_load_stream): the path
+        for corpora whose f32 form the card should not hold, with
+        HnswPqConfig(raw_store=False).  A checkpoint is written right after
+        when a storage path is set."""
+        self._check_open()
+        if not hasattr(self.index, "bulk_load_stream"):
+            raise ValueError(
+                f"index kind {self.index.kind!r} has no bulk_load_stream")
+        n = self.index.bulk_load_stream(chunks)
+        if n and self.storage_path:
+            self._save_unlocked()
+        return n
 
     @_reads
     def get_vector(self, vec_id: int) -> Optional[Vector]:

@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernel `fused_int8_pool` of
 // vector_db_tpu/ops/pallas_kernels.py (pallas_call at :631; body
-// `_make_int8_pool_kernel` :568-577 and `_pool_accumulate` :375-397).
+// `_make_int8_pool_kernel` :568-577 and `_pool_accumulate` :375-397), and,
+// through the second entry point `vdb_fused_packed_pool`, the TPU kernel
+// `fused_packed_pool` (:900, pallas_call at :949), which is the same scan
+// over the compressed store's int32-packed rows: on this card those words
+// are already the int8 rows in true dim order, so one kernel serves both.
 //
 // What it computes, for queries q8 [Q, D] int8 with per-row scales sq [Q]
 // and a corpus shadow base8 [N, D] int8 with per-slot off [N], sc [N]:
@@ -255,28 +259,17 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_vals,
   slots[i] = bs;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory one block of the pool kernel needs for rows of d bytes.
-int vdb_int8_pool_smem_bytes(int d) {
-  const int dw8 = ((d / 4) + 7) & ~7;
-  return (kTQ + kTN) * (dw8 + kPadWords) * 4 + 2 * kTN * 4;
-}
-
-// Launch the pool on `stream`.  All pointers are device pointers; d % 4 == 0,
-// w % 128 == 0.  With splits == 1 the kernel writes vals/slots [q, w]
-// directly; otherwise it writes part_vals/part_slots [splits, q, w] and the
-// merge kernel reduces them into vals/slots.  Returns cudaGetLastError().
-int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
-                        const void* off, const void* sc, void* part_vals,
-                        void* part_slots, void* vals, void* slots, int q,
-                        int n, int d, int w, int splits, void* stream) {
+// Host side of both entry points: the pool kernel over int32 words
+// [n, d/4] (the int8 rows as 4-byte words), then the split merge.
+int launch_int8_pool(const void* q8, const void* sq, const int32_t* base8,
+                     const void* off, const void* sc, void* part_vals,
+                     void* part_slots, void* vals, void* slots, int q, int n,
+                     int d, int w, int splits, void* stream) {
   if (q <= 0 || w <= 0 || d <= 0 || d % 4 != 0 || w % kTN != 0 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = vdb_int8_pool_smem_bytes(d);
+  const int dw8 = ((d / 4) + 7) & ~7;  // shared: two tiles + off/sc columns
+  const int smem = (kTQ + kTN) * (dw8 + kPadWords) * 4 + 2 * kTN * 4;
   cudaError_t err = cudaFuncSetAttribute(
       int8_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -288,10 +281,9 @@ int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
                      reinterpret_cast<uintptr_t>(base8) % 16 == 0;
   dim3 grid(w / kTN, (q + kTQ - 1) / kTQ, splits);
   int8_pool_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const int32_t*>(q8), static_cast<const float*>(sq),
-      static_cast<const int32_t*>(base8), static_cast<const float*>(off),
-      static_cast<const float*>(sc), out_v, out_s, q, n, d / 4, w, passes,
-      pps, vec16);
+      static_cast<const int32_t*>(q8), static_cast<const float*>(sq), base8,
+      static_cast<const float*>(off), static_cast<const float*>(sc), out_v,
+      out_s, q, n, d / 4, w, passes, pps, vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long qw = (long long)q * w;
@@ -300,6 +292,38 @@ int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
                         s>>>(out_v, out_s, static_cast<float*>(vals),
                              static_cast<int32_t*>(slots), qw, splits);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the pool on `stream`.  All pointers are device pointers; d % 4 == 0,
+// w % 128 == 0.  With splits == 1 the kernel writes vals/slots [q, w]
+// directly; otherwise it writes part_vals/part_slots [splits, q, w] and the
+// merge kernel reduces them into vals/slots.  Returns cudaGetLastError().
+int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
+                        const void* off, const void* sc, void* part_vals,
+                        void* part_slots, void* vals, void* slots, int q,
+                        int n, int d, int w, int splits, void* stream) {
+  return launch_int8_pool(q8, sq, static_cast<const int32_t*>(base8), off, sc,
+                          part_vals, part_slots, vals, slots, q, n, d, w,
+                          splits, stream);
+}
+
+// fused_packed_pool: the same kernel over the compressed store's own rows,
+// int32 words [n, d/4] holding four int8 dims each, byte j of word c = dim
+// 4c + j (little-endian).  In memory that is byte for byte an int8 [n, d]
+// matrix in true dim order, so the unpack and query permutation of the TPU
+// kernel disappear.  The caller guarantees n % w == 0 (no tail pass).
+int vdb_fused_packed_pool(const void* q8, const void* sq,
+                          const int32_t* packed, const void* off,
+                          const void* sc, void* part_vals, void* part_slots,
+                          void* vals, void* slots, int q, int n, int d, int w,
+                          int splits, void* stream) {
+  if (w > 0 && n % w != 0) return (int)cudaErrorInvalidValue;
+  return launch_int8_pool(q8, sq, packed, off, sc, part_vals, part_slots, vals,
+                          slots, q, n, d, w, splits, stream);
 }
 
 const char* vdb_cuda_error_string(int code) {

@@ -1,21 +1,34 @@
-"""HNSW+PQ flagship index, raw f32 store, scan search (the counterpart of
-``vector_db_tpu/index/hnsw_pq.py`` without the graph).
+"""HNSW+PQ flagship index, raw f32 or compressed int8 store, scan search
+(the counterpart of ``vector_db_tpu/index/hnsw_pq.py`` without the graph).
 
 PQ codebooks train on the live corpus (lazily at the training threshold,
-or at ``bulk_load``), every row is encoded, and ``search_batch`` scans:
+at ``bulk_load``, or on the first chunk of ``bulk_load_stream``), every
+row is encoded, and ``search_batch`` scans:
 
-  * ``scan_exact`` — the exact f32 scan over the raw store
+  * ``scan_exact`` (raw store) — the exact f32 scan
     (:func:`exact_scan_search`: ``torch.matmul`` + exact top-k);
-  * ``scan_pallas_int8`` — the int8 pool kernel
-    (``ops/kernels.fused_int8_pool``, CUDA on the card) over a per-row
-    quantized, centered int8 shadow of the store, then an exact f32
-    re-rank of the pool (:func:`pallas_scan8_refine`);
-  * ``auto`` — scan_exact below 700,000 live rows, scan_pallas_int8 at and
-    above (the reference's crossover, :func:`_auto_scan_mode`).
+  * ``scan_pallas_int8`` — the int8 pool kernel with a re-rank of the pool:
+    over a per-row quantized, centered int8 shadow of a raw store
+    (``ops/kernels.fused_int8_pool``, :func:`pallas_scan8_refine`), or
+    directly over a compressed store's packed rows
+    (``ops/kernels.fused_packed_pool``, :func:`pallas_scan8p_refine`);
+  * ``adc_fast`` — decode the codes (``ops/kernels.pq_decode_recon_t``),
+    score against the reconstruction, pool, re-rank against the refine
+    store (``ops/adc.adc_fast_search``);
+  * ``scan_int8`` — the exhaustive scan over int8 rows (the compressed
+    store, or a raw store with ``refine_store="int8"``);
+  * ``auto`` — raw store: scan_exact below 700,000 live rows,
+    scan_pallas_int8 at and above (the reference's crossover,
+    :func:`_auto_scan_mode`); compressed store: adc_fast.
 
-The other modes, the graph, the compressed store and the IVF tier raise
-``NotImplementedError`` naming their ROADMAP item.  Unlike the reference,
-no [L, cap, M] graph is allocated when ``use_graph=False``.
+The compressed store (``raw_store=False``) keeps int8 rows, exact norms
+and optionally a residual level (``refine_residual``) and no f32 matrix;
+``bulk_load_stream`` fills it chunk by chunk.  Caches derived from the
+store or the codes are keyed on version counters (``store.version``, the
+codes' own ``_codes_version``): the port writes in place, so the
+reference's array-identity keys would never change.  The other modes, the
+graph and the IVF tier raise ``NotImplementedError`` naming their ROADMAP
+item.  Unlike the reference, no [L, cap, M] graph is allocated.
 """
 
 from __future__ import annotations
@@ -30,26 +43,33 @@ import torch
 from ..api.config import HnswPqConfig
 from ..core.store import VectorStore
 from ..ops import adc
-from ..ops.distance import (blocked_knn, blocked_knn_fast, blocked_rerank,
-                            normalize_rows)
-from ..ops.kernels import fused_int8_pool
+from ..ops.distance import (blocked_knn, blocked_knn_fast, blocked_knn_int8,
+                            blocked_rerank, blocked_rerank_int8,
+                            normalize_rows, pack_bf16_rows, pack_int8_rows,
+                            words_to_f32)
+from ..ops.kernels import (fused_int8_pool, fused_packed_pool,
+                           pq_decode_recon_t, preserved_pool_width)
 from ..ops.kmeans import subspace_kmeans_fit
 from .base import (VectorIndex, as_queries, pad_queries_pow2, pow2,
                    to_host_results)
 
 #: search modes the port serves, and the ROADMAP item that ports each other
-PORTED_MODES = ("auto", "scan_exact", "scan_pallas_int8")
+PORTED_MODES = ("auto", "scan_exact", "scan_pallas_int8", "adc_fast",
+                "scan_int8")
 _MODE_ROADMAP = {
-    "adc_fast": "A9", "scan_int8": "A9", "scan_bf16": "A10",
-    "scan_pallas": "A10", "pca": "A10", "adc": "A10", "graph": "A10",
-    "scan_ivf": "A12",
+    "scan_bf16": "A10", "scan_pallas": "A10", "pca": "A10", "adc": "A10",
+    "graph": "A10", "scan_ivf": "A12",
 }
+#: modes that read the raw f32 rows (refused by a compressed store)
+RAW_ONLY_MODES = ("scan_exact", "scan_pallas", "scan_bf16", "graph")
 #: live rows at which auto switches from scan_exact to scan_pallas_int8
 AUTO_INT8_MIN_ROWS = 700_000
 #: rows of the int8 shadow are padded to a multiple of this (the pool width)
 SHADOW_PAD_ROWS = 2048
-#: store rows quantized per step of a full shadow build
+#: store rows quantized (or decoded) per step of a full shadow build
 SHADOW_BUILD_ROWS = 1 << 16
+#: code columns decoded per step of the reconstruction-norm pass
+RECON_NORM_CHUNK = 1 << 19
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -61,7 +81,7 @@ class HnswPqIndex(VectorIndex):
 
     def __init__(self, dim: int, capacity: int, metric: str = "l2",
                  config: Optional[HnswPqConfig] = None, device="cuda"):
-        # private copy: num_subspaces is adjusted below
+        # private copy: num_subspaces / refine_store are adjusted below
         config = dataclasses.replace(config) if config else HnswPqConfig()
         sub = min(config.num_subspaces, dim)
         while dim % sub != 0:
@@ -69,10 +89,24 @@ class HnswPqIndex(VectorIndex):
         config.num_subspaces = sub
         super().__init__(dim, capacity, metric)
         if not config.raw_store:
-            raise _not_ported("raw_store=False (the compressed tier)", "A9")
-        if config.refine_residual:
-            raise ValueError("refine_residual=True needs the compressed store "
-                             "(raw_store=False)")
+            # the compressed tier holds no f32 rows: refuse what needs them
+            if dim % 4 != 0:
+                raise ValueError("raw_store=False requires dim % 4 == 0")
+            if config.use_graph:
+                raise ValueError(
+                    "raw_store=False is incompatible with use_graph=True "
+                    "(graph construction reads raw rows); use the scan modes")
+            if config.search_mode in RAW_ONLY_MODES:
+                raise ValueError(
+                    f"search_mode={config.search_mode!r} needs the raw f32 "
+                    "store; with raw_store=False use adc_fast | pca | adc | "
+                    "scan_int8 | scan_pallas_int8 | auto")
+            config.refine_store = "int8"
+        elif config.refine_residual:
+            raise ValueError(
+                "refine_residual=True needs the compressed store "
+                "(raw_store=False); the raw tier's f32 rows are already "
+                "exact refine sources")
         if config.use_graph:
             raise _not_ported("use_graph=True (graph search)", "A10")
         if config.search_mode not in PORTED_MODES:
@@ -83,38 +117,73 @@ class HnswPqIndex(VectorIndex):
         if config.nlist > 0:
             raise _not_ported("nlist > 0 (the IVF coarse quantizer)", "A12")
         self.config = config
-        self.store = VectorStore(capacity, dim, device=device)
+        self.store = VectorStore(capacity, dim, raw=config.raw_store,
+                                 device=device,
+                                 residual=config.refine_residual)
         self.device = self.store.device
         self.codes = torch.zeros((self.store.capacity, sub), dtype=torch.uint8,
                                  device=self.device)
+        # bumped by every write of codes or codebooks (keys the ADC tables)
+        self._codes_version = 0
         self.codebooks: Optional[torch.Tensor] = None  # [S, K, sub_dim]
         self.perm: Optional[torch.Tensor] = None  # PQ space = vectors[:, perm]
         self.trained = False
         self.seed = 42
         self._level_counter = 0  # checkpoint field of the reference's graph
-        # int8 scan shadow: (store.version, (base8, off, sc, center_vec)),
-        # its centering constant, and the store rows written since it was
-        # built ([] = none, None = unknown -> full rebuild)
+        # derived caches, each (version key, value):
+        #   _scan8_cache  raw int8 scan shadow (base8, off, sc, center_vec)
+        #                 with its centering constant _scan8_aux
+        #   _scan8p_cache compressed scan conditioning (off, sc, center_vec)
+        #   _packed_cache raw-store bf16 or int8 refine store
+        #   _fast_cache   ADC tables (codes_t, cbt, recon norms), keyed on
+        #                 (_codes_version, codebooks)
         self._scan8_cache: Optional[tuple] = None
         self._scan8_aux: Optional[torch.Tensor] = None
+        self._scan8p_cache: Optional[tuple] = None
+        self._packed_cache: Optional[tuple] = None
+        self._fast_cache: Optional[tuple] = None
+        # rows (store slots) written since a cache was built, for its
+        # incremental refresh: [] = none, None = unknown -> full rebuild.
+        # _fast_dirty records re-encoded slots and has one writer,
+        # _encode_slots (removals touch no code).
         self._scan8_dirty: Optional[list] = []
-        # concurrent searches must not both refresh the shadow in place
+        self._pack_dirty: Optional[list] = []
+        self._fast_dirty: Optional[list] = []
+        # concurrent searches must not both refresh a cache in place
         self._cache_lock = threading.Lock()
 
     # ------------------------------------------------------------- mutation
-    def _note_row_mutation(self, slots: np.ndarray) -> None:
-        """Record rows for the shadow's incremental refresh; past
-        max(8192, capacity / 8) rows the record degrades to a rebuild."""
-        if self._scan8_dirty is None:
+    _ROW_RECORDS = ("_scan8_dirty", "_pack_dirty")
+
+    def _note_slots(self, attr: str, slots: np.ndarray) -> None:
+        """Append slots to a dirty record; past max(8192, capacity / 8)
+        rows the record degrades to a full rebuild (None)."""
+        rec = getattr(self, attr)
+        if rec is None:
             return
-        self._scan8_dirty.append(np.asarray(slots, np.int64).ravel())
-        limit = max(8192, self.store.capacity // 8)
-        if sum(a.size for a in self._scan8_dirty) > limit:
-            self._scan8_dirty = None
+        rec.append(np.asarray(slots, np.int64).ravel())
+        if sum(a.size for a in rec) > max(8192, self.store.capacity // 8):
+            setattr(self, attr, None)
+
+    def _note_row_mutation(self, slots: np.ndarray) -> None:
+        """Record store rows written or removed, for the row caches."""
+        for attr in self._ROW_RECORDS:
+            self._note_slots(attr, slots)
 
     def _note_store_rewrite(self) -> None:
-        """An untracked rewrite of the whole store: rebuild the shadow."""
-        self._scan8_dirty = None
+        """An untracked rewrite of the whole store: every record is void."""
+        for attr in self._ROW_RECORDS + ("_fast_dirty",):
+            setattr(self, attr, None)
+
+    def _take_dirty(self, attr: str) -> Optional[torch.Tensor]:
+        """Consume a record: its unique slots on the device, or None when
+        it is empty or void (the caller then rebuilds)."""
+        rec = getattr(self, attr)
+        setattr(self, attr, [])
+        if not rec:
+            return None
+        return torch.as_tensor(np.unique(np.concatenate(rec)),
+                               device=self.device)
 
     def add_batch(self, ids: Sequence[int], vectors) -> list[int]:
         accepted, slots = self.store.add_batch(ids, vectors)
@@ -141,6 +210,94 @@ class HnswPqIndex(VectorIndex):
             self.train()
         return accepted
 
+    def bulk_load_stream(self, chunks) -> int:
+        """Streamed bulk ingest: the raw corpus never exists in full.
+
+        ``chunks`` yields ``(ids, vectors)`` pairs (ids [c] ints, vectors
+        [c, dim] f32, ideally on the index's device).  Rows land in
+        contiguous slots in arrival order.  The first chunk trains the PQ
+        codebooks and must hold >= ``num_centroids`` rows; each chunk is
+        then written to the store (raw, or int8-packed with exact norms and
+        the residual level) and encoded, in place, so at most one f32 chunk
+        is resident beside the index.  Each chunk is validated before any
+        of it is written; whatever was written stays consistent if a later
+        chunk raises.  Returns the number of rows ingested.
+        """
+        if self.store.size() > 0:
+            raise ValueError("bulk_load_stream requires an empty index")
+        self._note_store_rewrite()
+        cap = self.store.capacity
+        start = 0
+        id_map = self.store._id_to_slot
+        try:
+            for ids, vecs in chunks:
+                ids_np = np.asarray(ids, np.int32)
+                vecs = torch.as_tensor(vecs, dtype=torch.float32).to(
+                    self.device)
+                c = vecs.shape[0]
+                # validate BEFORE writing anything of this chunk
+                if vecs.ndim != 2 or vecs.shape[1] != self.dim:
+                    raise ValueError(
+                        f"expected [*, {self.dim}] chunk, got "
+                        f"{tuple(vecs.shape)}")
+                if len(ids_np) != c:
+                    raise ValueError("ids/vectors length mismatch in chunk")
+                if start + c > cap:
+                    raise ValueError(
+                        f"stream exceeds capacity: {start + c} > {cap}")
+                if np.any(ids_np < 0):
+                    raise ValueError("negative ids in bulk_load_stream")
+                if np.unique(ids_np).size != c:
+                    raise ValueError("duplicate ids within a chunk")
+                if any(int(v) in id_map for v in ids_np):
+                    raise ValueError("duplicate ids across chunks")
+                if not self.trained:
+                    self._fit_quantizers(vecs)
+                self.store.write_range(start, ids_np, vecs)
+                self.codes[start:start + c] = adc.pq_encode(
+                    self._pq_space(vecs), self.codebooks)
+                start += c
+        finally:
+            # the freelist reflects whatever was written, even on a raise
+            self.store._free = list(range(cap - 1, start - 1, -1))
+            self._codes_version += 1
+        return start
+
+    def _fit_quantizers(self, data: torch.Tensor) -> None:
+        """Fit the PQ codebooks (and the dimension permutation) on a
+        training sample of the first streamed chunk; encodes nothing."""
+        n = data.shape[0]
+        if n < self.config.num_centroids:
+            raise ValueError(
+                f"first chunk must hold >= {self.config.num_centroids} "
+                f"training rows, got {n}")
+        sample = data
+        if n > self.config.training_samples:
+            rng = np.random.default_rng(self.seed)
+            pick = np.sort(rng.choice(n, self.config.training_samples,
+                                      replace=False))
+            sample = data[torch.as_tensor(pick, device=data.device)]
+        self._fit_codebooks(sample)
+
+    def _fit_codebooks(self, data: torch.Tensor) -> None:
+        """Per-subspace k-means++ on training rows (normalized under
+        cosine, after the variance-balancing permutation)."""
+        if self.metric == "cosine":
+            data = normalize_rows(data)
+        if self.config.balance_dims:
+            v = torch.var(data, dim=0, unbiased=False).cpu().numpy()
+            self.perm = torch.as_tensor(
+                adc.balanced_subspace_perm(v, self.config.num_subspaces),
+                device=self.device)
+            data = data[:, self.perm]
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.codebooks = subspace_kmeans_fit(
+            gen, data, self.config.num_subspaces,
+            k=self.config.num_centroids,
+            iters=self.config.training_iterations, plus_plus=True)
+        self.trained = True
+        self._codes_version += 1
+
     def remove(self, vec_id: int) -> bool:
         slot = self.store.remove(vec_id)
         if slot is None:
@@ -161,21 +318,7 @@ class HnswPqIndex(VectorIndex):
             rng = np.random.default_rng(self.seed)
             sample = rng.choice(sample, self.config.training_samples,
                                 replace=False)
-        data = self.store.rows(np.sort(sample))
-        if self.metric == "cosine":
-            data = normalize_rows(data)
-        if self.config.balance_dims:
-            v = torch.var(data, dim=0, unbiased=False).cpu().numpy()
-            self.perm = torch.as_tensor(
-                adc.balanced_subspace_perm(v, self.config.num_subspaces),
-                device=self.device)
-            data = data[:, self.perm]
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.codebooks = subspace_kmeans_fit(
-            gen, data, self.config.num_subspaces,
-            k=self.config.num_centroids,
-            iters=self.config.training_iterations, plus_plus=True)
-        self.trained = True
+        self._fit_codebooks(self.store.rows(np.sort(sample)))
         self._encode_slots(live)
         return True
 
@@ -189,7 +332,8 @@ class HnswPqIndex(VectorIndex):
 
     def _encode_slots(self, slots: np.ndarray) -> None:
         """PQ-encode the given slots, in chunks whose [S, rows, K] distance
-        block fits ``adc.ENCODE_CHUNK_BYTES``."""
+        block fits ``adc.ENCODE_CHUNK_BYTES`` (the compressed store
+        dequantizes only one chunk of rows at a time)."""
         if self.codebooks is None or len(slots) == 0:
             return
         s, k, _ = self.codebooks.shape
@@ -199,7 +343,9 @@ class HnswPqIndex(VectorIndex):
         for start in range(0, slots_t.numel(), chunk):
             sl = slots_t[start:start + chunk]
             self.codes[sl] = adc.pq_encode(
-                self._pq_space(self.store.state.vectors[sl]), self.codebooks)
+                self._pq_space(self.store.rows(sl)), self.codebooks)
+        self._codes_version += 1
+        self._note_slots("_fast_dirty", slots)
 
     def _pq_space(self, vecs: torch.Tensor) -> torch.Tensor:
         """Vectors as the quantizer sees them: normalized under cosine,
@@ -210,24 +356,20 @@ class HnswPqIndex(VectorIndex):
             vecs = vecs[:, self.perm]
         return vecs
 
-    # ---------------------------------------------------------- int8 shadow
+    # ------------------------------------------------------- derived caches
     def _scan8_shadow(self) -> tuple:
-        """(base8, off, sc, center_vec) for scan_pallas_int8, current with
-        the store.  Rows written since the last build are requantized
-        against the cached centering (_update_scan8_shadow, O(dirty * d));
-        an unknown or over-threshold rewrite rebuilds it whole."""
+        """(base8, off, sc, center_vec) for scan_pallas_int8 on a raw
+        store, current with the store.  Rows written since the last build
+        are requantized against the cached centering (O(dirty * d)); an
+        unknown or over-threshold rewrite rebuilds it whole."""
         with self._cache_lock:
             st = self.store.state
             cache = self._scan8_cache
             if cache is not None and cache[0] == self.store.version:
                 return cache[1]
-            slots = None
+            slots = self._take_dirty("_scan8_dirty")
             if cache is not None and self._scan8_aux is not None \
-                    and self._scan8_dirty:
-                slots = torch.as_tensor(
-                    np.unique(np.concatenate(self._scan8_dirty)),
-                    device=self.device)
-            if slots is not None:
+                    and slots is not None:
                 shadow = cache[1]
                 _update_scan8_shadow(*shadow[:3], st.vectors, st.norms,
                                      st.valid, slots, shadow[3],
@@ -237,8 +379,91 @@ class HnswPqIndex(VectorIndex):
                     st.vectors, st.norms, st.valid, self.metric,
                     SHADOW_PAD_ROWS)
             self._scan8_cache = (self.store.version, tuple(shadow))
-            self._scan8_dirty = []
             return self._scan8_cache[1]
+
+    def _scan8p_shadow(self) -> tuple:
+        """(off, sc, center_vec) for scan_pallas_int8 on a compressed
+        store: O(N) conditioning vectors (the kernel reads the store's own
+        packed rows), rebuilt whenever the store's version moved."""
+        with self._cache_lock:
+            st = self.store.state
+            if self._scan8p_cache is None \
+                    or self._scan8p_cache[0] != self.store.version:
+                self._scan8p_cache = (self.store.version, _build_scan8p_shadow(
+                    st.packed, st.scales, st.norms, st.valid, self.metric))
+            return self._scan8p_cache[1]
+
+    def _packed_refine_store(self) -> Optional[torch.Tensor]:
+        """The bf16 refine store of a raw store with refine_store="bf16",
+        current with the store (dirty rows repacked only), else None."""
+        if self.config.refine_store != "bf16" or not self.store.raw:
+            return None
+        return self._raw_refine_cache(lambda v: (pack_bf16_rows(v),))[0]
+
+    def _int8_refine_store(self) -> Optional[tuple]:
+        """(packed [cap, d/4] int32, scales [cap]) int8 refine rows, or
+        None: the compressed store's own rows, or a packed shadow of a raw
+        store with refine_store="int8" (dirty rows repacked only)."""
+        if not self.store.raw:
+            return self.store.state.packed, self.store.state.scales
+        if self.config.refine_store != "int8":
+            return None
+        return self._raw_refine_cache(pack_int8_rows)
+
+    def _raw_refine_cache(self, pack) -> tuple:
+        """A per-row packing of the raw store (``pack`` returns a tuple of
+        [N, ...] tensors), kept current: the rows in _pack_dirty are
+        repacked in place, bit-identical to a full rebuild."""
+        with self._cache_lock:
+            vecs = self.store.state.vectors
+            cache = self._packed_cache
+            if cache is not None and cache[0] == self.store.version:
+                return cache[1]
+            slots = self._take_dirty("_pack_dirty")
+            if cache is not None and slots is not None:
+                for dst, src in zip(cache[1], pack(vecs[slots])):
+                    dst[slots] = src
+                value = cache[1]
+            else:
+                value = pack(vecs)
+            self._packed_cache = (self.store.version, value)
+            return value
+
+    def _int8_resid_store(self) -> tuple:
+        """(resid, rscales) of a compressed store with the residual level,
+        else (None, None)."""
+        st = self.store.state
+        if self.store.raw or st.resid is None:
+            return None, None
+        return st.resid, st.rscales
+
+    def _fast_tables(self) -> tuple:
+        """(codes_t [S, cap] uint8, cbt [S*sd, K], reconstruction norms
+        [cap]) for adc_fast, current with the codes.  Re-encoded slots are
+        refreshed in place (_update_fast_tables); new codebooks or an
+        unknown rewrite rebuild them, the norms in RECON_NORM_CHUNK-column
+        decode passes (never a [d, cap] reconstruction)."""
+        with self._cache_lock:
+            cache = self._fast_cache
+            if cache is not None and cache[0] == self._codes_version \
+                    and cache[1] is self.codebooks:
+                return cache[2:]
+            slots = self._take_dirty("_fast_dirty")
+            if cache is not None and cache[1] is self.codebooks \
+                    and slots is not None:
+                ct, cbt, cnorms = cache[2:]
+                _update_fast_tables(ct, cnorms, self.codes, self.codebooks,
+                                    slots)
+            else:
+                self._fast_cache = None  # free the old tables first
+                ct = self.codes.T.contiguous()
+                cbt = adc.codebooks_to_cbt(self.codebooks)
+                cnorms = torch.cat([
+                    _recon_norms(ct[:, s:s + RECON_NORM_CHUNK], cbt)
+                    for s in range(0, ct.shape[1], RECON_NORM_CHUNK)])
+            self._fast_cache = (self._codes_version, self.codebooks, ct, cbt,
+                                cnorms)
+            return self._fast_cache[2:]
 
     # --------------------------------------------------------------- search
     def _f32_scan_block(self, capacity: int, q_n: int) -> int:
@@ -247,25 +472,54 @@ class HnswPqIndex(VectorIndex):
         block = max(32768, min(1 << 20, (1 << 28) // max(q_n, 1)))
         return min(block - block % 128, max(capacity, 128))
 
+    def _scan_chunk(self, capacity: int, q_n: int) -> int:
+        """Chunk length of the streamed adc_fast scan: the smallest chunk
+        (131,072) for Q <= 64, else few big chunks with the [Q, chunk] f32
+        block <= 2 GB and the [d, chunk] bf16 reconstruction <= 512 MB (the
+        reference's rule)."""
+        if q_n <= 64:
+            return min(131072, max(capacity, 128))
+        by_q = (1 << 29) // max(q_n, 1)
+        by_decode = (1 << 28) // max(self.dim, 1)
+        chunk = max(131072, min(1 << 20, by_q, by_decode))
+        return min(chunk - chunk % 128, max(capacity, 128))
+
     def search_batch(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         q = as_queries(queries, self.dim, self.device)
         st = self.store.state
+        raw = self.store.raw
         n_live = self.store.size()
         padded, q_n = pad_queries_pow2(q)
         k_eff = min(k, st.capacity)
         k_pad = min(pow2(k_eff), st.capacity)
+        resid, rscales = self._int8_resid_store()
 
         if not self.trained or n_live <= k:
             # exact fallback until trained, and whenever every row is wanted
-            dists, slots = blocked_knn(
-                padded, st.vectors, st.valid, k_pad, metric=self.metric,
-                b_norms=st.norms, block_n=min(8192, st.capacity))
+            if raw:
+                dists, slots = blocked_knn(
+                    padded, st.vectors, st.valid, k_pad, metric=self.metric,
+                    b_norms=st.norms, block_n=min(8192, st.capacity))
+            else:
+                dists, slots = blocked_knn_int8(
+                    padded, st.packed, st.scales, st.valid, k_pad,
+                    metric=self.metric, b_norms=st.norms,
+                    block_n=min(262144, st.capacity), resid=resid,
+                    rscales=rscales)
             return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
 
-        mode = self.config.search_mode
-        if mode == "auto":
-            mode = _auto_scan_mode(self.config.use_graph, n_live)
-        if mode == "scan_pallas_int8":
+        mode = self.resolve_mode(n_live)
+        if not raw and mode in RAW_ONLY_MODES:
+            raise ValueError(f"search_mode={mode!r} needs the raw f32 store "
+                             "(raw_store=False)")
+        if mode == "scan_pallas_int8" and not raw:
+            off, sc, cvec = self._scan8p_shadow()
+            w = preserved_pool_width(st.capacity)
+            dists, ext = pallas_scan8p_refine(
+                padded, st.packed, st.scales, st.norms, off, sc, cvec,
+                st.ids, k_pad, self.metric, pool=min(max(4 * k_pad, 64), w),
+                w=w, resid=resid, rscales=rscales)
+        elif mode == "scan_pallas_int8":
             base8, off, sc, cvec = self._scan8_shadow()
             w = min(SHADOW_PAD_ROWS, base8.shape[0])
             dists, ext = pallas_scan8_refine(
@@ -275,10 +529,57 @@ class HnswPqIndex(VectorIndex):
             dists, ext = exact_scan_search(
                 padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
                 self.metric, self._f32_scan_block(st.capacity, padded.shape[0]))
+        elif mode == "scan_int8":
+            i8 = self._int8_refine_store()
+            if i8 is None:
+                raise ValueError("search_mode='scan_int8' needs "
+                                 "raw_store=False or refine_store='int8'")
+            dists, slots = blocked_knn_int8(
+                padded, i8[0], i8[1], st.valid, k_pad, metric=self.metric,
+                b_norms=st.norms, block_n=min(262144, st.capacity),
+                resid=resid, rscales=rscales)
+            return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
+        elif mode == "adc_fast":
+            dists, ext = self._adc_fast(padded, k_pad, resid, rscales)
         else:
             raise _not_ported(f"search_mode={mode!r}",
                               _MODE_ROADMAP.get(mode, "A10"))
         return to_host_results(q_n, k, k_eff, ext, None, dists)
+
+    def resolve_mode(self, n_live: int) -> str:
+        """The scan a trained index runs for ``search_mode`` at ``n_live``
+        live rows: auto is adc_fast on a compressed store, else
+        :func:`_auto_scan_mode`."""
+        mode = self.config.search_mode
+        if mode != "auto":
+            return mode
+        if not self.store.raw:
+            return "adc_fast"
+        return _auto_scan_mode(self.config.use_graph, n_live)
+
+    def _adc_fast(self, padded, k_pad, resid, rscales):
+        """adc_fast on either store: chunked once the [Q, N] f32 block would
+        pass 512 MB or the [d, N] bf16 reconstruction 1 GB."""
+        st = self.store.state
+        ct, cbt, cnorms = self._fast_tables()
+        need_chunk = (padded.shape[0] * st.capacity * 4 > 512 << 20
+                      or st.capacity * self.dim * 2 > 1 << 30)
+        chunk = (self._scan_chunk(st.capacity, padded.shape[0])
+                 if need_chunk else 0)
+        i8 = self._int8_refine_store()
+        return adc.adc_fast_search(
+            padded, ct, cbt, st.valid, st.vectors if self.store.raw else None,
+            st.ids, k=k_pad,
+            bucket=max(2, min(self.config.adc_bucket, st.capacity // 2)),
+            winners=self.config.adc_winners, metric=self.metric,
+            chunk_n=chunk, pool_mode=self.config.adc_pool,
+            code_norms=cnorms, perm=self.perm,
+            packed_base=self._packed_refine_store(),
+            select_r=self.config.adc_select_r,
+            int8_base=None if i8 is None else i8[0],
+            int8_scales=None if i8 is None else i8[1],
+            int8_norms=None if i8 is None else st.norms,
+            int8_resid=resid, int8_rscales=rscales)
 
     # ---------------------------------------------------------------- state
     def size(self) -> int:
@@ -290,10 +591,19 @@ class HnswPqIndex(VectorIndex):
     def stats(self) -> dict:
         s = super().stats()
         sub = self.config.num_subspaces
-        code_bytes = self.store.capacity * sub
+        cap = self.store.capacity
+        code_bytes = cap * sub
         cb_bytes = (self.codebooks.numel() * 4
                     if self.codebooks is not None else 0)
-        raw_bytes = self.store.capacity * self.dim * 4
+        # store_bytes is what is resident: f32 rows, or packed int8 rows +
+        # scales + exact norms (+ the residual level); raw_bytes is the f32
+        # size of the rows, as in the reference
+        if self.store.raw:
+            store_bytes = cap * self.dim * 4
+        else:
+            store_bytes = cap * (self.dim + 8)
+            if self.store.state.resid is not None:
+                store_bytes += cap * (self.dim + 4)
         s.update(
             trained=self.trained,
             num_subspaces=sub,
@@ -301,9 +611,9 @@ class HnswPqIndex(VectorIndex):
             compression_ratio=4.0 * self.dim / sub,
             index_bytes=code_bytes + cb_bytes,
             proxy_bytes=0,
-            raw_bytes=raw_bytes,
-            store_bytes=raw_bytes,
-            raw_store=True,
+            raw_bytes=cap * self.dim * 4,
+            store_bytes=store_bytes,
+            raw_store=self.store.raw,
             use_graph=False,
             pending_inserts=0,
             device=str(self.device),
@@ -326,23 +636,26 @@ class HnswPqIndex(VectorIndex):
         return out
 
     def load_state_arrays(self, arrays: dict) -> None:
-        """Load ``state_arrays()`` of either package (numpy arrays; the
-        reference's graph and other modes' state are ignored) onto this
-        index's device."""
+        """Load ``state_arrays()`` of either package, raw or compressed
+        store (numpy arrays; the reference's graph and other modes' state
+        are ignored) onto this index's device."""
         dev = self.device
         self.store = VectorStore.from_host(arrays["store"], dev)
         self.codes = torch.tensor(np.asarray(arrays["codes"], np.uint8),
-                                     device=dev)
+                                  device=dev)
         self.trained = bool(np.asarray(arrays["trained"])[0])
         self._level_counter = int(np.asarray(arrays["level_counter"])[0])
         self.codebooks = (
             torch.tensor(np.asarray(arrays["codebooks"], np.float32),
-                            device=dev)
+                         device=dev)
             if "codebooks" in arrays else None)
         self.perm = (torch.tensor(np.asarray(arrays["perm"], np.int64),
-                                     device=dev)
+                                  device=dev)
                      if "perm" in arrays else None)
-        self._scan8_cache = None
+        # the new store restarts its version: drop every derived cache
+        self._scan8_cache = self._scan8p_cache = None
+        self._packed_cache = self._fast_cache = None
+        self._codes_version += 1
         self._note_store_rewrite()
 
 
@@ -432,6 +745,61 @@ def _update_scan8_shadow(base8, off, sc, vectors, norms, valid, slots, cvec,
     sc[slots] = sc_s
 
 
+def _build_scan8p_shadow(packed, scales, norms, valid, metric):
+    """Conditioning vectors for the packed-store scan: (off [N], sc [N],
+    center_vec [d]); no corpus copy.  The rows were quantized uncentered
+    at write time; centering is query-side, with the per-slot cross term
+    ``cvec . v8_n`` folded into the offset by one blocked decode pass
+    (SHADOW_BUILD_ROWS rows a step; the last block may be short):
+
+      * sq-L2: off = norms - 2 scale (mu . v8), sc = -2 scale; queries
+        center as q - mu (mu: mean of the first 4096 slots' live rows).
+      * cosine: off = -scale/|v| (cdir . v8), sc = -scale/|v|; queries
+        center as q_hat - cdir.
+
+    Dead slots get off = +inf."""
+    n = packed.shape[0]
+    m = min(4096, n)
+    pref = words_to_f32(packed[:m]) * scales[:m, None]
+    w = valid[:m].to(torch.float32)
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+    if metric == "cosine":
+        pn = torch.sqrt(torch.clamp(torch.sum(pref * pref, dim=1), min=1e-12))
+        mu = torch.sum(pref / pn[:, None] * w[:, None], dim=0) / wsum
+        cvec = mu * torch.rsqrt(torch.clamp(torch.sum(mu * mu), min=1e-12))
+    else:
+        cvec = torch.sum(pref * w[:, None], dim=0) / wsum
+    corr = torch.cat([words_to_f32(packed[s:s + SHADOW_BUILD_ROWS]) @ cvec
+                      for s in range(0, n, SHADOW_BUILD_ROWS)])
+    if metric == "cosine":
+        sc = -scales * torch.rsqrt(torch.clamp(norms, min=1e-12))
+        off = sc * corr
+    else:
+        sc = -2.0 * scales
+        off = norms - 2.0 * scales * corr
+    return torch.where(valid, off, float("inf")), sc, cvec
+
+
+def _recon_norms(ct_blk, cbt):
+    """Squared reconstruction norms of one code chunk, from the decode
+    kernel's bf16 reconstruction."""
+    r = pq_decode_recon_t(ct_blk, cbt).to(torch.float32)
+    return torch.sum(r.square_(), dim=0)
+
+
+def _update_fast_tables(ct, cnorms, codes, codebooks, slots) -> None:
+    """Refresh the ADC tables of re-encoded slots in place: their codes_t
+    columns, and their reconstruction norms from per-subspace square norms
+    of the bf16-rounded codebook entries (the values the decode pass
+    produces, summed in another order: within ~1e-6 of a rebuild)."""
+    sub = codes[slots].long()                                  # [m, S]
+    cb16 = codebooks.to(torch.bfloat16).to(torch.float32)
+    cb_sq = torch.sum(cb16 * cb16, dim=2)                      # [S, K]
+    s_idx = torch.arange(sub.shape[1], device=sub.device)[None, :]
+    ct[:, slots] = sub.T.to(ct.dtype)
+    cnorms[slots] = torch.sum(cb_sq[s_idx, sub], dim=1)
+
+
 def _pool_select_cand(queries, center_vec, metric, pool_kernel, pool_args,
                       pool, w):
     """Center (and under cosine normalize) the queries, run the pool
@@ -444,6 +812,23 @@ def _pool_select_cand(queries, center_vec, metric, pool_kernel, pool_args,
     nv, sel = torch.topk(vals, pool, dim=1, largest=False, sorted=True)
     cand = torch.gather(idx, 1, sel)
     return torch.where(torch.isfinite(nv), cand, torch.full_like(cand, -1))
+
+
+def pallas_scan8p_refine(queries, packed, scales, norms, off, sc, center_vec,
+                         ids, k, metric, pool, w, resid=None, rscales=None):
+    """The compressed tier's exhaustive scan: the packed pool kernel
+    (``ops/kernels.fused_packed_pool``) over the store's own int8 rows,
+    an exact top-``pool`` of its bucket winners, then the int8 refine with
+    exact write-time norms (+ the residual level): returns (dists [Q, k],
+    external ids [Q, k], -1 where empty)."""
+    cand = _pool_select_cand(queries, center_vec, metric, fused_packed_pool,
+                             (packed, off, sc), pool, w)
+    d, slots = blocked_rerank_int8(queries, packed, scales, cand, k, metric,
+                                   rb=pool, b_norms=norms, resid=resid,
+                                   rscales=rscales)
+    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                      torch.full_like(slots, -1).to(ids.dtype))
+    return d, ext
 
 
 def pallas_scan8_refine(queries, base, base8, off, sc, center_vec, ids, k,

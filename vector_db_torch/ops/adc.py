@@ -1,11 +1,24 @@
-"""Product-quantization encode (the training subset of
-``vector_db_tpu/ops/adc.py``: ``pq_encode`` and ``balanced_subspace_perm``;
-the ADC scans are ROADMAP A9/A10)."""
+"""Product quantization: encode and the fast codes-only scoring pipeline
+(the counterpart of ``vector_db_tpu/ops/adc.py``: ``pq_encode``,
+``balanced_subspace_perm``, ``codebooks_to_cbt`` and ``adc_fast_search``;
+the table scans ``adc_scan_topk``/``adc_decode_topk`` are ROADMAP A10).
+
+``adc_fast_search`` decodes the codes with the PQ decode kernel
+(``ops/kernels.pq_decode_recon_t``), scores the queries against the
+reconstruction with one matrix product, keeps an unranked or ranked pool,
+and re-ranks the pool against a refine store.  The selections are exact
+``torch.topk`` where the reference used ``approx_max_k``.
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from .distance import blocked_rerank, blocked_rerank_int8, normalize_rows
+from .kernels import pq_decode_recon_t
 
 #: bytes of the [S, rows, K] f32 distance block one pq_encode chunk holds
 ENCODE_CHUNK_BYTES = 1 << 30
@@ -52,3 +65,169 @@ def balanced_subspace_perm(variances, num_subspaces: int) -> np.ndarray:
         members[s].append(int(dim))
         totals[s] += v[dim]
     return np.concatenate([np.asarray(m, np.int64) for m in members])
+
+
+def codebooks_to_cbt(codebooks: torch.Tensor) -> torch.Tensor:
+    """[S, K, sd] -> the decode kernel's [S*sd, K] gather layout."""
+    s, k, sd = codebooks.shape
+    return codebooks.permute(0, 2, 1).reshape(s * sd, k).contiguous()
+
+
+def scan_dtype(device: torch.device) -> torch.dtype:
+    """The scoring product's input type: bf16 on the card (f32
+    accumulation, as the reference on its TPU), f32 on the CPU (as the
+    reference's CPU backend, which the tests compare with)."""
+    return torch.float32 if device.type == "cpu" else torch.bfloat16
+
+
+def code_norms_from_codes(codes_t: torch.Tensor, cbt: torch.Tensor,
+                          valid: torch.Tensor,
+                          code_norms: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """[N] squared reconstruction norms with +inf at dead slots; a cached
+    ``code_norms`` skips the decode pass."""
+    if code_norms is None:
+        r32 = pq_decode_recon_t(codes_t, cbt).to(torch.float32)
+        code_norms = torch.sum(r32 * r32, dim=0)
+    return torch.where(valid, code_norms, float("inf"))
+
+
+def _decode_cross(qb: torch.Tensor, codes_t: torch.Tensor,
+                  cbt: torch.Tensor) -> torch.Tensor:
+    """q . reconstruction cross terms [Q, n] f32: the decode kernel's bf16
+    [d, n] reconstruction, then one product with f32 output (bf16 inputs on
+    the card, ``torch.mm(..., out_dtype=torch.float32)``; f32 on the CPU)."""
+    recon_t = pq_decode_recon_t(codes_t, cbt)                   # [d, n] bf16
+    if qb.dtype == torch.float32:
+        return qb @ recon_t.to(torch.float32)
+    return torch.mm(qb, recon_t, out_dtype=torch.float32)
+
+
+def _score_pool_chunk(qb: torch.Tensor, codes_t: torch.Tensor,
+                      cbt: torch.Tensor, masked_norms: torch.Tensor,
+                      bucket: int, winners: int, pool_mode: str = "bucket"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score one corpus chunk from its codes and return its candidate pool
+    (values, local slots, -1 where empty):
+
+      * ``"bucket"``: the best ``winners`` of each strided bucket (slot i
+        joins bucket i % nb), unranked, pool = winners * ceil(n / bucket);
+      * ``"approx"``: a ranked top-``winners * nb`` (exact ``torch.topk``
+        where the reference used ``approx_max_k``).
+    """
+    if pool_mode == "fused":
+        raise NotImplementedError(
+            "adc_pool='fused' (kernel B5 fused_adc_pool) is not ported yet: "
+            "ROADMAP A10")
+    q_n, n = qb.shape[0], codes_t.shape[1]
+    # masked_norms - 2 cross in one in-place pass (x -2 is exact, so this
+    # rounds as the reference's two ops); + ||q||^2 is a per-row constant
+    cross = _decode_cross(qb, codes_t, cbt)
+    dist = torch.add(masked_norms, cross, alpha=-2.0, out=cross)
+    n_pad = (-n) % bucket
+    nb = (n + n_pad) // bucket
+    if pool_mode == "approx":
+        vals, idx = torch.topk(dist, min(winners * nb, n), dim=1,
+                               largest=False, sorted=True)
+        idx = idx.to(torch.int32)
+        return vals, torch.where(torch.isfinite(vals), idx,
+                                 torch.full_like(idx, -1))
+    if n_pad:
+        dist = torch.nn.functional.pad(dist, (0, n_pad), value=float("inf"))
+    d3 = dist.view(q_n, bucket, nb)                             # strided sets
+    col = torch.arange(nb, dtype=torch.int32, device=dist.device)
+    pools, pvals = [], []
+    for _ in range(winners):
+        val, arg = torch.min(d3, dim=1)                         # [Q, nb]
+        arg = arg.to(torch.int32)
+        pools.append(torch.where(torch.isfinite(val), arg * nb + col,
+                                 torch.full_like(arg, -1)))
+        pvals.append(val)
+        if winners > 1:
+            d3 = d3.scatter(1, arg.long()[:, None, :], float("inf"))
+    return torch.cat(pvals, dim=1), torch.cat(pools, dim=1)
+
+
+def adc_fast_search(queries: torch.Tensor, codes_t: torch.Tensor,
+                    cbt: torch.Tensor, valid: torch.Tensor,
+                    base: Optional[torch.Tensor], ids: torch.Tensor, k: int,
+                    bucket: int = 32, winners: int = 1, metric: str = "l2",
+                    rerank_block: int = 512, chunk_n: int = 0,
+                    pool_mode: str = "bucket",
+                    code_norms: Optional[torch.Tensor] = None,
+                    perm: Optional[torch.Tensor] = None,
+                    packed_base: Optional[torch.Tensor] = None,
+                    select_r: int = 0,
+                    int8_base: Optional[torch.Tensor] = None,
+                    int8_scales: Optional[torch.Tensor] = None,
+                    int8_norms: Optional[torch.Tensor] = None,
+                    int8_resid: Optional[torch.Tensor] = None,
+                    int8_rscales: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fast codes-only pipeline: decode -> one product -> pool ->
+    re-rank of the pool against the refine store.
+
+    queries [Q, d] f32; codes_t [S, N] uint8; cbt [S*sd, K] f32; valid [N]
+    bool; ids [N] external ids.  The refine reads ``int8_base`` (+ scales,
+    exact norms, residual) when given, else the bf16 ``packed_base``
+    (``ops/distance.pack_bf16_rows``), else the raw f32 ``base``.  With ``chunk_n`` in (0, N) the corpus is scored
+    in chunks of ``chunk_n`` columns, so no [Q, N] block or [d, N]
+    reconstruction exists; the last chunk is re-sliced to end at N and
+    masks the slots earlier chunks covered (padding would copy the codes).
+    ``select_r`` narrows a wider pool to its ``select_r`` best before the
+    refine.  Returns (dists [Q, k], external ids [Q, k]) ascending.
+    """
+    q_n = queries.shape[0]
+    n = codes_t.shape[1]
+    # the scan runs in PQ space: normalized under cosine, then permuted
+    q_scan = normalize_rows(queries) if metric == "cosine" else queries
+    if perm is not None:
+        q_scan = q_scan[:, perm]
+    qb = q_scan.to(scan_dtype(queries.device)).contiguous()
+    masked_norms = code_norms_from_codes(codes_t, cbt, valid, code_norms)
+
+    if chunk_n <= 0 or chunk_n >= n:
+        if pool_mode == "approx" and select_r > 0:
+            # the ranked pool is already the top-select_r
+            bucket = max(1, -(-n * winners // select_r))
+        pool_vals, pool = _score_pool_chunk(qb, codes_t, cbt, masked_norms,
+                                            bucket, winners, pool_mode)
+    else:
+        if pool_mode == "approx" and select_r > 0:
+            # per-chunk ranked pools of 4x the chunk's expected share of the
+            # global top-select_r (floor 128), then one select below
+            n_chunks_est = max(1, -(-n // chunk_n))
+            r_chunk = min(select_r,
+                          max(128, -(-4 * select_r // n_chunks_est)))
+            bucket = max(1, -(-chunk_n * winners // r_chunk))
+        vals_l, pools_l = [], []
+        for c in range(-(-n // chunk_n)):
+            start = min(c * chunk_n, n - chunk_n)
+            mn = masked_norms[start:start + chunk_n]
+            if start < c * chunk_n:  # ragged last chunk: mask covered slots
+                mn = mn.clone()
+                mn[:c * chunk_n - start] = float("inf")
+            lv, local = _score_pool_chunk(
+                qb, codes_t[:, start:start + chunk_n], cbt, mn, bucket,
+                winners, pool_mode)
+            vals_l.append(lv)
+            pools_l.append(torch.where(local >= 0, local + start, local))
+        pool_vals, pool = torch.cat(vals_l, dim=1), torch.cat(pools_l, dim=1)
+    pool = torch.where(pool < n, pool, torch.full_like(pool, -1))
+    if 0 < select_r < pool.shape[1]:
+        pv = torch.where(pool >= 0, pool_vals, float("inf"))
+        _, sel = torch.topk(pv, select_r, dim=1, largest=False, sorted=True)
+        pool = torch.gather(pool, 1, sel)
+
+    if int8_base is not None:
+        out_d, slots = blocked_rerank_int8(
+            queries, int8_base, int8_scales, pool, k, metric,
+            rb=rerank_block, b_norms=int8_norms, resid=int8_resid,
+            rscales=int8_rscales)
+    else:
+        out_d, slots = blocked_rerank(
+            queries, base if packed_base is None else packed_base, pool, k,
+            metric, rb=rerank_block)
+    ext = torch.where(torch.isfinite(out_d), ids[slots.clamp(min=0).long()],
+                      torch.full_like(slots, -1).to(ids.dtype))
+    return out_d, ext

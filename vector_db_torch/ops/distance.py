@@ -1,11 +1,14 @@
-"""Pairwise distances and exact scans (the main-path subset of
-``vector_db_tpu/ops/distance.py``).
+"""Pairwise distances, exact scans, row packing and refines (the
+counterpart of ``vector_db_tpu/ops/distance.py`` for the raw and the
+compressed store).
 
 All distances are **squared L2** or **cosine distance** (1 - cos
 similarity); sqrt happens only at the API result boundary.  The products
-are ``torch.matmul`` in float32 (TF32 stays off, PyTorch's default), and
-every selection is an exact ``torch.topk`` where the reference used the
-TPU's ``approx_max_k``.
+are ``torch.matmul`` in float32 (TF32 stays off, PyTorch's default) on
+every device: the reference's bf16 products in the refines are a TPU speed
+choice, and its CPU path, which the tests compare with, is f32 too.  Every
+selection is an exact ``torch.topk`` where the reference used the TPU's
+``approx_max_k``.
 """
 
 from __future__ import annotations
@@ -129,9 +132,120 @@ def blocked_rerank(q: torch.Tensor, base: torch.Tensor, cand: torch.Tensor,
                    k: int, metric: str = METRIC_L2, rb: int = 512
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact re-rank of [Q, R] candidate slots in column blocks of ``rb``
-    with a running top-k merge — never the full [Q, R, d] gather.
-    -1 candidates are ignored. Returns (dists [Q, k], slots [Q, k])
-    ascending."""
+    with a running top-k merge — never the full [Q, R, d] gather.  ``base``
+    is the f32 store or a bf16 refine store (:func:`pack_bf16_rows`, the
+    reference's ``blocked_rerank_packed``): rows are gathered in their own
+    type and scored in f32.  -1 candidates are ignored.  Returns (dists
+    [Q, k], slots [Q, k]) ascending."""
+    def score(safe):
+        v = base[safe].to(torch.float32)                     # [Q, rb, d]
+        return torch.bmm(v, q[:, :, None])[:, :, 0], torch.sum(v * v, dim=2)
+    return _rerank_blocks(q, cand, k, metric, rb, score)
+
+
+# ------------------------------------------------------ packed row stores
+def pack_bf16_rows(base: torch.Tensor) -> torch.Tensor:
+    """[N, d] f32 -> [N, d] bf16 refine store for :func:`blocked_rerank`.
+    The reference packs bf16 pairs into f32 words because bf16 gathers are
+    slow on its TPU; the values are the same, so the port keeps a plain
+    bf16 tensor."""
+    return base.to(torch.bfloat16)
+
+
+def pack_int8_rows(base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[N, d] f32 -> (int32-packed int8 rows [N, d/4], per-row scales [N]).
+
+    Symmetric per-row quantization: scale = max(max|v|, 1e-30) / 127 and
+    row8 = clip(round-half-even(v / scale), -127, 127).  Four int8 dims
+    share one int32 word, little-endian: byte j of word c is dim 4c + j,
+    which is what ``.view(torch.int32)`` of the contiguous [N, d/4, 4]
+    bytes gives (the same words as the reference's
+    ``bitcast_convert_type``).  Requires d % 4 == 0.
+    """
+    n, d = base.shape
+    scale = torch.clamp(torch.amax(torch.abs(base), dim=1), min=1e-30) / 127.0
+    q8 = torch.clamp(torch.round(base / scale[:, None]), -127, 127
+                     ).to(torch.int8)
+    return q8.reshape(n, d // 4, 4).view(torch.int32).reshape(n, d // 4), scale
+
+
+def words_to_f32(words: torch.Tensor) -> torch.Tensor:
+    """int32 words [..., d/4] -> their int8 values as f32 [..., d]."""
+    shape = words.shape
+    return words.contiguous().view(torch.int8).reshape(
+        *shape[:-1], 4 * shape[-1]).to(torch.float32)
+
+
+def unpack_int8_rows(packed: torch.Tensor, scales: torch.Tensor
+                     ) -> torch.Tensor:
+    """Inverse of :func:`pack_int8_rows` up to quantization: [N, d/4]
+    int32 + [N] scales -> [N, d] f32 dequantized rows."""
+    return words_to_f32(packed) * scales[:, None]
+
+
+def pack_int8_residual(base: torch.Tensor, packed: torch.Tensor,
+                       scales: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Second-level int8 quantization of the rows' residual
+    ``base - unpack(packed)``: (resid [N, d/4] int32, rscales [N]).  The
+    two levels together hold ~16-bit precision at half the bytes of f32.
+    The residual is one fused multiply-add (rounded once), as XLA fuses
+    the reference's ``base - v8 * scale``: the residual is ~1/254 of the
+    row, so a second rounding would move its scale by ~1e-5."""
+    return pack_int8_rows(torch.addcmul(base, words_to_f32(packed),
+                                        scales[:, None], value=-1.0))
+
+
+def _int8_dots_norms(q, v8, sc, r8, rsc, vn, metric, dots_fn):
+    """Cross terms and squared row norms of int8 rows, in the reference's
+    order: the int8 product is scaled after the dot, plus the residual
+    level's; the norms are the exact ``vn`` under L2 when given, else the
+    two-level row's own (with a residual) or ``sum(v8^2) * sc^2``."""
+    dots = dots_fn(q, v8) * sc
+    if r8 is not None:
+        dots = dots + dots_fn(q, r8) * rsc
+    if vn is None or metric != METRIC_L2:
+        if r8 is not None:
+            deq = v8 * sc[..., None] + r8 * rsc[..., None]
+            vn = torch.sum(deq * deq, dim=-1)
+        else:
+            vn = torch.sum(v8 * v8, dim=-1) * (sc * sc)
+    return dots, vn
+
+
+def blocked_rerank_int8(q: torch.Tensor, packed: torch.Tensor,
+                        scales: torch.Tensor, cand: torch.Tensor, k: int,
+                        metric: str = METRIC_L2, rb: int = 512,
+                        b_norms: Optional[torch.Tensor] = None,
+                        resid: Optional[torch.Tensor] = None,
+                        rscales: Optional[torch.Tensor] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`blocked_rerank` against an int8 row store
+    (:func:`pack_int8_rows`), dots in f32.
+
+    ``b_norms`` (the exact squared norms the compressed store captures at
+    write time) is the row norm under L2, so only the cross term carries
+    quantization error.  Under cosine the quantized row's own norm is the
+    denominator (the exact cosine to the quantized direction), with or
+    without ``b_norms``.  ``resid``/``rscales`` (:func:`pack_int8_residual`)
+    add the second level to the cross term and to the cosine norm."""
+    def bdots(qq, v):
+        return torch.bmm(v, qq[:, :, None])[:, :, 0]
+
+    def score(safe):
+        return _int8_dots_norms(
+            q, words_to_f32(packed[safe]), scales[safe],
+            None if resid is None else words_to_f32(resid[safe]),
+            None if resid is None else rscales[safe],
+            None if b_norms is None else b_norms[safe], metric, bdots)
+    return _rerank_blocks(q, cand, k, metric, rb, score)
+
+
+def _rerank_blocks(q, cand, k, metric, rb, score):
+    """The shared loop of the store refines: candidate column blocks of
+    ``rb`` (never the whole [Q, R, d] gather), each scored and merged into
+    a running exact top-k.  ``score(safe)`` returns the cross terms and the
+    squared row norms [Q, rb] of the gathered slots."""
     q_n, r = cand.shape
     rb = min(rb, max(128, -(-r // 128) * 128))
     q_norms = sq_norms(q)
@@ -139,15 +253,57 @@ def blocked_rerank(q: torch.Tensor, base: torch.Tensor, cand: torch.Tensor,
     top_i = torch.full((q_n, k), -1, dtype=cand.dtype, device=q.device)
     for start in range(0, r, rb):
         cnd = cand[:, start:start + rb]
-        vecs = base[cnd.clamp(min=0).long()]                # [Q, rb, d]
-        dots = torch.bmm(vecs, q[:, :, None])[:, :, 0]
-        if metric == METRIC_L2:
-            vn = torch.sum(vecs * vecs, dim=2)
-            d = torch.clamp(q_norms[:, None] + vn - 2.0 * dots, min=0.0)
-        else:
-            qn = torch.sqrt(torch.clamp(q_norms, min=1e-12))[:, None]
-            vn = torch.linalg.vector_norm(vecs, dim=2)
-            d = 1.0 - dots / torch.clamp(qn * vn, min=1e-12)
+        dots, vn = score(cnd.clamp(min=0).long())
+        d = _dist_from_terms(q_norms[:, None], vn, dots, metric)
         d = d.masked_fill_(cnd < 0, float("inf"))
         top_d, top_i = merge_topk(top_d, top_i, d, cnd, k)
+    return top_d, top_i
+
+
+def _dist_from_terms(q_norms, vn, dots, metric):
+    """Squared L2 or cosine distance from |q|^2, |v|^2 and q.v."""
+    if metric == METRIC_L2:
+        return torch.clamp(q_norms + vn - 2.0 * dots, min=0.0)
+    qn = torch.sqrt(torch.clamp(q_norms, min=1e-12))
+    return 1.0 - dots / torch.clamp(qn * torch.sqrt(vn), min=1e-12)
+
+
+def blocked_knn_int8(q: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, valid: torch.Tensor, k: int,
+                     metric: str = METRIC_L2,
+                     b_norms: Optional[torch.Tensor] = None,
+                     block_n: int = 262144,
+                     resid: Optional[torch.Tensor] = None,
+                     rscales: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN over an int8 row store (the compressed tier's exhaustive
+    scan): f32 products of the int8 rows (plus the residual level), the
+    norm term exact from ``b_norms`` under L2, and a running exact top-k
+    (the reference's per-block ``approx_max_k`` becomes ``torch.topk``).
+
+    Blocks of ``block_n`` rows; the last block is re-sliced to end at N and
+    masks the rows earlier blocks covered (padding would copy the store).
+    Returns (dists [Q, k], slots [Q, k] int32) ascending; +inf / -1 padded.
+    """
+    qn, n = q.shape[0], packed.shape[0]
+    q_norms = sq_norms(q)
+    top_d = torch.full((qn, k), float("inf"), device=q.device)
+    top_i = torch.full((qn, k), -1, dtype=torch.int32, device=q.device)
+    block_n = min(block_n, n)
+    for b in range(-(-n // block_n)):
+        start = min(b * block_n, n - block_n)
+        sl = slice(start, start + block_n)
+        dots, vn = _int8_dots_norms(
+            q, words_to_f32(packed[sl]), scales[sl][None, :],
+            None if resid is None else words_to_f32(resid[sl]),
+            None if resid is None else rscales[sl][None, :],
+            None if b_norms is None else b_norms[sl][None, :], metric,
+            lambda qq, v: qq @ v.T)
+        d = _dist_from_terms(q_norms[:, None], vn, dots, metric)
+        live = valid[sl].clone()
+        live[:b * block_n - start] = False  # covered by earlier blocks
+        d = d.masked_fill_(~live[None, :], float("inf"))
+        idx = torch.arange(start, start + block_n, dtype=torch.int32,
+                           device=q.device).expand(qn, -1)
+        top_d, top_i = merge_topk(top_d, top_i, d, idx, k)
     return top_d, top_i

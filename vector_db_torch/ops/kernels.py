@@ -1,17 +1,22 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions
 (the counterpart of ``vector_db_tpu/ops/pallas_kernels.py``).
 
-``fused_int8_pool`` replaces the TPU kernel of the same name
-(``vector_db_tpu/ops/pallas_kernels.py:585``).  Its CUDA source is
-``vector_db_torch/csrc/fused_int8_pool.cu``; the source's header says what
-bounds it on an H100 and how it is laid out.
+Each function replaces the TPU kernel of the same name in
+``vector_db_tpu/ops/pallas_kernels.py``:
+
+  * ``fused_int8_pool`` (:585) and ``fused_packed_pool`` (:900), one CUDA
+    kernel with two entry points, ``vector_db_torch/csrc/fused_int8_pool.cu``;
+  * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``.
+
+Each source's header says what bounds it on an H100 and how it is laid out.
 
 Dispatch is on the tensor's device and nothing else: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel, which is built from the
-checkout's source with ``nvcc`` at first use (into ``build/torch_kernels/``
-beside the package, keyed by the source's hash) and loaded with ctypes.  A
-missing ``nvcc``, a failed build and a failed launch raise; no path sends a
-CUDA tensor to the plain version.
+checkout's sources with ``nvcc`` at first use (one compiler per source, in
+parallel, into ``build/torch_kernels/`` beside the package, keyed by the
+sources' hash) and loaded with ctypes.  A missing ``nvcc``, a failed build
+and a failed launch raise; no path sends a CUDA tensor to the plain
+version.  Each wrapper counts its kernel launches in ``<function>.launches``.
 """
 
 from __future__ import annotations
@@ -74,27 +79,45 @@ class _Library:
                     "nvcc not found (CUDA_HOME is unset or has no bin/nvcc); "
                     "the CUDA kernels cannot be built")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(tmp),
-                   *[str(s) for s in sources]]
+            flags = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            # one nvcc per source, all at once, then one link
+            procs = [subprocess.Popen(
+                [*flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [(src.name, p.returncode, log) for src, p, log
+                      in zip(sources, procs, logs) if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [*flags, "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True)
+                logs.append(link.stdout + link.stderr)
+                if link.returncode != 0:
+                    failed.append(("link", link.returncode, link.stderr))
             self.build_seconds = time.perf_counter() - t0
-            log_path.write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
+            log_path.write_text("".join(logs))
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if failed:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{name} ({rc}):\n{log}" for name, rc, log in failed))
             os.replace(tmp, out)
         self.build_log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(out))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.vdb_fused_int8_pool.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
-        lib.vdb_fused_int8_pool.restype = i32
-        lib.vdb_int8_pool_smem_bytes.argtypes = [i32]
-        lib.vdb_int8_pool_smem_bytes.restype = i32
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for pool in (lib.vdb_fused_int8_pool, lib.vdb_fused_packed_pool):
+            pool.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+            pool.restype = i32
+        lib.vdb_pq_decode_recon_t.argtypes = ([ptr, i64, ptr, ptr]
+                                              + [i32] * 4 + [ptr])
+        lib.vdb_pq_decode_recon_t.restype = i32
         lib.vdb_cuda_error_string.argtypes = [i32]
         lib.vdb_cuda_error_string.restype = ctypes.c_char_p
         self.lib, self.path = lib, out
@@ -211,8 +234,25 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_pool_args(q, base8, sel_off, sel_scale)
-    n, d = base8.shape
-    for name, t in (("base8", base8), ("sel_off", sel_off),
+    if base8.shape[1] % 4 != 0 or base8.data_ptr() % 4 != 0:
+        raise ValueError("base8 rows must be whole 4-byte words (d % 4 == 0)")
+    out = _launch_pool("vdb_fused_int8_pool", q, base8, sel_off, sel_scale,
+                       pool_width(w), base8.shape[1])
+    fused_int8_pool.launches += 1
+    return out
+
+
+fused_int8_pool.launches = 0
+
+
+def _launch_pool(entry: str, q, base, sel_off, sel_scale, w: int, d: int):
+    """Launch the pool kernel (``csrc/fused_int8_pool.cu``) through C entry
+    ``entry`` over ``base``'s rows (int8 [N, d] or int32 words [N, d/4]):
+    quantize and pad the queries, split the passes over blocks when the
+    query x column tiles alone leave the card's SMs idle (the partial pools
+    merge in pass order), raise if the launch fails."""
+    n = base.shape[0]
+    for name, t in (("base", base), ("sel_off", sel_off),
                     ("sel_scale", sel_scale)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, queries on {q.device}")
@@ -220,9 +260,6 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
         raise TypeError("sel_off/sel_scale must be float32")
-    if d % 4 != 0 or base8.data_ptr() % 4 != 0:
-        raise ValueError("base8 rows must be whole 4-byte words (d % 4 == 0)")
-    w = pool_width(w)
     qn = q.shape[0]
     vals = torch.empty((qn, w), dtype=torch.float32, device=q.device)
     slots = torch.empty((qn, w), dtype=torch.int32, device=q.device)
@@ -232,8 +269,6 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
     q8 = _pad_cols(q8, d).contiguous()
     sq = sq.contiguous()
     lib = LIBRARY.get()
-    # split the passes over blocks when the query x column tiles alone
-    # leave the card's SMs idle (the partial pools merge in pass order)
     passes = -(-n // w) if n else 0
     tiles = (w // LANES) * -(-qn // 64)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -247,16 +282,170 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
         part_v = part_s = vals
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vdb_fused_int8_pool(
-            q8.data_ptr(), sq.data_ptr(), base8.data_ptr(),
+        rc = getattr(lib, entry)(
+            q8.data_ptr(), sq.data_ptr(), base.data_ptr(),
             sel_off.data_ptr(), sel_scale.data_ptr(), part_v.data_ptr(),
             part_s.data_ptr(), vals.data_ptr(), slots.data_ptr(),
             qn, n, d, w, splits, stream)
-    if rc != 0:
-        msg = lib.vdb_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_int8_pool launch failed: {msg} ({rc})")
-    fused_int8_pool.launches += 1
+    _raise_on_error(lib, entry, rc)
     return vals, slots
 
 
-fused_int8_pool.launches = 0
+def _raise_on_error(lib, entry: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib.vdb_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg} ({rc})")
+
+
+# ------------------------------------------------------- fused_packed_pool
+def preserved_pool_width(n: int, max_w: int = 2048) -> int:
+    """Largest pool width ``w <= max_w`` that divides ``n`` and that
+    :func:`pool_width` leaves unchanged (``w <= 512`` or ``w % 512 == 0``):
+    :func:`fused_packed_pool` refuses to pad-copy the packed store, so its
+    callers pick their width here.  ``n`` must be a multiple of 128 (every
+    store capacity is)."""
+    if n % LANES:
+        raise ValueError(f"store rows ({n}) must be a multiple of {LANES}")
+    for w in range(min(max_w, n), 0, -LANES):
+        if n % w == 0 and (w <= BLOCK_N or w % BLOCK_N == 0):
+            return w
+    return LANES
+
+
+def _check_packed_args(q, packed, w: int) -> int:
+    """Validate a packed-pool call; returns the rounded pool width."""
+    n, dw = packed.shape
+    if packed.dtype != torch.int32:
+        raise TypeError(f"packed must be int32 words, got {packed.dtype}")
+    if q.ndim != 2 or q.shape[1] != 4 * dw:
+        raise ValueError(f"queries {tuple(q.shape)} do not match packed rows "
+                         f"of {4 * dw} dims")
+    if 4 * dw > MAX_INT8_POOL_DIM:
+        raise ValueError(f"row width {4 * dw} > {MAX_INT8_POOL_DIM}: the "
+                         "int32 cross term would not be exact in f32")
+    w = pool_width(w)
+    if n % w:
+        raise ValueError(
+            f"packed store rows ({n}) must be a multiple of the pool width "
+            f"({w}); round the store capacity up (the compressed "
+            "VectorStore rounds to 2048)")
+    return w
+
+
+def unpack_words_int8(packed: torch.Tensor) -> torch.Tensor:
+    """[N, d/4] int32 words -> [N, d] int8 by explicit shifts: byte j of
+    word c (bits 8j..8j+7, sign-extended) is dim 4c + j."""
+    n, dw = packed.shape
+    w32 = packed.to(torch.int32)
+    parts = [(w32 << (24 - 8 * j)) >> 24 for j in range(4)]
+    return torch.stack(parts, dim=2).reshape(n, 4 * dw).to(torch.int8)
+
+
+def fused_packed_pool_plain(q: torch.Tensor, packed: torch.Tensor,
+                            sel_off: torch.Tensor, sel_scale: torch.Tensor,
+                            w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_packed_pool`, on any device:
+    the words unpacked by shifts (:func:`unpack_words_int8`, which checks
+    the byte order independently of ``Tensor.view``), then
+    :func:`fused_int8_pool_plain`."""
+    w = _check_packed_args(q, packed, w)
+    return fused_int8_pool_plain(q, unpack_words_int8(packed), sel_off,
+                                 sel_scale, w)
+
+
+def fused_packed_pool(q: torch.Tensor, packed: torch.Tensor,
+                      sel_off: torch.Tensor, sel_scale: torch.Tensor,
+                      w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_int8_pool` directly over the compressed store's
+    int32-packed int8 rows (no shadow copy).
+
+    q [Q, d] f32 pre-centered by the caller, quantized here per row and
+    NOT permuted (the words hold the dims in true order); packed [N, d/4]
+    int32 (``ops/distance.pack_int8_rows``); sel_off [N] f32 (+inf at dead
+    slots); sel_scale [N] f32.  N must be a multiple of the rounded
+    ``w`` (:func:`preserved_pool_width`), else ``ValueError``: padding
+    would copy the multi-GB store.  Returns the unranked pool like
+    :func:`fused_int8_pool`.
+
+    A CPU tensor runs :func:`fused_packed_pool_plain`; a CUDA tensor runs
+    the pool kernel's packed entry point and counts one launch in
+    ``fused_packed_pool.launches``.
+    """
+    if q.device.type == "cpu":
+        return fused_packed_pool_plain(q, packed, sel_off, sel_scale, w)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    w = _check_packed_args(q, packed, w)
+    n = packed.shape[0]
+    if sel_off.shape != (n,) or sel_scale.shape != (n,):
+        raise ValueError("sel_off/sel_scale must be [N] like packed's rows")
+    out = _launch_pool("vdb_fused_packed_pool", q, packed, sel_off,
+                       sel_scale, w, 4 * packed.shape[1])
+    fused_packed_pool.launches += 1
+    return out
+
+
+fused_packed_pool.launches = 0
+
+
+# ------------------------------------------------------- pq_decode_recon_t
+def _check_decode_args(codes_t, cbt) -> tuple[int, int, int, int]:
+    """(S, N, sd, K) of a decode call, or raise."""
+    s, n = codes_t.shape
+    d_aug, k = cbt.shape
+    if d_aug % s:
+        raise ValueError(f"cbt rows ({d_aug}) not a multiple of S={s}")
+    if k > 2 * LANES:
+        raise ValueError(f"K={k} > 256 is not supported")
+    return s, n, d_aug // s, k
+
+
+def pq_decode_recon_t_plain(codes_t: torch.Tensor,
+                            cbt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pq_decode_recon_t`, on any device:
+    a gather of the codebook rows by code, then ``.to(torch.bfloat16)``."""
+    s, n, sd, k = _check_decode_args(codes_t, cbt)
+    idx = codes_t.long()[:, None, :].expand(s, sd, n)
+    out = torch.gather(cbt.to(torch.float32).reshape(s, sd, k), 2, idx)
+    return out.reshape(s * sd, n).to(torch.bfloat16)
+
+
+def pq_decode_recon_t(codes_t: torch.Tensor, cbt: torch.Tensor) -> torch.Tensor:
+    """Decode PQ codes to reconstructed vectors, transposed.
+
+    codes_t [S, N] integer codes (uint8 as stored; on CUDA uint8 with unit
+    column stride, so a column slice of a wider code matrix needs no copy);
+    cbt [S*sd, K] f32 with cbt[s*sd + j, c] = codebooks[s, c, j], K <= 256.
+    Returns reconT [S*sd, N] bf16, reconT[s*sd + j, n] =
+    codebooks[s, codes[n, s], j] rounded to nearest even.
+
+    A CPU tensor runs :func:`pq_decode_recon_t_plain`; a CUDA tensor runs
+    the kernel (``csrc/pq_decode.cu``, bit-equal to the plain version) and
+    counts one launch in ``pq_decode_recon_t.launches``.
+    """
+    if codes_t.device.type == "cpu":
+        return pq_decode_recon_t_plain(codes_t, cbt)
+    if codes_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes_t.device}")
+    s, n, sd, k = _check_decode_args(codes_t, cbt)
+    if codes_t.dtype != torch.uint8 or codes_t.stride(1) != 1:
+        raise ValueError("codes_t must be uint8 with unit column stride")
+    if cbt.device != codes_t.device or cbt.dtype != torch.float32 \
+            or not cbt.is_contiguous():
+        raise ValueError("cbt must be a contiguous float32 tensor on the "
+                         "codes' device")
+    out = torch.empty((s * sd, n), dtype=torch.bfloat16, device=codes_t.device)
+    if n == 0:
+        return out
+    lib = LIBRARY.get()
+    with torch.cuda.device(codes_t.device):
+        stream = torch.cuda.current_stream(codes_t.device).cuda_stream
+        rc = lib.vdb_pq_decode_recon_t(
+            codes_t.data_ptr(), max(codes_t.stride(0), n), cbt.data_ptr(),
+            out.data_ptr(), s, n, sd, k, stream)
+    _raise_on_error(lib, "vdb_pq_decode_recon_t", rc)
+    pq_decode_recon_t.launches += 1
+    return out
+
+
+pq_decode_recon_t.launches = 0
