@@ -8,12 +8,20 @@ name and power limit):
   1. device  — CUDA present, TF32 off for f32 matmuls;
   2. build   — the CUDA kernels compiled from vector_db_torch/csrc;
   3. kernels — each kernel against its plain PyTorch version on the card at
-               the main path's shapes (bit-equal required), both timed
-               (CUDA events, warm-up, best of 3):
+               the main path's shapes, both timed (CUDA events, warm-up,
+               best of 3); bit-equal required of the integer and gather
+               kernels, and of the bf16 pools agreement within the f32
+               summation-order bound (ops/kernels.check_float_pool):
                a. fused_int8_pool at Q=1024, N=1,001,472, d=512, w=2048;
                b. pq_decode_recon_t at S=64, sd=8, K=256, N=524,288;
                c. fused_packed_pool at Q=1024, N=1,001,472, d=512, w=2048
                   (and an N that w does not divide must raise);
+               d. fused_int8g_pool at Q in {1, 13, 1024}, w in {64, 2048},
+                  N=1,001,472 with dead slots (bit-equal);
+               e. fused_raw_pool at the shapes of d (within the bound);
+               f. fused_adc_pool at S=64, sd=8, K in {256, 200}, N in
+                  {4000, 524,288}, Q in {1, 1024}, w = N / 32 (within the
+                  bound);
   4. 100k    — the flagship through VectorDatabase: 512-d x 100,000 rows,
                HnswPqConfig(num_subspaces=64, training_samples=20000),
                add_batch through the WAL, auto -> scan_exact, recall@10
@@ -21,18 +29,25 @@ name and power limit):
                ids;
   5. 1M      — the same config at 512-d x 1,000,000 rows by bulk_load of the
                device tensor, auto -> scan_pallas_int8 (fused_int8_pool must
-               launch), recall@10 >= 0.95;
+               launch), then on the same database scan_pallas
+               (fused_raw_pool), scan_pallas_int8 with
+               int8_epilogue="global" (fused_int8g_pool) and scan_bf16 (no
+               pool kernel), each recall@10 >= 0.95, and CRUD in the two new
+               kernel modes;
   6. 10M     — the compressed tier (raw_store=False, refine_residual=True,
                adc_pool="approx", adc_select_r=512) through VectorDatabase:
                9,961,472 x 512 spectral rows by bulk_load_stream in 76
                chunks of 131,072, exact ground truth merged per chunk;
                auto -> adc_fast (pq_decode_recon_t must launch), recall@10
                >= 0.94; scan_pallas_int8 (fused_packed_pool must launch),
-               recall@10 >= 0.96; CRUD at 10M live;
+               recall@10 >= 0.96; adc_fast with adc_pool="fused"
+               (fused_adc_pool must launch), recall@10 >= 0.94; CRUD at 10M
+               live;
   7. 100k memory-bound — the raw store with search_mode="adc_fast",
                adc_pool="approx", adc_select_r=128, refine_store="bf16" on
                512-d x 100,000 spectral rows by bulk_load
-               (pq_decode_recon_t must launch), recall@10 >= 0.96.
+               (pq_decode_recon_t must launch), recall@10 >= 0.96; then
+               adc_pool="fused" (fused_adc_pool must launch), >= 0.96.
 
 Every path of phases 4-7 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels, and as the
@@ -64,6 +79,10 @@ PACKED_SHAPES_W = (512, 2048)
 DECODE_SHAPES = ((64, 8), (16, 4))  # (S, sd)
 DECODE_SHAPES_K = (256, 200)
 DECODE_SHAPES_N = (4000, 524_288)
+ADC_SHAPES_K = (256, 200)
+ADC_SHAPES_N = (4000, 524_288)
+ADC_SHAPES_Q = (1, 1024)
+ADC_BUCKET = 32
 N_10M_CHUNK = 131_072
 N_10M_CHUNKS = 76
 CFG_10M = dict(raw_store=False, num_subspaces=64, training_samples=20000,
@@ -78,7 +97,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                           "vector_db_tpu/ops/pallas_kernels.py:174"),
     "fused_packed_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
                           "vector_db_tpu/ops/pallas_kernels.py:900"),
+    "fused_int8g_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
+                         "vector_db_tpu/ops/pallas_kernels.py:726"),
+    "fused_raw_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
+                       "vector_db_tpu/ops/pallas_kernels.py:460"),
+    "fused_adc_pool": ("vector_db_torch/csrc/fused_adc_pool.cu",
+                       "vector_db_tpu/ops/pallas_kernels.py:284"),
 }
+POOL_KERNELS = ("fused_int8_pool", "fused_packed_pool", "fused_int8g_pool",
+                "fused_raw_pool", "fused_adc_pool")
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -202,14 +229,10 @@ def phase_kernel():
                 worst = max(worst, err)
     base8, off, sc, cvec = shadows[1_001_472]
     qc = queries - cvec[None, :]
-    plain_ms = cuda_ms(lambda: kn.fused_int8_pool_plain(qc, base8, off, sc, 2048))
-    ms = cuda_ms(lambda: kn.fused_int8_pool(qc, base8, off, sc, 2048))
-    plain_ms = min(plain_ms, cuda_ms(
-        lambda: kn.fused_int8_pool_plain(qc, base8, off, sc, 2048)))
-    timing("phase 3 fused_int8_pool kernel Q=1024 N=1001472 d=512 w=2048 "
-           "(best of 3)", ms, "ms")
-    timing("phase 3 fused_int8_pool plain  Q=1024 N=1001472 d=512 w=2048 "
-           "(best of 3)", plain_ms, "ms")
+    ms, plain_ms = timed_pair(
+        "phase 3 fused_int8_pool", "Q=1024 N=1001472 d=512 w=2048",
+        lambda: kn.fused_int8_pool(qc, base8, off, sc, 2048),
+        lambda: kn.fused_int8_pool_plain(qc, base8, off, sc, 2048))
     del shadows, base8, off, sc
     torch.cuda.empty_cache()
     return kernel_entry("fused_int8_pool", worst, ms, plain_ms)
@@ -259,14 +282,10 @@ def phase_decode():
     codes = torch.randint(0, 256, (64, 2 * n), device=DEVICE, generator=g,
                           dtype=torch.uint8)[:, :n]
     cbt = torch.randn(512, 256, device=DEVICE, generator=g)
-    plain_ms = cuda_ms(lambda: kn.pq_decode_recon_t_plain(codes, cbt))
-    ms = cuda_ms(lambda: kn.pq_decode_recon_t(codes, cbt))
-    plain_ms = min(plain_ms, cuda_ms(
-        lambda: kn.pq_decode_recon_t_plain(codes, cbt)))
-    timing("phase 3b pq_decode_recon_t kernel S=64 sd=8 K=256 N=524288 "
-           "(best of 3)", ms, "ms")
-    timing("phase 3b pq_decode_recon_t plain  S=64 sd=8 K=256 N=524288 "
-           "(best of 3)", plain_ms, "ms")
+    ms, plain_ms = timed_pair(
+        "phase 3b pq_decode_recon_t", "S=64 sd=8 K=256 N=524288",
+        lambda: kn.pq_decode_recon_t(codes, cbt),
+        lambda: kn.pq_decode_recon_t_plain(codes, cbt))
     del codes, cbt
     torch.cuda.empty_cache()
     return kernel_entry("pq_decode_recon_t", worst, ms, plain_ms)
@@ -320,18 +339,166 @@ def phase_packed():
         raise RuntimeError("fused_packed_pool accepted N % w != 0")
     packed, off, sc, cvec = stores[PACKED_SHAPES_N[-1]]
     qc = queries - cvec[None, :]
-    plain_ms = cuda_ms(
+    ms, plain_ms = timed_pair(
+        "phase 3c fused_packed_pool", "Q=1024 N=1001472 d=512 w=2048",
+        lambda: kn.fused_packed_pool(qc, packed, off, sc, 2048),
         lambda: kn.fused_packed_pool_plain(qc, packed, off, sc, 2048))
-    ms = cuda_ms(lambda: kn.fused_packed_pool(qc, packed, off, sc, 2048))
-    plain_ms = min(plain_ms, cuda_ms(
-        lambda: kn.fused_packed_pool_plain(qc, packed, off, sc, 2048)))
-    timing("phase 3c fused_packed_pool kernel Q=1024 N=1001472 d=512 w=2048 "
-           "(best of 3)", ms, "ms")
-    timing("phase 3c fused_packed_pool plain  Q=1024 N=1001472 d=512 w=2048 "
-           "(best of 3)", plain_ms, "ms")
     del stores, packed, off, sc
     torch.cuda.empty_cache()
     return kernel_entry("fused_packed_pool", worst, ms, plain_ms)
+
+
+def timed_pair(label, shape, kernel, plain):
+    """CUDA-event times of a kernel and its plain version (best of 3 each,
+    plain, kernel, plain); prints both lines and returns (ms, plain_ms)."""
+    plain_ms = cuda_ms(plain)
+    ms = cuda_ms(kernel)
+    plain_ms = min(plain_ms, cuda_ms(plain))
+    timing(f"{label} kernel {shape} (best of 3)", ms, "ms")
+    timing(f"{label} plain  {shape} (best of 3)", plain_ms, "ms")
+    return ms, plain_ms
+
+
+def corpus_1m(seed):
+    """The 1M store's shape (capacity 1,000,064 rows) of seeded gaussian
+    rows with ~5% dead slots, and seeded queries."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    big = -(-N_KERNEL // 128) * 128  # 1,000,064
+    corpus = torch.randn(big, DIM, device=DEVICE, generator=g)
+    valid = torch.rand(big, device=DEVICE, generator=g) > 0.05  # dead rows
+    queries = torch.randn(NQ, DIM, device=DEVICE, generator=g)
+    return corpus, (corpus * corpus).sum(1), valid, queries
+
+
+def phase_int8g():
+    """3d: fused_int8g_pool (B7) vs plain over the global-scale shadow of
+    the 1M store's shape, bit-equal required; returns the kernels entry."""
+    from vector_db_torch.index.hnsw_pq import (SHADOW_PAD_ROWS,
+                                               _build_scan8g_shadow)
+    from vector_db_torch.ops import kernels as kn
+
+    corpus, norms, valid, queries = corpus_1m(11)
+    base8, off, sv, sgn, cvec, _ = _build_scan8g_shadow(
+        corpus, norms, valid, "l2", SHADOW_PAD_ROWS)
+    del corpus, norms, valid
+    n = base8.shape[0]
+    qc = queries - cvec[None, :]
+    worst = 0.0
+    for qn in KERNEL_SHAPES_Q:
+        for w in KERNEL_SHAPES_W:
+            kv, ks = kn.fused_int8g_pool(qc[:qn], base8, off, sv, sgn, w)
+            pv, ps = kn.fused_int8g_pool_plain(qc[:qn], base8, off, sv, sgn,
+                                               w)
+            torch.cuda.synchronize()
+            same = torch.equal(kv, pv) and torch.equal(ks, ps)
+            err = max_abs_err(kv, pv)
+            say(f"phase 3d int8g: Q={qn} N={n} d={DIM} w={w} "
+                f"pool={tuple(kv.shape)} bit_equal={same} max_abs_err={err} "
+                f"live_slots={int((ks >= 0).sum())}")
+            if not same:
+                raise RuntimeError("fused_int8g_pool disagrees with its plain "
+                                   f"version at Q={qn} w={w}")
+            worst = max(worst, err)
+    ms, plain_ms = timed_pair(
+        "phase 3d fused_int8g_pool", f"Q={NQ} N={n} d={DIM} w=2048",
+        lambda: kn.fused_int8g_pool(qc, base8, off, sv, sgn, 2048),
+        lambda: kn.fused_int8g_pool_plain(qc, base8, off, sv, sgn, 2048))
+    del base8, off
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_int8g_pool", worst, ms, plain_ms)
+
+
+def hold_float_pool(label, got, want, terms, w):
+    """check_float_pool of a bf16 pool kernel; prints its line, raises when
+    the kernel leaves the bound."""
+    from vector_db_torch.ops import kernels as kn
+
+    torch.cuda.synchronize()
+    res = kn.check_float_pool(got, want, terms, w)
+    say(f"{label} pool={tuple(got[0].shape)} "
+        f"slot_agreement={res['slot_agreement']} "
+        f"max_abs_err={res['max_abs_err']} within_bound={res['ok']} "
+        f"live_slots={int((got[1] >= 0).sum())}")
+    if not res["ok"]:
+        raise RuntimeError(f"{label}: the kernel leaves the f32 "
+                           "summation-order bound of its plain version")
+    return res["max_abs_err"]
+
+
+def phase_raw():
+    """3e: fused_raw_pool (B6) vs plain over the bf16 shadow of the 1M
+    store's shape, within the summation-order bound; returns the kernels
+    entry."""
+    from vector_db_torch.index.hnsw_pq import (SHADOW_PAD_ROWS,
+                                               _build_scan16_shadow)
+    from vector_db_torch.ops import kernels as kn
+
+    corpus, norms, valid, queries = corpus_1m(13)
+    base16, off, sc, cvec, _ = _build_scan16_shadow(
+        corpus, norms, valid, "l2", SHADOW_PAD_ROWS)
+    del corpus, norms, valid
+    n = base16.shape[0]
+    qc = queries - cvec[None, :]
+    worst = 0.0
+    for qn in KERNEL_SHAPES_Q:
+        for w in KERNEL_SHAPES_W:
+            q = qc[:qn]
+            worst = max(worst, hold_float_pool(
+                f"phase 3e raw: Q={qn} N={n} d={DIM} w={w}",
+                kn.fused_raw_pool(q, base16, off, sc, w),
+                kn.fused_raw_pool_plain(q, base16, off, sc, w),
+                lambda s, q=q: kn.raw_pool_terms(q, base16, off, sc, s),
+                kn.pool_width(w)))
+    ms, plain_ms = timed_pair(
+        "phase 3e fused_raw_pool", f"Q={NQ} N={n} d={DIM} w=2048",
+        lambda: kn.fused_raw_pool(qc, base16, off, sc, 2048),
+        lambda: kn.fused_raw_pool_plain(qc, base16, off, sc, 2048))
+    del base16, off, sc
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_raw_pool", worst, ms, plain_ms)
+
+
+def phase_adc():
+    """3f: fused_adc_pool (B5) vs plain, S=64, sd=8, on a column slice of a
+    wider code matrix (as the chunked adc_fast scan reads it), pool width
+    ceil(N / 32); returns the kernels entry."""
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    s, sd = DECODE_SHAPES[0]
+    queries = torch.randn(NQ, s * sd, device=DEVICE, generator=g)
+    worst = 0.0
+    cases = {}
+    for k in ADC_SHAPES_K:
+        cbt = torch.randn(s * sd, k, device=DEVICE, generator=g) * 0.3
+        for n in ADC_SHAPES_N:
+            wide = torch.randint(0, k, (s, 2 * n), device=DEVICE,
+                                 generator=g, dtype=torch.uint8)
+            codes = wide[:, n // 2:n // 2 + n]
+            norms = kn.pq_decode_recon_t_plain(codes, cbt).to(
+                torch.float32).square().sum(0)
+            norms[torch.rand(n, device=DEVICE, generator=g) < 0.05] = \
+                float("inf")
+            w = -(-n // ADC_BUCKET)
+            for qn in ADC_SHAPES_Q:
+                q = queries[:qn]
+                worst = max(worst, hold_float_pool(
+                    f"phase 3f adc: Q={qn} S={s} sd={sd} K={k} N={n} w={w}",
+                    kn.fused_adc_pool(q, codes, cbt, norms, w),
+                    kn.fused_adc_pool_plain(q, codes, cbt, norms, w),
+                    lambda sl, q=q, codes=codes, cbt=cbt, norms=norms:
+                        kn.adc_pool_terms(q, codes, cbt, norms, sl),
+                    kn.pool_width(w)))
+            cases[(k, n)] = (codes, cbt, norms, w)
+    codes, cbt, norms, w = cases[(256, ADC_SHAPES_N[-1])]
+    ms, plain_ms = timed_pair(
+        "phase 3f fused_adc_pool",
+        f"Q={NQ} S={s} sd={sd} K=256 N={ADC_SHAPES_N[-1]} w={w}",
+        lambda: kn.fused_adc_pool(queries, codes, cbt, norms, w),
+        lambda: kn.fused_adc_pool_plain(queries, codes, cbt, norms, w))
+    del cases, codes, cbt, norms
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_adc_pool", worst, ms, plain_ms)
 
 
 def spectrum():
@@ -433,7 +600,45 @@ def phase_100k():
     return read_launches("4 100k", must_not=tuple(KERNELS))
 
 
+PHASE5_MODES = (  # (mode, int8_epilogue, must launch, must not launch)
+    ("scan_pallas", "per_row", ("fused_raw_pool",),
+     ("fused_int8_pool", "fused_int8g_pool")),
+    ("scan_pallas_int8", "global", ("fused_int8g_pool",),
+     ("fused_int8_pool",)),
+    ("scan_bf16", "per_row", (), POOL_KERNELS),
+)
+
+
+def crud_round(db, label, modes):
+    """Add a far vector, find it, delete it, and miss it, in each of
+    ``modes`` ((search_mode, int8_epilogue) pairs, set on db.index.config);
+    raises unless every step holds."""
+    vid = 10**8
+    far = torch.full((DIM,), 3.0, device=DEVICE) * spectrum()
+    if not db.add_vector(vid, far):
+        raise RuntimeError(f"{label} CRUD: add_vector refused")
+    got = db.get_vector(vid)
+    err = float(np.abs(got.values - far.cpu().numpy()).max())
+    hits, gone = {}, {}
+    for mode, epi in modes:
+        db.index.config.search_mode, db.index.config.int8_epilogue = mode, epi
+        hits[f"{mode}/{epi}"] = db.search(far, K)[0].id == vid
+    if not db.delete_vector(vid):
+        raise RuntimeError(f"{label} CRUD: delete_vector failed")
+    for mode, epi in modes:
+        db.index.config.search_mode, db.index.config.int8_epilogue = mode, epi
+        gone[f"{mode}/{epi}"] = vid not in [r.id for r in db.search(far, K)]
+    say(f"phase {label} CRUD: add ok, get max_abs_err={err}, hit={hits}, "
+        f"gone after delete={gone}, rows={db.size()}")
+    if not (all(hits.values()) and all(gone.values()) and err < 1e-3):
+        raise RuntimeError(f"{label} CRUD failed")
+
+
 def phase_1m():
+    """The raw store at 1M: auto -> scan_pallas_int8, then scan_pallas,
+    scan_pallas_int8 with the global epilogue and scan_bf16 on the same
+    database, and CRUD in the two new kernel modes; returns the launch
+    counts of its paths."""
     n = N_KERNEL
     torch.cuda.reset_peak_memory_stats()
     corpus = torch.randn(n, DIM, device=DEVICE,
@@ -449,13 +654,35 @@ def phase_1m():
     timing("phase 5 1M build (bulk_load + train + encode)",
            time.perf_counter() - t0, "s")
     mode, rec, _ = serve(db, "5 1M", queries, gt)
-    counts = read_launches("5 1M", must_launch=("fused_int8_pool",))
+    counts = read_launches("5 1M", must_launch=("fused_int8_pool",),
+                           must_not=("fused_int8g_pool", "fused_raw_pool"))
     if mode != "scan_pallas_int8":
         raise RuntimeError(f"1M: auto resolved to {mode}")
     if rec < 0.95:
         raise RuntimeError(f"1M recall@10 {rec} < 0.95")
     timing("phase 5 1M peak device memory",
            torch.cuda.max_memory_allocated() / 2**30, "GiB")
+
+    def add(c):
+        for name in counts:
+            counts[name] += c[name]
+
+    for mode, epi, must, must_not in PHASE5_MODES:
+        db.index.config.search_mode, db.index.config.int8_epilogue = mode, epi
+        label = f"5 1M {mode}" + (" global" if epi == "global" else "")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        _, rec, _ = serve(db, label, queries, gt)
+        add(read_launches(label, must_launch=must, must_not=must_not))
+        timing(f"phase {label} peak device memory",
+               torch.cuda.max_memory_allocated() / 2**30, "GiB")
+        if rec < 0.95:
+            raise RuntimeError(f"{label} recall@10 {rec} < 0.95")
+    reset_launches()
+    crud_round(db, "5 1M", (("scan_pallas", "per_row"),
+                            ("scan_pallas_int8", "global")))
+    add(read_launches("5 1M CRUD", must_launch=("fused_raw_pool",
+                                                "fused_int8g_pool")))
     db.close()
     return counts
 
@@ -521,50 +748,35 @@ def phase_10m():
             counts[name] += c[name]
 
     add(read_launches("6 10M ingest"))
-    results = {}
-    for mode, floor, kernel, other in (
-            ("auto", 0.94, "pq_decode_recon_t", "fused_packed_pool"),
-            ("scan_pallas_int8", 0.96, "fused_packed_pool",
-             "pq_decode_recon_t")):
-        db.index.config.search_mode = mode
+    for mode, pool, floor, kernel, other in (
+            ("auto", "approx", 0.94, "pq_decode_recon_t",
+             "fused_packed_pool"),
+            ("scan_pallas_int8", "approx", 0.96, "fused_packed_pool",
+             "pq_decode_recon_t"),
+            ("adc_fast", "fused", 0.94, "fused_adc_pool",
+             "fused_packed_pool")):
+        db.index.config.search_mode, db.index.config.adc_pool = mode, pool
+        label = f"6 10M {mode} {pool}"
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        resolved, rec, ids = serve(db, f"6 10M {mode}", queries, gt)
-        add(read_launches(f"6 10M {mode}", must_launch=(kernel,),
+        resolved, rec, ids = serve(db, label, queries, gt)
+        add(read_launches(label, must_launch=(kernel,),
                           must_not=(other, "fused_int8_pool")))
-        timing(f"phase 6 10M {mode} peak device memory",
+        timing(f"phase {label} peak device memory",
                torch.cuda.max_memory_allocated() / 2**30, "GiB")
         if mode == "auto" and resolved != "adc_fast":
             raise RuntimeError(f"10M: auto resolved to {resolved}")
         if rec < floor:
-            raise RuntimeError(f"10M {mode} recall@10 {rec} < {floor}")
-        results[mode] = rec
-    # CRUD at 10M live: add, get, a search that hits it in both modes,
-    # delete, and a search that no longer returns it
+            raise RuntimeError(f"{label} recall@10 {rec} < {floor}")
+    db.index.config.adc_pool = "approx"
+    # CRUD at 10M live, in both of the tier's scan kernels' modes
     reset_launches()
-    vid = 10**8
-    far = torch.full((DIM,), 3.0, device=DEVICE) * spectrum()
-    if not db.add_vector(vid, far):
-        raise RuntimeError("10M CRUD: add_vector refused")
-    got = db.get_vector(vid)
-    err = float(np.abs(got.values - far.cpu().numpy()).max())
-    hits = {}
-    for mode in ("adc_fast", "scan_pallas_int8"):
-        db.index.config.search_mode = mode
-        hits[mode] = db.search(far, K)[0].id == vid
-    if not db.delete_vector(vid):
-        raise RuntimeError("10M CRUD: delete_vector failed")
-    gone = {}
-    for mode in ("adc_fast", "scan_pallas_int8"):
-        db.index.config.search_mode = mode
-        gone[mode] = vid not in [r.id for r in db.search(far, K)]
-    say(f"phase 6 10M CRUD: add ok, get max_abs_err={err}, hit={hits}, "
-        f"gone after delete={gone}, rows={db.size()}")
+    crud_round(db, "6 10M", (("adc_fast", "per_row"),
+                             ("scan_pallas_int8", "per_row")))
     add(read_launches("6 10M CRUD", must_launch=("pq_decode_recon_t",
                                                    "fused_packed_pool")))
-    if not (all(hits.values()) and all(gone.values()) and db.size() == n
-            and err < 1e-3):
-        raise RuntimeError("10M CRUD failed")
+    if db.size() != n:
+        raise RuntimeError("10M CRUD changed the row count")
     db.close()
     del db
     torch.cuda.empty_cache()
@@ -590,11 +802,21 @@ def phase_membound():
     mode, rec, _ = serve(db, "7 100k memory-bound", queries, gt)
     counts = read_launches("7 100k memory-bound",
                            must_launch=("pq_decode_recon_t",),
-                           must_not=("fused_int8_pool", "fused_packed_pool"))
+                           must_not=("fused_int8_pool", "fused_packed_pool",
+                                     "fused_adc_pool"))
     if mode != "adc_fast" or rec < 0.96:
         raise RuntimeError(f"memory-bound: {mode} recall@10 {rec} < 0.96")
+    db.index.config.adc_pool = "fused"
+    reset_launches()
+    _, rec_f, _ = serve(db, "7 100k memory-bound fused", queries, gt)
+    fused = read_launches("7 100k memory-bound fused",
+                          must_launch=("fused_adc_pool",),
+                          must_not=("fused_int8_pool", "fused_packed_pool"))
+    say(f"phase 7 100k memory-bound: recall@10 approx={rec} fused={rec_f}")
+    if rec_f < 0.96:
+        raise RuntimeError(f"memory-bound fused recall@10 {rec_f} < 0.96")
     db.close()
-    return counts
+    return {name: c + fused[name] for name, c in counts.items()}
 
 
 def main():
@@ -607,7 +829,10 @@ def main():
     phase_build()
     entries = {"fused_int8_pool": phase_kernel(),
                "pq_decode_recon_t": phase_decode(),
-               "fused_packed_pool": phase_packed()}
+               "fused_packed_pool": phase_packed(),
+               "fused_int8g_pool": phase_int8g(),
+               "fused_raw_pool": phase_raw(),
+               "fused_adc_pool": phase_adc()}
     # the main path: each phase sets every launch count to 0 just before
     # its paths and reads them just after
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound()):

@@ -95,6 +95,9 @@ def _refine_args(t, source, to):
         ("approx", 128, 1536, 1, "int8_resid"),
         ("approx", 128, 0, 1, "f32"),
         ("approx", 0, 1536, 1, "bf16"),
+        ("fused", 0, 0, 1, "f32"),
+        ("fused", 128, 1536, 1, "int8_resid"),   # ragged last chunk
+        ("fused", 0, 1536, 2, "bf16"),
     ],
 )
 def test_adc_fast_search_matches_reference(tables, pool_mode, select_r,
@@ -200,9 +203,31 @@ def test_raw_index_adc_fast_matches_reference(refine_store):
 
 
 def test_fused_pool_is_not_ported():
-    port = hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(
-        num_subspaces=S, training_samples=1500, search_mode="adc_fast",
-        adc_pool="fused"), device="cpu")
-    port.add_batch(range(600), _corpus(600, 38))
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.search_batch(_t(_corpus(2, 39)), K)
+    """Once a refusal of adc_pool="fused" (kernel B5), now its parity: the
+    index with the fused pool, loaded from a reference index's state, finds
+    the reference's neighbours before and after churn."""
+    base = _corpus(N, 38)
+    cfg = dict(num_subspaces=S, training_samples=1500,
+               search_mode="adc_fast", adc_pool="fused")
+    ref = ref_hp.HnswPqIndex(D, CAP, "l2", RefConfig(**cfg))
+    ref.add_batch(range(N), base)
+    port = hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(**cfg), device="cpu")
+    port.load_state_arrays(ref.state_arrays())
+    rows = dict(enumerate(base))
+    q = _corpus(32, 39)
+    for step in range(2):
+        if step:
+            for vid in range(1, 500, 4):
+                assert port.remove(vid) == ref.remove(vid)
+                del rows[vid]
+            new = _corpus(60, 40)
+            assert port.add_batch(range(7000, 7060), new) == ref.add_batch(
+                range(7000, 7060), new)
+            rows.update(zip(range(7000, 7060), new))
+        ref_ids, _ = ref.search_batch(q, K)
+        port_ids, port_d = port.search_batch(_t(q), K)
+        ids = np.asarray(sorted(rows))
+        gt = ids[_gt(np.stack([rows[i] for i in ids]), q)]
+        assert _overlap(port_ids, ref_ids) >= 0.99
+        assert _overlap(port_ids, gt) >= _overlap(ref_ids, gt) - 0.005
+        assert np.all(np.diff(port_d, axis=1) >= 0)

@@ -124,27 +124,6 @@ def test_unsupported_device_raises():
         tk.fused_int8_pool(q, b, v, v, 128)
 
 
-@pytest.mark.cuda
-def test_kernel_bit_equal_to_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for qn, n, d, w in [(13, 4000, 512, 64), (70, 5000, 36, 300),
-                        (1, 9000, 64, 2048)]:
-        q = torch.randn(qn, d, device="cuda", generator=g)
-        b8 = torch.randint(-127, 128, (n, d), device="cuda", generator=g,
-                           dtype=torch.int8)
-        off = torch.rand(n, device="cuda", generator=g)
-        off[::7] = float("inf")
-        sc = -torch.rand(n, device="cuda", generator=g)
-        before = tk.fused_int8_pool.launches
-        v1, s1 = tk.fused_int8_pool(q, b8, off, sc, w)
-        v2, s2 = tk.fused_int8_pool_plain(q, b8, off, sc, w)
-        torch.cuda.synchronize()
-        assert tk.fused_int8_pool.launches == before + 1
-        assert torch.equal(v1, v2) and torch.equal(s1, s2)
-
-
 # ---------------------------------------------------- pq_decode_recon_t (B3)
 @pytest.mark.parametrize(
     "s,sd,k,n",
@@ -260,32 +239,3 @@ def test_preserved_pool_width_matches_reference():
         w = tk.preserved_pool_width(n)
         assert w == ref_pk.preserved_pool_width(n)
         assert n % w == 0 and tk.pool_width(w) == w
-
-
-@pytest.mark.cuda
-def test_decode_and_packed_kernels_bit_equal_to_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    for s, sd, k, n in [(64, 8, 256, 4000), (16, 4, 200, 5003)]:
-        codes = torch.randint(0, k, (s, n + 64), device="cuda", generator=g,
-                              dtype=torch.uint8)[:, 32:32 + n]
-        cbt = torch.randn(s * sd, k, device="cuda", generator=g)
-        before = tk.pq_decode_recon_t.launches
-        got = tk.pq_decode_recon_t(codes, cbt)
-        assert torch.equal(got, tk.pq_decode_recon_t_plain(codes, cbt))
-        assert tk.pq_decode_recon_t.launches == before + 1
-    for qn, n, d, w in [(13, 4096, 512, 512), (1, 8192, 64, 2048)]:
-        b8 = torch.randint(-127, 128, (n, d), device="cuda", generator=g,
-                           dtype=torch.int8)
-        packed = b8.view(torch.int32)
-        q = torch.randn(qn, d, device="cuda", generator=g)
-        off = torch.rand(n, device="cuda", generator=g)
-        off[::9] = float("inf")
-        sc = -torch.rand(n, device="cuda", generator=g)
-        before = tk.fused_packed_pool.launches
-        v1, s1 = tk.fused_packed_pool(q, packed, off, sc, w)
-        v2, s2 = tk.fused_packed_pool_plain(q, packed, off, sc, w)
-        torch.cuda.synchronize()
-        assert tk.fused_packed_pool.launches == before + 1
-        assert torch.equal(v1, v2) and torch.equal(s1, s2)

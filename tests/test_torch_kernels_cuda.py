@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(``ops/kernels.py``): B2 ``fused_int8_pool``, B3 ``pq_decode_recon_t``, B4
+``fused_packed_pool`` and B7 ``fused_int8g_pool`` bit-equal; B6
+``fused_raw_pool`` and B5 ``fused_adc_pool`` within the f32 summation-order
+bound of ``ops/kernels.check_float_pool``.  Every test is marked ``cuda``
+and skips without a card.  This file imports no JAX, so it runs on a machine
+with a card and no JAX:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vector_db_torch.index import hnsw_pq as hp  # noqa: E402
+from vector_db_torch.ops import kernels as tk  # noqa: E402
+
+
+@pytest.mark.cuda
+def test_kernel_bit_equal_to_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for qn, n, d, w in [(13, 4000, 512, 64), (70, 5000, 36, 300),
+                        (1, 9000, 64, 2048)]:
+        q = torch.randn(qn, d, device="cuda", generator=g)
+        b8 = torch.randint(-127, 128, (n, d), device="cuda", generator=g,
+                           dtype=torch.int8)
+        off = torch.rand(n, device="cuda", generator=g)
+        off[::7] = float("inf")
+        sc = -torch.rand(n, device="cuda", generator=g)
+        before = tk.fused_int8_pool.launches
+        v1, s1 = tk.fused_int8_pool(q, b8, off, sc, w)
+        v2, s2 = tk.fused_int8_pool_plain(q, b8, off, sc, w)
+        torch.cuda.synchronize()
+        assert tk.fused_int8_pool.launches == before + 1
+        assert torch.equal(v1, v2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_decode_and_packed_kernels_bit_equal_to_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for s, sd, k, n in [(64, 8, 256, 4000), (16, 4, 200, 5003)]:
+        codes = torch.randint(0, k, (s, n + 64), device="cuda", generator=g,
+                              dtype=torch.uint8)[:, 32:32 + n]
+        cbt = torch.randn(s * sd, k, device="cuda", generator=g)
+        before = tk.pq_decode_recon_t.launches
+        got = tk.pq_decode_recon_t(codes, cbt)
+        assert torch.equal(got, tk.pq_decode_recon_t_plain(codes, cbt))
+        assert tk.pq_decode_recon_t.launches == before + 1
+    for qn, n, d, w in [(13, 4096, 512, 512), (1, 8192, 64, 2048)]:
+        b8 = torch.randint(-127, 128, (n, d), device="cuda", generator=g,
+                           dtype=torch.int8)
+        packed = b8.view(torch.int32)
+        q = torch.randn(qn, d, device="cuda", generator=g)
+        off = torch.rand(n, device="cuda", generator=g)
+        off[::9] = float("inf")
+        sc = -torch.rand(n, device="cuda", generator=g)
+        before = tk.fused_packed_pool.launches
+        v1, s1 = tk.fused_packed_pool(q, packed, off, sc, w)
+        v2, s2 = tk.fused_packed_pool_plain(q, packed, off, sc, w)
+        torch.cuda.synchronize()
+        assert tk.fused_packed_pool.launches == before + 1
+        assert torch.equal(v1, v2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_new_pool_kernels_agree_with_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+    for qn, n, d, w in [(13, 4000, 512, 64), (70, 5000, 64, 300),
+                        (1, 9000, 32, 2048)]:
+        base = torch.randn(n, d, device=dev, generator=g) + 1.0
+        valid = torch.rand(n, device=dev, generator=g) > 0.1
+        norms = (base * base).sum(1)
+        q = torch.randn(qn, d, device=dev, generator=g) + 1.0
+        # B7: bit-equal
+        b8, off, sv, sgn, cvec, _ = hp._build_scan8g_shadow(
+            base, norms, valid, "l2", 1)
+        before = tk.fused_int8g_pool.launches
+        got = tk.fused_int8g_pool(q - cvec, b8, off, sv, sgn, w)
+        want = tk.fused_int8g_pool_plain(q - cvec, b8, off, sv, sgn, w)
+        torch.cuda.synchronize()
+        assert tk.fused_int8g_pool.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # B6: within the summation-order bound
+        b16, off, sc, cvec, _ = hp._build_scan16_shadow(
+            base, norms, valid, "l2", 1)
+        qc = q - cvec
+        got = tk.fused_raw_pool(qc, b16, off, sc, w)
+        want = tk.fused_raw_pool_plain(qc, b16, off, sc, w)
+        res = tk.check_float_pool(
+            got, want, lambda s: tk.raw_pool_terms(qc, b16, off, sc, s),
+            tk.pool_width(w))
+        assert res["ok"], res
+    for s, sd, k, n in [(64, 8, 256, 4000), (16, 4, 200, 5003)]:
+        codes = torch.randint(0, k, (s, n + 64), device=dev, generator=g,
+                              dtype=torch.uint8)[:, 32:32 + n]
+        cbt = torch.randn(s * sd, k, device=dev, generator=g)
+        mn = torch.rand(n, device=dev, generator=g) * 50
+        mn[::11] = float("inf")
+        q = torch.randn(9, s * sd, device=dev, generator=g)
+        before = tk.fused_adc_pool.launches
+        got = tk.fused_adc_pool(q, codes, cbt, mn, 512)
+        want = tk.fused_adc_pool_plain(q, codes, cbt, mn, 512)
+        assert tk.fused_adc_pool.launches == before + 1
+        res = tk.check_float_pool(
+            got, want, lambda sl: tk.adc_pool_terms(q, codes, cbt, mn, sl),
+            512)
+        assert res["ok"], res

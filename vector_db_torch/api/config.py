@@ -104,9 +104,11 @@ class HnswPqConfig:
 
     The port serves both stores (``raw_store``; the compressed one with
     ``refine_residual``) with ``use_graph=False``, and the search modes
-    ``auto``, ``scan_exact``, ``scan_pallas_int8``, ``adc_fast`` (pools
-    ``bucket`` and ``approx``) and ``scan_int8``; every other value raises
-    ``NotImplementedError`` naming its ROADMAP item.
+    ``auto``, ``scan_exact``, ``scan_pallas_int8`` (``int8_epilogue``
+    ``per_row`` or ``global``), ``scan_pallas``, ``scan_bf16``, ``adc_fast``
+    (pools ``bucket``, ``approx`` and ``fused``) and ``scan_int8``; ``pca``,
+    ``adc``, the graph and ``scan_ivf`` raise ``NotImplementedError`` naming
+    their ROADMAP item.
     """
 
     m: int = 32
@@ -133,7 +135,7 @@ class HnswPqConfig:
     # ROADMAP A8)
     search_mode: str = "auto"
     scan_recall_target: float = 0.99  # the port's scans select exactly
-    int8_epilogue: str = "per_row"  # "global" -> ROADMAP A10 (kernel B7)
+    int8_epilogue: str = "per_row"  # "global": the int32-epilogue pool (B7)
     adc_bucket: int = 32
     adc_winners: int = 1
     adc_pool: str = "bucket"

@@ -1,329 +1,196 @@
-// Fused s8 x s8 -> s32 scan + strided-bucket min pool, for NVIDIA Hopper.
+// Fused scan + strided-bucket min pool over a corpus matrix, for NVIDIA
+// Hopper: four TPU kernels of vector_db_tpu/ops/pallas_kernels.py through one
+// tile loop (pool_tile.cuh) with three epilogues.
 //
-// Replaces the TPU kernel `fused_int8_pool` of
-// vector_db_tpu/ops/pallas_kernels.py (pallas_call at :631; body
-// `_make_int8_pool_kernel` :568-577 and `_pool_accumulate` :375-397), and,
-// through the second entry point `vdb_fused_packed_pool`, the TPU kernel
-// `fused_packed_pool` (:900, pallas_call at :949), which is the same scan
-// over the compressed store's int32-packed rows: on this card those words
-// are already the int8 rows in true dim order, so one kernel serves both.
+//   entry                   TPU kernel (pallas_call)   operands, epilogue
+//   vdb_fused_int8_pool     fused_int8_pool :585 (:631)  s8 x s8 -> s32,
+//                           body :568-577                f32 off + (x*sc)*sq
+//   vdb_fused_packed_pool   fused_packed_pool :900 (:949) the same over the
+//                           compressed store's int32-packed rows
+//   vdb_fused_int8g_pool    fused_int8g_pool :726 (:797)  s8 x s8 -> s32,
+//                           body :712-718                i32 off_i - x
+//   vdb_fused_raw_pool      fused_raw_pool :460 (:519)    bf16 x bf16 -> f32,
+//                           body :444-452                f32 off + x*sc
 //
-// What it computes, for queries q8 [Q, D] int8 with per-row scales sq [Q]
-// and a corpus shadow base8 [N, D] int8 with per-slot off [N], sc [N]:
+// What each computes, for queries q [Q, d] and corpus rows v [N, d] with the
+// per-slot columns off [N] (and sc [N]):
 //
-//   score(q, n) = off[n] + (float(q8[q] . base8[n]) * sc[n]) * sq[q]
-//   vals[q, c]  = min over passes j of score(q, c + j*W)   (strict <: the
-//                 earliest pass wins a tie), slots[q, c] the slot of it,
-//   starting from (+inf, -1); slots >= N score +inf; a non-finite result
-//   has slot -1.
+//   * per-row s8 (B2, B4): score = off[n] + (float(q8 . v8_n) * sc[n]) * sq[q],
+//     sq the per-query scale; +inf/-1 where empty.
+//   * global s8 (B7): score = off_i[n] - (q8 . v8_n), all int32, init
+//     INT32_MAX; slots past N score 2^29 (a dead slot).  The wrapper scales the
+//     [Q, W] result back to f32 and masks scores >= 2^28, as the reference
+//     does outside its kernel (:826-828).
+//   * bf16 (B6): score = off[n] + (q16 . v16_n) * sc[n], the product of bf16
+//     values summed in f32; +inf/-1 where empty.
 //
-// The epilogue rounds each operation separately (__fmul_rn / __fadd_rn), in
-// the order of the reference, so nvcc cannot contract it into an FMA and the
-// result is bit-equal to the plain PyTorch version (ops/kernels.py).  The
-// cross term is exact: |q8 . v8| <= 127^2 * D < 2^24 for D <= 1040.
+// The f32 epilogues round each operation separately (__fmul_rn / __fadd_rn)
+// in the reference's order, so nvcc cannot contract them into an FMA.  The s8
+// cross terms are exact (|q8 . v8| <= 127^2 * d < 2^24 for d <= 1040), so B2,
+// B4 and B7 are bit-equal to their plain PyTorch versions (ops/kernels.py).
+// B6's f32 sums run in the tensor cores' order, not the plain matmul's: its
+// scores agree within the f32 summation-order bound 2 d 2^-24 (|q|.|v|) |sc|.
 //
-// What bounds it on an H100: at the main path's shape (Q = 1024 queries,
-// N ~ 1M slots, D = 512) the 5.4e11 int8 multiply-adds, unless they run on
-// the tensor cores; the shadow itself is 0.5 GB.  Each block keeps a
-// 64-query tile resident in shared memory and streams the 128 slots of each
-// pass through shared memory; its 8 warps (2 x 4) each own a 32 x 32 output
-// tile and run `mma.sync.m16n8k32` s8 x s8 -> s32 on fragments read straight
-// from the shared rows (rows padded by 16 bytes: conflict-free).  The int32
-// sums are exact, so the result does not depend on the summation order.
-// The running (value, slot) minimum stays in registers across passes and is
-// written once.  Blocks are independent (the TPU grid's sequential pass axis
-// becomes the loop inside the block); when the query x column tiles alone
-// cannot fill the card, the passes are split across blocks (gridDim.z) into
-// partial pools that a second small kernel merges in pass order, which
-// keeps the earliest-pass tie rule.  Loads are not yet overlapped with the
-// products (no cp.async/TMA pipeline) and wgmma is not used: later work.
+// What bounds them on an H100: at the main path's shape (Q = 1024 queries,
+// N ~ 1M slots, d = 512) the 5.4e11 multiply-adds, on the tensor cores
+// through mma.sync; the corpus itself is 0.5 GB (s8) or 1 GB (bf16).  A bf16
+// row takes twice the shared memory of an s8 row, so B6 fits one block per SM
+// at d = 512 and refuses rows wider than 592 dims (the wrapper raises first).
+//
+// On the TPU, B4 unpacks its int32 words by shifts into a lane-permuted order;
+// on this card the little-endian words are the int8 rows in true dim order,
+// so B4 is B2's kernel over the same bytes.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "pool_tile.cuh"
 
 namespace {
 
-constexpr int kTQ = 64;        // query rows per block
-constexpr int kTN = 128;       // pool columns per block (W % kTN == 0)
-constexpr int kThreads = 256;  // 8 warps: 2 along queries x 4 along columns
-constexpr int kWM = 32;        // query rows per warp
-constexpr int kWN = 32;        // pool columns per warp
-constexpr int kMT = kWM / 16;  // m16 tiles per warp
-constexpr int kNT = kWN / 8;   // n8 tiles per warp
-constexpr int kPadWords = 4;   // shared row padding: conflict-free fragments
+using pool::kTN;
 
-// D += A * B for one m16n8k32 tile: A 16 x 32 s8 (row), B 32 x 8 s8 (col).
-__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
-                                       int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// B2, B4: f32 score = off + (float(cross) * sc) * sq.
+struct ScaledS8 : pool::MatrixRows {
+  using Acc = int;
+  using Val = float;
+  using Col = float;
+  const float* off;
+  const float* sc;
+  const float* sq;
+  __device__ static float init() { return INFINITY; }
+  __device__ void prepare(int32_t*, int, int, int) const {}
+  __device__ float row_value(int qr, int Q) const {
+    return qr < Q ? sq[qr] : 0.f;
+  }
+  __device__ void stage_cols(float* c0, float* c1, int i, long long slot,
+                             int N) const {
+    c0[i] = slot < N ? off[slot] : INFINITY;
+    c1[i] = slot < N ? sc[slot] : 0.f;
+  }
+  __device__ static float score(int acc, float o, float c, float r) {
+    return __fadd_rn(o, __fmul_rn(__fmul_rn(__int2float_rn(acc), c), r));
+  }
+  __device__ static int32_t final_slot(float v, int32_t s) {
+    return isfinite(v) ? s : -1;
+  }
+};
+
+// B7: int32 score = off_i - cross (the wrapper scales it back to f32).
+struct GlobalS8 : pool::MatrixRows {
+  using Acc = int;
+  using Val = int;
+  using Col = int;
+  const int32_t* off_i;
+  __device__ static int init() { return 0x7fffffff; }
+  __device__ void prepare(int32_t*, int, int, int) const {}
+  __device__ float row_value(int, int) const { return 0.f; }
+  __device__ void stage_cols(int* c0, float* c1, int i, long long slot,
+                             int N) const {
+    c0[i] = slot < N ? off_i[slot] : (1 << 29);  // past N: a dead slot
+    c1[i] = 0.f;
+  }
+  __device__ static int score(int acc, int o, float, float) { return o - acc; }
+  __device__ static int32_t final_slot(int, int32_t s) { return s; }
+};
+
+// B6: f32 score = off + cross * sc over bf16 rows.
+struct RawBf16 : pool::MatrixRows {
+  using Acc = float;
+  using Val = float;
+  using Col = float;
+  const float* off;
+  const float* sc;
+  __device__ static float init() { return INFINITY; }
+  __device__ void prepare(int32_t*, int, int, int) const {}
+  __device__ float row_value(int, int) const { return 0.f; }
+  __device__ void stage_cols(float* c0, float* c1, int i, long long slot,
+                             int N) const {
+    c0[i] = slot < N ? off[slot] : INFINITY;
+    c1[i] = slot < N ? sc[slot] : 0.f;
+  }
+  __device__ static float score(float acc, float o, float c, float) {
+    return __fadd_rn(o, __fmul_rn(acc, c));
+  }
+  __device__ static int32_t final_slot(float v, int32_t s) {
+    return isfinite(v) ? s : -1;
+  }
+};
+
+bool aligned16(const void* a, const void* b, int dw) {
+  return dw % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
 }
 
-// Copy `rows` rows of dw words (row r from src_row(r), or zeros) into shared
-// rows of `stride` words, zero-filling words dw..dw8.  16-byte loads when
-// `vec16` (rows are whole, aligned 16-byte vectors), 4-byte loads otherwise.
-template <typename RowPtr>
-__device__ __forceinline__ void stage_rows(int32_t* dst, int rows, int dw,
-                                           int dw8, int stride, bool vec16,
-                                           RowPtr src_row) {
-  if (vec16) {
-    const int v8 = dw8 >> 2;  // 16-byte vectors per shared row
-    for (int i = threadIdx.x; i < rows * v8; i += kThreads) {
-      const int r = i / v8;
-      const int v = i - r * v8;
-      const int32_t* src = src_row(r);
-      int4 x = make_int4(0, 0, 0, 0);
-      if (src != nullptr && 4 * v < dw)
-        x = __ldg(reinterpret_cast<const int4*>(src) + v);
-      *reinterpret_cast<int4*>(&dst[r * stride + 4 * v]) = x;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * dw8; i += kThreads) {
-      const int r = i / dw8;
-      const int w = i - r * dw8;
-      const int32_t* src = src_row(r);
-      dst[r * stride + w] = (src != nullptr && w < dw) ? __ldg(src + w) : 0;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_pool_kernel(const int32_t* __restrict__ q8,     // [Q, dw] words
-                 const float* __restrict__ sq,       // [Q]
-                 const int32_t* __restrict__ base8,  // [N, dw] words
-                 const float* __restrict__ off,      // [N]
-                 const float* __restrict__ sc,       // [N]
-                 float* __restrict__ vals,           // [splits, Q, W]
-                 int32_t* __restrict__ slots,        // [splits, Q, W]
-                 int Q, int N, int dw, int W, int passes,
-                 int passes_per_split, bool vec16) {
-  extern __shared__ __align__(16) int32_t smem[];
-  const int dw8 = (dw + 7) & ~7;       // words per row, whole k32 steps
-  const int stride = dw8 + kPadWords;  // shared words per row
-  int32_t* s_q = smem;                 // [kTQ][stride]
-  int32_t* s_b = s_q + kTQ * stride;   // [kTN][stride]
-  float* s_off = reinterpret_cast<float*>(s_b + kTN * stride);  // [kTN]
-  float* s_sc = s_off + kTN;                                    // [kTN]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;             // fragment row group
-  const int t = lane & 3;              // thread in group
-  const int wm0 = (warp >> 2) * kWM;   // warp's first query row in the tile
-  const int wn0 = (warp & 3) * kWN;    // warp's first column in the tile
-  const int c0 = blockIdx.x * kTN;
-  const int q0 = blockIdx.y * kTQ;
-  const int split = blockIdx.z;
-  const int p_begin = split * passes_per_split;
-  const int p_end = min(passes, p_begin + passes_per_split);
-
-  // the query tile stays resident; rows past Q and pad words are zero
-  stage_rows(s_q, kTQ, dw, dw8, stride, vec16, [&](int r) -> const int32_t* {
-    return q0 + r < Q ? q8 + (size_t)(q0 + r) * dw : nullptr;
-  });
-
-  // this thread's accumulator elements: query row q0 + wm0 + 16 mt + g + 8 h
-  // and column wn0 + 8 nt + 2 t + e, at acc[mt][nt][2 h + e]
-  float r_sq[kMT][2];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qr = q0 + wm0 + 16 * mt + g + 8 * h;
-      r_sq[mt][h] = qr < Q ? sq[qr] : 0.f;
-    }
-  }
-  float best_v[kMT][kNT][4];
-  int best_s[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        best_v[mt][nt][i] = INFINITY;
-        best_s[mt][nt][i] = -1;
-      }
-
-  for (int p = p_begin; p < p_end; ++p) {
-    const long long row0 = (long long)p * W + c0;  // slot of local column 0
-    __syncthreads();  // the previous pass has finished reading s_b
-    stage_rows(s_b, kTN, dw, dw8, stride, vec16, [&](int r) -> const int32_t* {
-      return row0 + r < N ? base8 + (size_t)(row0 + r) * dw : nullptr;
-    });
-    if (tid < kTN) {
-      const long long slot = row0 + tid;
-      s_off[tid] = slot < N ? off[slot] : INFINITY;
-      s_sc[tid] = slot < N ? sc[slot] : 0.f;
-    }
-    __syncthreads();
-
-    int acc[kMT][kNT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-    for (int kw = 0; kw < dw8; kw += 8) {  // one k32 step = 8 words
-      int a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int32_t* r = s_q + (wm0 + 16 * mt + g) * stride + kw + t;
-        a[mt][0] = r[0];
-        a[mt][1] = r[8 * stride];
-        a[mt][2] = r[4];
-        a[mt][3] = r[8 * stride + 4];
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int32_t* r = s_b + (wn0 + 8 * nt + g) * stride + kw + t;
-        const int b0 = r[0];
-        const int b1 = r[4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = wn0 + 8 * nt + 2 * t + e;
-        const float o = s_off[col];
-        const float c = s_sc[col];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 2 * h + e;
-            const float score = __fadd_rn(
-                o, __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]), c),
-                             r_sq[mt][h]));
-            if (score < best_v[mt][nt][i]) {
-              best_v[mt][nt][i] = score;
-              best_s[mt][nt][i] = (int)(row0 + col);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qr = q0 + wm0 + 16 * mt + g + 8 * h;
-      if (qr >= Q) continue;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 2 * h + e;
-          const size_t o = ((size_t)split * Q + qr) * W + c0 + wn0 + 8 * nt +
-                           2 * t + e;
-          vals[o] = best_v[mt][nt][i];
-          slots[o] = isfinite(best_v[mt][nt][i]) ? best_s[mt][nt][i] : -1;
-        }
-      }
-    }
-  }
-}
-
-// Merge the per-split partial pools in split (= pass) order with strict <,
-// so a tie keeps the earlier pass exactly as the single-block loop would.
-__global__ void merge_splits_kernel(const float* __restrict__ part_vals,
-                                    const int32_t* __restrict__ part_slots,
-                                    float* __restrict__ vals,
-                                    int32_t* __restrict__ slots,
-                                    long long qw, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= qw) return;
-  float bv = part_vals[i];
-  int32_t bs = part_slots[i];
-  for (int z = 1; z < splits; ++z) {
-    const float v = part_vals[z * qw + i];
-    if (v < bv) {
-      bv = v;
-      bs = part_slots[z * qw + i];
-    }
-  }
-  vals[i] = bv;
-  slots[i] = bs;
-}
-
-// Host side of both entry points: the pool kernel over int32 words
-// [n, d/4] (the int8 rows as 4-byte words), then the split merge.
-int launch_int8_pool(const void* q8, const void* sq, const int32_t* base8,
-                     const void* off, const void* sc, void* part_vals,
-                     void* part_slots, void* vals, void* slots, int q, int n,
-                     int d, int w, int splits, void* stream) {
-  if (q <= 0 || w <= 0 || d <= 0 || d % 4 != 0 || w % kTN != 0 || splits < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dw8 = ((d / 4) + 7) & ~7;  // shared: two tiles + off/sc columns
-  const int smem = (kTQ + kTN) * (dw8 + kPadWords) * 4 + 2 * kTN * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int passes = n > 0 ? (n + w - 1) / w : 0;
-  const int pps = passes > 0 ? (passes + splits - 1) / splits : 0;
-  float* out_v = static_cast<float*>(splits == 1 ? vals : part_vals);
-  int32_t* out_s = static_cast<int32_t*>(splits == 1 ? slots : part_slots);
-  const bool vec16 = d % 16 == 0 && reinterpret_cast<uintptr_t>(q8) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(base8) % 16 == 0;
-  dim3 grid(w / kTN, (q + kTQ - 1) / kTQ, splits);
-  int8_pool_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const int32_t*>(q8), static_cast<const float*>(sq), base8,
-      static_cast<const float*>(off), static_cast<const float*>(sc), out_v,
-      out_s, q, n, d / 4, w, passes, pps, vec16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long qw = (long long)q * w;
-  const int threads = 256;
-  merge_splits_kernel<<<(unsigned)((qw + threads - 1) / threads), threads, 0,
-                        s>>>(out_v, out_s, static_cast<float*>(vals),
-                             static_cast<int32_t*>(slots), qw, splits);
-  return (int)cudaGetLastError();
+int launch_scaled(const void* q8, const void* sq, const void* base8,
+                  const void* off, const void* sc, void* part_vals,
+                  void* part_slots, void* vals, void* slots, int q, int n,
+                  int d, int w, int splits, void* stream) {
+  if (d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
+  ScaledS8 op;
+  op.base = static_cast<const int32_t*>(base8);
+  op.off = static_cast<const float*>(off);
+  op.sc = static_cast<const float*>(sc);
+  op.sq = static_cast<const float*>(sq);
+  return pool::launch(q8, op, part_vals, part_slots, vals, slots, q, n, d / 4,
+                      w, splits, aligned16(q8, base8, d / 4), stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the pool on `stream`.  All pointers are device pointers; d % 4 == 0,
-// w % 128 == 0.  With splits == 1 the kernel writes vals/slots [q, w]
-// directly; otherwise it writes part_vals/part_slots [splits, q, w] and the
-// merge kernel reduces them into vals/slots.  Returns cudaGetLastError().
+// All pointers are device pointers; w % 128 == 0; the launch goes on
+// `stream`.  With splits == 1 the kernel writes vals/slots [q, w] directly;
+// otherwise part_vals/part_slots [splits, q, w], merged into vals/slots.
+// Each returns cudaGetLastError().
+
+// B2: q8 [q, d] int8, sq [q] f32, base8 [n, d] int8, off/sc [n] f32; d % 4 == 0.
 int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
                         const void* off, const void* sc, void* part_vals,
                         void* part_slots, void* vals, void* slots, int q,
                         int n, int d, int w, int splits, void* stream) {
-  return launch_int8_pool(q8, sq, static_cast<const int32_t*>(base8), off, sc,
-                          part_vals, part_slots, vals, slots, q, n, d, w,
-                          splits, stream);
+  return launch_scaled(q8, sq, base8, off, sc, part_vals, part_slots, vals,
+                       slots, q, n, d, w, splits, stream);
 }
 
-// fused_packed_pool: the same kernel over the compressed store's own rows,
-// int32 words [n, d/4] holding four int8 dims each, byte j of word c = dim
-// 4c + j (little-endian).  In memory that is byte for byte an int8 [n, d]
-// matrix in true dim order, so the unpack and query permutation of the TPU
-// kernel disappear.  The caller guarantees n % w == 0 (no tail pass).
-int vdb_fused_packed_pool(const void* q8, const void* sq,
-                          const int32_t* packed, const void* off,
-                          const void* sc, void* part_vals, void* part_slots,
-                          void* vals, void* slots, int q, int n, int d, int w,
-                          int splits, void* stream) {
+// B4: the same kernel over the compressed store's own rows, int32 words
+// [n, d/4] holding four int8 dims each, byte j of word c = dim 4c + j
+// (little-endian): byte for byte an int8 [n, d] matrix in true dim order.
+// The caller guarantees n % w == 0 (no tail pass).
+int vdb_fused_packed_pool(const void* q8, const void* sq, const void* packed,
+                          const void* off, const void* sc, void* part_vals,
+                          void* part_slots, void* vals, void* slots, int q,
+                          int n, int d, int w, int splits, void* stream) {
   if (w > 0 && n % w != 0) return (int)cudaErrorInvalidValue;
-  return launch_int8_pool(q8, sq, packed, off, sc, part_vals, part_slots, vals,
-                          slots, q, n, d, w, splits, stream);
+  return launch_scaled(q8, sq, packed, off, sc, part_vals, part_slots, vals,
+                       slots, q, n, d, w, splits, stream);
+}
+
+// B7: q8 [q, d] int8 (one batch scale, applied by the caller), base8 [n, d]
+// int8 (one corpus scale), off_i [n] int32; vals are int32 scores.
+int vdb_fused_int8g_pool(const void* q8, const void* base8, const void* off_i,
+                         void* part_vals, void* part_slots, void* vals,
+                         void* slots, int q, int n, int d, int w, int splits,
+                         void* stream) {
+  if (d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
+  GlobalS8 op;
+  op.base = static_cast<const int32_t*>(base8);
+  op.off_i = static_cast<const int32_t*>(off_i);
+  return pool::launch(q8, op, part_vals, part_slots, vals, slots, q, n, d / 4,
+                      w, splits, aligned16(q8, base8, d / 4), stream);
+}
+
+// B6: q16 [q, d] bf16, base16 [n, d] bf16, off/sc [n] f32; d % 2 == 0.
+int vdb_fused_raw_pool(const void* q16, const void* base16, const void* off,
+                       const void* sc, void* part_vals, void* part_slots,
+                       void* vals, void* slots, int q, int n, int d, int w,
+                       int splits, void* stream) {
+  if (d <= 0 || d % 2 != 0) return (int)cudaErrorInvalidValue;
+  RawBf16 op;
+  op.base = static_cast<const int32_t*>(base16);
+  op.off = static_cast<const float*>(off);
+  op.sc = static_cast<const float*>(sc);
+  return pool::launch(q16, op, part_vals, part_slots, vals, slots, q, n,
+                      d / 2, w, splits, aligned16(q16, base16, d / 2),
+                      stream);
 }
 
 const char* vdb_cuda_error_string(int code) {

@@ -9,12 +9,20 @@ row is encoded, and ``search_batch`` scans:
     (:func:`exact_scan_search`: ``torch.matmul`` + exact top-k);
   * ``scan_pallas_int8`` — the int8 pool kernel with a re-rank of the pool:
     over a per-row quantized, centered int8 shadow of a raw store
-    (``ops/kernels.fused_int8_pool``, :func:`pallas_scan8_refine`), or
+    (``ops/kernels.fused_int8_pool``, :func:`pallas_scan8_refine`), or with
+    ``int8_epilogue="global"`` over a global-scale shadow ranked in int32
+    (``ops/kernels.fused_int8g_pool``, :func:`pallas_scan8g_refine`), or
     directly over a compressed store's packed rows
     (``ops/kernels.fused_packed_pool``, :func:`pallas_scan8p_refine`);
+  * ``scan_pallas`` (raw store) — the bf16 pool kernel over a centered bf16
+    shadow (``ops/kernels.fused_raw_pool``, :func:`pallas_scan_refine`);
+  * ``scan_bf16`` (raw store) — bf16 selection scores from a bf16 product
+    (``ops/distance.bf16_pool_scan``, no pool kernel) and an exact re-rank
+    (:func:`bf16_scan_refine`);
   * ``adc_fast`` — decode the codes (``ops/kernels.pq_decode_recon_t``),
     score against the reconstruction, pool, re-rank against the refine
-    store (``ops/adc.adc_fast_search``);
+    store (``ops/adc.adc_fast_search``); with ``adc_pool="fused"`` one
+    kernel decodes, scores and pools (``ops/kernels.fused_adc_pool``);
   * ``scan_int8`` — the exhaustive scan over int8 rows (the compressed
     store, or a raw store with ``refine_store="int8"``);
   * ``auto`` — raw store: scan_exact below 700,000 live rows,
@@ -26,7 +34,7 @@ and optionally a residual level (``refine_residual``) and no f32 matrix;
 ``bulk_load_stream`` fills it chunk by chunk.  Caches derived from the
 store or the codes are keyed on version counters (``store.version``, the
 codes' own ``_codes_version``): the port writes in place, so the
-reference's array-identity keys would never change.  The other modes, the
+reference's array-identity keys would never change.  ``pca``, ``adc``, the
 graph and the IVF tier raise ``NotImplementedError`` naming their ROADMAP
 item.  Unlike the reference, no [L, cap, M] graph is allocated.
 """
@@ -43,28 +51,27 @@ import torch
 from ..api.config import HnswPqConfig
 from ..core.store import VectorStore
 from ..ops import adc
-from ..ops.distance import (blocked_knn, blocked_knn_fast, blocked_knn_int8,
-                            blocked_rerank, blocked_rerank_int8,
-                            normalize_rows, pack_bf16_rows, pack_int8_rows,
-                            words_to_f32)
-from ..ops.kernels import (fused_int8_pool, fused_packed_pool,
+from ..ops.distance import (bf16_pool_scan, blocked_knn, blocked_knn_fast,
+                            blocked_knn_int8, blocked_rerank,
+                            blocked_rerank_int8, normalize_rows,
+                            pack_bf16_rows, pack_int8_rows, words_to_f32)
+from ..ops.kernels import (fused_int8_pool, fused_int8g_pool,
+                           fused_packed_pool, fused_raw_pool,
                            pq_decode_recon_t, preserved_pool_width)
 from ..ops.kmeans import subspace_kmeans_fit
 from .base import (VectorIndex, as_queries, pad_queries_pow2, pow2,
                    to_host_results)
 
 #: search modes the port serves, and the ROADMAP item that ports each other
-PORTED_MODES = ("auto", "scan_exact", "scan_pallas_int8", "adc_fast",
-                "scan_int8")
-_MODE_ROADMAP = {
-    "scan_bf16": "A10", "scan_pallas": "A10", "pca": "A10", "adc": "A10",
-    "graph": "A10", "scan_ivf": "A12",
-}
+PORTED_MODES = ("auto", "scan_exact", "scan_pallas_int8", "scan_pallas",
+                "scan_bf16", "adc_fast", "scan_int8")
+_MODE_ROADMAP = {"pca": "A10", "adc": "A10", "graph": "A10",
+                 "scan_ivf": "A12"}
 #: modes that read the raw f32 rows (refused by a compressed store)
 RAW_ONLY_MODES = ("scan_exact", "scan_pallas", "scan_bf16", "graph")
 #: live rows at which auto switches from scan_exact to scan_pallas_int8
 AUTO_INT8_MIN_ROWS = 700_000
-#: rows of the int8 shadow are padded to a multiple of this (the pool width)
+#: rows of the scan shadows are padded to a multiple of this (the pool width)
 SHADOW_PAD_ROWS = 2048
 #: store rows quantized (or decoded) per step of a full shadow build
 SHADOW_BUILD_ROWS = 1 << 16
@@ -112,8 +119,6 @@ class HnswPqIndex(VectorIndex):
         if config.search_mode not in PORTED_MODES:
             raise _not_ported(f"search_mode={config.search_mode!r}",
                               _MODE_ROADMAP.get(config.search_mode, "A10"))
-        if config.int8_epilogue != "per_row":
-            raise _not_ported("int8_epilogue='global' (kernel B7)", "A10")
         if config.nlist > 0:
             raise _not_ported("nlist > 0 (the IVF coarse quantizer)", "A12")
         self.config = config
@@ -133,12 +138,22 @@ class HnswPqIndex(VectorIndex):
         # derived caches, each (version key, value):
         #   _scan8_cache  raw int8 scan shadow (base8, off, sc, center_vec)
         #                 with its centering constant _scan8_aux
+        #   _scan8g_cache raw global-scale int8 shadow (base8, off, sv, sgn,
+        #                 center_vec), centering _scan8g_aux, and the live
+        #                 rows clipped since its build, _scan8g_clipped
+        #   _scan16_cache raw bf16 shadow (base16, off, sc, center_vec),
+        #                 centering _scan16_aux
         #   _scan8p_cache compressed scan conditioning (off, sc, center_vec)
         #   _packed_cache raw-store bf16 or int8 refine store
         #   _fast_cache   ADC tables (codes_t, cbt, recon norms), keyed on
         #                 (_codes_version, codebooks)
         self._scan8_cache: Optional[tuple] = None
         self._scan8_aux: Optional[torch.Tensor] = None
+        self._scan8g_cache: Optional[tuple] = None
+        self._scan8g_aux: Optional[torch.Tensor] = None
+        self._scan8g_clipped = 0
+        self._scan16_cache: Optional[tuple] = None
+        self._scan16_aux: Optional[tuple] = None
         self._scan8p_cache: Optional[tuple] = None
         self._packed_cache: Optional[tuple] = None
         self._fast_cache: Optional[tuple] = None
@@ -147,13 +162,16 @@ class HnswPqIndex(VectorIndex):
         # _fast_dirty records re-encoded slots and has one writer,
         # _encode_slots (removals touch no code).
         self._scan8_dirty: Optional[list] = []
+        self._scan8g_dirty: Optional[list] = []
+        self._scan16_dirty: Optional[list] = []
         self._pack_dirty: Optional[list] = []
         self._fast_dirty: Optional[list] = []
         # concurrent searches must not both refresh a cache in place
         self._cache_lock = threading.Lock()
 
     # ------------------------------------------------------------- mutation
-    _ROW_RECORDS = ("_scan8_dirty", "_pack_dirty")
+    _ROW_RECORDS = ("_scan8_dirty", "_scan8g_dirty", "_scan16_dirty",
+                    "_pack_dirty")
 
     def _note_slots(self, attr: str, slots: np.ndarray) -> None:
         """Append slots to a dirty record; past max(8192, capacity / 8)
@@ -381,6 +399,68 @@ class HnswPqIndex(VectorIndex):
             self._scan8_cache = (self.store.version, tuple(shadow))
             return self._scan8_cache[1]
 
+    def _scan8g_shadow(self) -> tuple:
+        """(base8, off, sv, sgn, center_vec) for scan_pallas_int8 with
+        ``int8_epilogue="global"`` on a raw store, current with the store.
+        Rows written since the last build are requantized against the
+        cached centering AND the cached global scale ``sv`` (a wider row
+        clips at +-127); once the live rows clipped since the build pass
+        max(64, 1% of the live rows), or on an unknown rewrite, the shadow
+        is rebuilt whole, which refreshes ``sv``."""
+        with self._cache_lock:
+            st = self.store.state
+            cache = self._scan8g_cache
+            if cache is not None and cache[0] == self.store.version:
+                return cache[1]
+            slots = self._take_dirty("_scan8g_dirty")
+            rebuild = cache is None or self._scan8g_aux is None \
+                or slots is None
+            if not rebuild:
+                base8, off, sv, _, cvec = cache[1]
+                self._scan8g_clipped += _update_scan8g_shadow(
+                    base8, off, st.vectors, st.norms, st.valid, slots, cvec,
+                    self._scan8g_aux, sv, self.metric)
+                rebuild = self._scan8g_clipped > max(
+                    64, 0.01 * self.store.size())
+            if rebuild:
+                self._scan8g_cache = None  # free the old shadow first
+                *shadow, self._scan8g_aux = _build_scan8g_shadow(
+                    st.vectors, st.norms, st.valid, self.metric,
+                    SHADOW_PAD_ROWS)
+                self._scan8g_clipped = 0
+                value = tuple(shadow)
+            else:
+                value = cache[1]
+            self._scan8g_cache = (self.store.version, value)
+            return value
+
+    def _scan16_shadow(self) -> tuple:
+        """(base16, off, sc, center_vec) for scan_pallas on a raw store,
+        current with the store: rows written since the last build are
+        reconditioned against the cached centering, an unknown or
+        over-threshold rewrite rebuilds it whole."""
+        with self._cache_lock:
+            st = self.store.state
+            cache = self._scan16_cache
+            if cache is not None and cache[0] == self.store.version:
+                return cache[1]
+            slots = self._take_dirty("_scan16_dirty")
+            if cache is not None and self._scan16_aux is not None \
+                    and slots is not None:
+                base16, off, sc, cvec = cache[1]
+                _update_scan16_shadow(base16, off, sc, st.vectors, st.norms,
+                                      st.valid, slots, cvec,
+                                      self._scan16_aux, self.metric)
+                value = cache[1]
+            else:
+                self._scan16_cache = None  # free the old shadow first
+                *shadow, self._scan16_aux = _build_scan16_shadow(
+                    st.vectors, st.norms, st.valid, self.metric,
+                    SHADOW_PAD_ROWS)
+                value = tuple(shadow)
+            self._scan16_cache = (self.store.version, value)
+            return value
+
     def _scan8p_shadow(self) -> tuple:
         """(off, sc, center_vec) for scan_pallas_int8 on a compressed
         store: O(N) conditioning vectors (the kernel reads the store's own
@@ -519,12 +599,36 @@ class HnswPqIndex(VectorIndex):
                 padded, st.packed, st.scales, st.norms, off, sc, cvec,
                 st.ids, k_pad, self.metric, pool=min(max(4 * k_pad, 64), w),
                 w=w, resid=resid, rscales=rscales)
+        elif mode == "scan_pallas_int8" \
+                and self.config.int8_epilogue == "global":
+            base8, off, sv, sgn, cvec = self._scan8g_shadow()
+            w = min(SHADOW_PAD_ROWS, base8.shape[0])
+            dists, ext = pallas_scan8g_refine(
+                padded, st.vectors, base8, off, sv, sgn, cvec, st.ids, k_pad,
+                self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
         elif mode == "scan_pallas_int8":
             base8, off, sc, cvec = self._scan8_shadow()
             w = min(SHADOW_PAD_ROWS, base8.shape[0])
             dists, ext = pallas_scan8_refine(
                 padded, st.vectors, base8, off, sc, cvec, st.ids, k_pad,
                 self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
+        elif mode == "scan_pallas":
+            base16, off, sc, cvec = self._scan16_shadow()
+            w = min(SHADOW_PAD_ROWS, base16.shape[0])
+            dists, ext = pallas_scan_refine(
+                padded, st.vectors, base16, off, sc, cvec, st.ids, k_pad,
+                self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
+        elif mode == "scan_bf16":
+            # stream blocks once the full-row bf16 scores would pass 512 MB
+            if padded.shape[0] * st.capacity * 2 > 512 << 20:
+                bn = max(131072, min(st.capacity,
+                                     (1 << 28) // max(padded.shape[0], 1)))
+                bn -= bn % 128
+            else:
+                bn = 0
+            dists, ext = bf16_scan_refine(
+                padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
+                self.metric, min(max(4 * k_pad, 32), st.capacity), block_n=bn)
         elif mode == "scan_exact":
             dists, ext = exact_scan_search(
                 padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
@@ -654,6 +758,7 @@ class HnswPqIndex(VectorIndex):
                      if "perm" in arrays else None)
         # the new store restarts its version: drop every derived cache
         self._scan8_cache = self._scan8p_cache = None
+        self._scan8g_cache = self._scan16_cache = None
         self._packed_cache = self._fast_cache = None
         self._codes_version += 1
         self._note_store_rewrite()
@@ -670,26 +775,41 @@ def _auto_scan_mode(use_graph: bool, n_live: int) -> str:
     return "scan_exact"
 
 
-def _quantize_shadow_rows(rows, rnorms, rvalid, cvec, aux, metric):
-    """Shadow rows for the given store rows against a fixed centering:
-    (r8 int8, off f32, sc f32).  Shared by the full build and the
-    incremental update, so both quantize exactly alike.
+def _shadow_centering(vectors, valid, metric):
+    """The centering of the raw-store scan shadows, from the live rows of
+    the first 4096 slots: (center_vec, aux) = (mu, |mu|^2) under L2, (the
+    mean direction cdir, the mean cosine c0 to it) under cosine."""
+    m = min(4096, vectors.shape[0])
+    pref = vectors[:m]
+    w = valid[:m].to(torch.float32)
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+    mu = torch.sum(pref * w[:, None], dim=0) / wsum
+    musq = torch.sum(mu * mu)
+    if metric == "cosine":
+        cvec = mu * torch.rsqrt(torch.clamp(musq, min=1e-12))
+        pn = torch.sqrt(torch.clamp(torch.sum(pref * pref, dim=1), min=1e-12))
+        return cvec, torch.sum((pref @ cvec) / pn * w) / wsum
+    return mu, musq
 
-      * sq-L2: r8 = round((v - mu) / sv), sv = max|v - mu| / 127;
-        off = ||v - mu||^2 (exact f32); sc = -2 sv.
-      * cosine: r8 = round((v_hat - c0 cdir) / sv); off = -(v_hat . cdir);
-        sc = -sv.
 
-    Dead rows get off = +inf."""
+def _center_shadow_rows(rows, rnorms, cvec, aux, metric):
+    """(ctr, off) of store rows against a fixed centering, shared by the
+    int8 shadows' builds and updates so all quantize exactly alike:
+
+      * sq-L2: ctr = v - mu, off = ||v - mu||^2 (exact f32);
+      * cosine: ctr = v_hat - c0 cdir, off = -(v_hat . cdir)."""
     if metric == "cosine":
         vhat = rows * torch.rsqrt(torch.clamp(rnorms, min=1e-12))[:, None]
-        ctr = vhat - aux * cvec[None, :]
-        off = -(vhat @ cvec)
-        sgn = -1.0
-    else:
-        ctr = rows - cvec[None, :]
-        off = rnorms + aux - 2.0 * (rows @ cvec)
-        sgn = -2.0
+        return vhat - aux * cvec[None, :], -(vhat @ cvec)
+    return rows - cvec[None, :], rnorms + aux - 2.0 * (rows @ cvec)
+
+
+def _quantize_shadow_rows(rows, rnorms, rvalid, cvec, aux, metric):
+    """Per-row shadow rows against a fixed centering: (r8 int8, off f32,
+    sc f32) with r8 = round(ctr / sv), sv = max|ctr| / 127 and sc = -2 sv
+    (sq-L2) or -sv (cosine).  Dead rows get off = +inf."""
+    ctr, off = _center_shadow_rows(rows, rnorms, cvec, aux, metric)
+    sgn = -1.0 if metric == "cosine" else -2.0
     sv = torch.clamp(torch.amax(torch.abs(ctr), dim=1), min=1e-12) / 127.0
     r8 = torch.clamp(torch.round(ctr / sv[:, None]), -127, 127).to(torch.int8)
     off = torch.where(rvalid, off, float("inf"))
@@ -701,26 +821,12 @@ def _build_scan8_shadow(vectors, norms, valid, metric, pad_to):
     sc [N'], center_vec [d], aux).  N' pads the rows to a multiple of
     ``pad_to`` (off = +inf, sc = 0) and d' the columns to a multiple of 4
     with zeros (whole 4-byte words for the kernel); both paddings happen
-    here, once per build, never per search.
-
-    The centering comes from the live rows of the first 4096 slots: mu for
-    sq-L2 (aux = |mu|^2), the mean direction cdir scaled by the mean cosine
-    c0 for cosine (aux = c0).  Rows are quantized SHADOW_BUILD_ROWS at a
+    here, once per build, never per search.  The centering is
+    :func:`_shadow_centering`; rows are quantized SHADOW_BUILD_ROWS at a
     time.
     """
     n, d = vectors.shape
-    m = min(4096, n)
-    pref = vectors[:m]
-    w = valid[:m].to(torch.float32)
-    wsum = torch.clamp(torch.sum(w), min=1.0)
-    mu = torch.sum(pref * w[:, None], dim=0) / wsum
-    musq = torch.sum(mu * mu)
-    if metric == "cosine":
-        cvec = mu * torch.rsqrt(torch.clamp(musq, min=1e-12))
-        pn = torch.sqrt(torch.clamp(torch.sum(pref * pref, dim=1), min=1e-12))
-        aux = torch.sum((pref @ cvec) / pn * w) / wsum
-    else:
-        cvec, aux = mu, musq
+    cvec, aux = _shadow_centering(vectors, valid, metric)
     n_pad = n + (-n) % pad_to
     d_pad = d + (-d) % 4
     dev = vectors.device
@@ -743,6 +849,118 @@ def _update_scan8_shadow(base8, off, sc, vectors, norms, valid, slots, cvec,
     base8[slots, :r8.shape[1]] = r8
     off[slots] = off_s
     sc[slots] = sc_s
+
+
+def _build_scan8g_shadow(vectors, norms, valid, metric, pad_to):
+    """Global-scale int8 shadow for ``fused_int8g_pool``: the centering and
+    offsets of :func:`_build_scan8_shadow`, but ONE scale for the corpus,
+    sv = max over live rows of max|ctr| / 127 (a dead row must not stretch
+    the range), base8 = round(ctr / sv).  Returns (base8 [N', d'], off
+    [N'], sv (0-d), sgn, center_vec, aux), padded like the per-row shadow;
+    the selection score is off[n] - sgn * sv * sq * (q8 . v8_n), sgn = 2
+    under L2 and 1 under cosine.  Two passes of SHADOW_BUILD_ROWS rows:
+    the scale, then the rows."""
+    n, d = vectors.shape
+    cvec, aux = _shadow_centering(vectors, valid, metric)
+    dev = vectors.device
+    amax = torch.zeros((), device=dev)
+    for s in range(0, n, SHADOW_BUILD_ROWS):
+        e = min(n, s + SHADOW_BUILD_ROWS)
+        ctr, _ = _center_shadow_rows(vectors[s:e], norms[s:e], cvec, aux,
+                                     metric)
+        rows = torch.where(valid[s:e], torch.amax(torch.abs(ctr), dim=1), 0.0)
+        amax = torch.maximum(amax, torch.amax(rows))
+    sv = torch.clamp(amax, min=1e-12) / 127.0
+    base8 = torch.zeros((n + (-n) % pad_to, d + (-d) % 4), dtype=torch.int8,
+                        device=dev)
+    off = torch.full((base8.shape[0],), float("inf"), device=dev)
+    for s in range(0, n, SHADOW_BUILD_ROWS):
+        e = min(n, s + SHADOW_BUILD_ROWS)
+        base8[s:e, :d], off[s:e] = _quantize_global_rows(
+            vectors[s:e], norms[s:e], valid[s:e], cvec, aux, sv, metric)[:2]
+    return base8, off, sv, 1.0 if metric == "cosine" else 2.0, cvec, aux
+
+
+def _quantize_global_rows(rows, rnorms, rvalid, cvec, aux, sv, metric):
+    """(r8, off, clipped) of store rows against a fixed centering and
+    global scale: r8 = clip(round(ctr / sv), +-127), dead rows off = +inf,
+    ``clipped`` the live rows with some |ctr| > 127 sv."""
+    ctr, off = _center_shadow_rows(rows, rnorms, cvec, aux, metric)
+    r8 = torch.clamp(torch.round(ctr / sv), -127, 127).to(torch.int8)
+    clipped = torch.any(torch.abs(ctr) > 127.0 * sv, dim=1) & rvalid
+    return r8, torch.where(rvalid, off, float("inf")), clipped
+
+
+def _update_scan8g_shadow(base8, off, vectors, norms, valid, slots, cvec,
+                          aux, sv, metric) -> int:
+    """Requantize only ``slots`` (unique) against the cached centering and
+    the cached global scale, in place; returns how many of them are live
+    rows that clipped (the caller rebuilds once they accumulate)."""
+    r8, off_s, clipped = _quantize_global_rows(
+        vectors[slots], norms[slots], valid[slots], cvec, aux, sv, metric)
+    base8[slots, :r8.shape[1]] = r8
+    off[slots] = off_s
+    return int(clipped.sum())
+
+
+def _condition16_rows(rows, rnorms, rvalid, cvec, aux, metric):
+    """(off, sc) of the bf16 shadow for store rows against a fixed
+    centering (:func:`_build_scan16_shadow`).  Dead rows get off = +inf."""
+    if metric == "cosine":
+        (c0,) = aux
+        iv = torch.rsqrt(torch.clamp(rnorms, min=1e-12))
+        off = c0 - (rows @ cvec) * iv
+        sc = -iv
+    else:
+        musq, mean_norm = aux
+        off = rnorms + musq - 2.0 * (rows @ cvec) - (mean_norm - musq)
+        sc = torch.full_like(rnorms, -2.0)
+    return torch.where(rvalid, off, float("inf")), sc
+
+
+def _build_scan16_shadow(vectors, norms, valid, metric, pad_to):
+    """bf16 scan shadow for ``fused_raw_pool``: (base16 [N', d'] bf16, off
+    [N'], sc [N'], center_vec [d], aux).  The conditioning is
+    ``ops/distance.bf16_pool_scan``'s: queries center by the prefix mean mu
+    (the mean direction under cosine) and every large common-mode term is
+    folded into the f32 offsets, so the bf16 product carries only
+    O(noise)-scale signal:
+
+      * sq-L2: off = ||v||^2 + |mu|^2 - 2 mu.v - (E||v||^2 - |mu|^2),
+        sc = -2, aux = (|mu|^2, E||v||^2 over live rows);
+      * cosine: off = c0 - (cdir . v) / |v|, sc = -1/|v|, aux = (c0,).
+
+    N' pads the rows to a multiple of ``pad_to`` (off = +inf, sc = 0) and
+    d' the columns to a multiple of 8 with zeros (whole 16-byte rows for
+    the kernel), once per build, never per search."""
+    n, d = vectors.shape
+    cvec, c = _shadow_centering(vectors, valid, metric)
+    if metric == "cosine":
+        aux = (c,)
+    else:
+        live = torch.clamp(torch.sum(valid.to(torch.float32)), min=1.0)
+        aux = (c, torch.sum(torch.where(valid, norms, 0.0)) / live)
+    dev = vectors.device
+    n_pad = n + (-n) % pad_to
+    base16 = torch.zeros((n_pad, d + (-d) % 8), dtype=torch.bfloat16,
+                         device=dev)
+    off = torch.full((n_pad,), float("inf"), device=dev)
+    sc = torch.zeros((n_pad,), device=dev)
+    for s in range(0, n, SHADOW_BUILD_ROWS):
+        e = min(n, s + SHADOW_BUILD_ROWS)
+        base16[s:e, :d] = vectors[s:e].to(torch.bfloat16)
+        off[s:e], sc[s:e] = _condition16_rows(
+            vectors[s:e], norms[s:e], valid[s:e], cvec, aux, metric)
+    return base16, off, sc, cvec, aux
+
+
+def _update_scan16_shadow(base16, off, sc, vectors, norms, valid, slots,
+                          cvec, aux, metric) -> None:
+    """Recondition only ``slots`` against the cached centering, in place."""
+    rows = vectors[slots]
+    base16[slots, :rows.shape[1]] = rows.to(torch.bfloat16)
+    off[slots], sc[slots] = _condition16_rows(
+        rows, norms[slots], valid[slots], cvec, aux, metric)
 
 
 def _build_scan8p_shadow(packed, scales, norms, valid, metric):
@@ -831,6 +1049,16 @@ def pallas_scan8p_refine(queries, packed, scales, norms, off, sc, center_vec,
     return d, ext
 
 
+def _rerank_to_ids(queries, base, cand, ids, k, metric, rb):
+    """Exact f32 re-rank of candidate slots [Q, R] (-1 ignored) in blocks
+    of ``rb``, mapped to external ids: (dists [Q, k], ids [Q, k], -1
+    where empty)."""
+    d, slots = blocked_rerank(queries, base, cand, k, metric, rb=rb)
+    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                      torch.full_like(slots, -1))
+    return d, ext
+
+
 def pallas_scan8_refine(queries, base, base8, off, sc, center_vec, ids, k,
                         metric, pool, w):
     """int8 pool kernel scan + exact f32 re-rank of the pool: returns
@@ -838,10 +1066,37 @@ def pallas_scan8_refine(queries, base, base8, off, sc, center_vec, ids, k,
     reference's; the pool runs ``ops/kernels.fused_int8_pool``."""
     cand = _pool_select_cand(queries, center_vec, metric, fused_int8_pool,
                              (base8, off, sc), pool, w)
-    d, slots = blocked_rerank(queries, base, cand, k, metric, rb=pool)
-    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
-                      torch.full_like(slots, -1))
-    return d, ext
+    return _rerank_to_ids(queries, base, cand, ids, k, metric, pool)
+
+
+def pallas_scan8g_refine(queries, base, base8, off, sv, sgn, center_vec, ids,
+                         k, metric, pool, w):
+    """:func:`pallas_scan8_refine` over the global-scale shadow: the pool
+    runs ``ops/kernels.fused_int8g_pool`` (ranked in int32), then the same
+    select and exact f32 re-rank."""
+    cand = _pool_select_cand(queries, center_vec, metric, fused_int8g_pool,
+                             (base8, off, sv, sgn), pool, w)
+    return _rerank_to_ids(queries, base, cand, ids, k, metric, pool)
+
+
+def pallas_scan_refine(queries, base, base16, off, sc, center_vec, ids, k,
+                       metric, pool, w):
+    """:func:`pallas_scan8_refine` over the bf16 shadow: the pool runs
+    ``ops/kernels.fused_raw_pool``."""
+    cand = _pool_select_cand(queries, center_vec, metric, fused_raw_pool,
+                             (base16, off, sc), pool, w)
+    return _rerank_to_ids(queries, base, cand, ids, k, metric, pool)
+
+
+def bf16_scan_refine(queries, base, norms, valid, ids, k, metric, pool,
+                     block_n=0):
+    """bf16-selection scan (``ops/distance.bf16_pool_scan``, streamed in
+    ``block_n``-row blocks when given) + exact f32 re-rank of its ``pool``
+    candidates: returns (dists [Q, k], external ids [Q, k], -1 where
+    empty)."""
+    cand = bf16_pool_scan(queries, base, valid, pool, metric=metric,
+                          b_norms=norms, block_n=block_n)
+    return _rerank_to_ids(queries, base, cand, ids, k, metric, pool)
 
 
 def exact_scan_search(queries, base, norms, valid, ids, k, metric, block_n):

@@ -6,8 +6,10 @@ the table scans ``adc_scan_topk``/``adc_decode_topk`` are ROADMAP A10).
 ``adc_fast_search`` decodes the codes with the PQ decode kernel
 (``ops/kernels.pq_decode_recon_t``), scores the queries against the
 reconstruction with one matrix product, keeps an unranked or ranked pool,
-and re-ranks the pool against a refine store.  The selections are exact
-``torch.topk`` where the reference used ``approx_max_k``.
+and re-ranks the pool against a refine store; with ``pool_mode="fused"``
+one kernel (``ops/kernels.fused_adc_pool``) decodes, scores and pools.
+The selections are exact ``torch.topk`` where the reference used
+``approx_max_k``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from .distance import blocked_rerank, blocked_rerank_int8, normalize_rows
-from .kernels import pq_decode_recon_t
+from .kernels import fused_adc_pool, pq_decode_recon_t
 
 #: bytes of the [S, rows, K] f32 distance block one pq_encode chunk holds
 ENCODE_CHUNK_BYTES = 1 << 30
@@ -113,13 +115,16 @@ def _score_pool_chunk(qb: torch.Tensor, codes_t: torch.Tensor,
       * ``"bucket"``: the best ``winners`` of each strided bucket (slot i
         joins bucket i % nb), unranked, pool = winners * ceil(n / bucket);
       * ``"approx"``: a ranked top-``winners * nb`` (exact ``torch.topk``
-        where the reference used ``approx_max_k``).
+        where the reference used ``approx_max_k``);
+      * ``"fused"``: the strided min pool of width ``winners * nb`` (rounded
+        by ``ops/kernels.pool_width``) from ``ops/kernels.fused_adc_pool``.
     """
-    if pool_mode == "fused":
-        raise NotImplementedError(
-            "adc_pool='fused' (kernel B5 fused_adc_pool) is not ported yet: "
-            "ROADMAP A10")
     q_n, n = qb.shape[0], codes_t.shape[1]
+    if pool_mode == "fused":
+        # one kernel: decode + product + bucket min, neither the [d, n]
+        # reconstruction nor the [Q, n] scores written
+        return fused_adc_pool(qb, codes_t, cbt, masked_norms,
+                              winners * -(-n // bucket))
     # masked_norms - 2 cross in one in-place pass (x -2 is exact, so this
     # rounds as the reference's two ops); + ||q||^2 is a per-row constant
     cross = _decode_cross(qb, codes_t, cbt)

@@ -128,6 +128,95 @@ def blocked_knn_fast(q: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
                                    b_norms), k)
 
 
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, d] @ b [N, d]^T of bf16 values with f32 output: ``torch.mm``
+    with bf16 inputs on the card; on the CPU the f32 product of the bf16
+    values (each product exact in f32), as the reference's CPU backend."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cpu":
+        return a16.to(torch.float32) @ b16.to(torch.float32).T
+    return torch.mm(a16, b16.T, out_dtype=torch.float32)
+
+
+def bf16_pool_scan(q: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
+                   pool: int, metric: str = METRIC_L2,
+                   b_norms: Optional[torch.Tensor] = None,
+                   block_n: int = 0) -> torch.Tensor:
+    """Candidate-pool selection over bf16 selection scores (the
+    reference's ``ops/distance.bf16_pool_scan``, :264-403): returns slot
+    indices [Q, pool] (-1 where empty) that should contain the true top-k;
+    the caller re-ranks them exactly.
+
+    The common mode is cancelled in f32 before the bf16 cast: queries are
+    centered by the valid-weighted mean ``mu`` of the first 4096 slots (the
+    unit mean direction under cosine), the centering vector rides the bf16
+    product as two extra query rows (its bf16 value and the bf16 of the
+    rest, so ``c . v`` keeps ~16 bits), and the score is assembled as
+    ``(||v - mu||^2 - E||v - mu||^2) - 2 (q - mu).(v - mu)`` under L2, or
+    ``-(cos(q, v) - c0)`` under cosine, then cast to bf16.  The product is
+    :func:`_bf16_mm`; the selects are exact ``torch.topk`` (on the bf16
+    scores) where the reference used ``approx_max_k``.  ``block_n`` in
+    (0, N) streams blocks of that many rows with a running top-``pool``
+    merge; the last block is re-sliced to end at N and masks the rows
+    earlier blocks covered (padding would copy the corpus).
+    """
+    qn, n = q.shape[0], base.shape[0]
+    if b_norms is None:
+        b_norms = sq_norms(base)
+    if metric == METRIC_COSINE:
+        q = normalize_rows(q)
+    m = min(4096, n)
+    pref = base[:m]
+    w = valid[:m].to(torch.float32)
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+    mu = torch.sum(pref * w[:, None], dim=0) / wsum
+    musq = torch.sum(mu * mu)
+    if metric == METRIC_COSINE:
+        c = mu * torch.rsqrt(torch.clamp(musq, min=1e-12))
+        pn = torch.sqrt(torch.clamp(torch.sum(pref * pref, dim=1), min=1e-12))
+        c0 = torch.sum((pref @ c) / pn * w) / wsum
+    else:
+        c = mu
+        live = torch.clamp(torch.sum(valid.to(torch.float32)), min=1.0)
+        mean_norm = torch.sum(torch.where(valid, b_norms, 0.0)) / live
+        center = mean_norm - musq
+    qc = q - c[None, :]
+    c_hi = c.to(torch.bfloat16).to(torch.float32)
+    extra = torch.zeros(((-qn - 2) % 8, q.shape[1]), device=q.device)
+    qaug = torch.cat([qc, c_hi[None, :], (c - c_hi)[None, :], extra])
+    qmu = qc @ c                                   # [Q] per-query constants
+
+    def block_scores(b_blk, n_blk, v_blk):
+        cross = _bf16_mm(qaug, b_blk)
+        cv = cross[qn] + cross[qn + 1]             # c . v (hi + lo)
+        if metric == METRIC_COSINE:
+            iv = torch.rsqrt(torch.clamp(n_blk, min=1e-12))
+            s = -((cross[:qn] + cv[None, :]) * iv[None, :] - c0)
+        else:
+            vhat_sq = n_blk + musq - 2.0 * cv - center
+            s = vhat_sq[None, :] - 2.0 * (cross[:qn] - qmu[:, None])
+        return s.to(torch.bfloat16).masked_fill_(~v_blk[None, :],
+                                                 float("inf"))
+
+    if block_n <= 0 or block_n >= n:
+        vals, cand = torch.topk(block_scores(base, b_norms, valid), pool,
+                                dim=1, largest=False, sorted=True)
+        cand = cand.to(torch.int32)
+        return torch.where(torch.isfinite(vals), cand, torch.full_like(cand, -1))
+    top_v = torch.full((qn, pool), float("inf"), device=q.device)
+    top_i = torch.full((qn, pool), -1, dtype=torch.int32, device=q.device)
+    for b in range(-(-n // block_n)):
+        start = min(b * block_n, n - block_n)
+        sl = slice(start, start + block_n)
+        live = valid[sl].clone()
+        live[:b * block_n - start] = False  # covered by earlier blocks
+        vals, idx = torch.topk(block_scores(base[sl], b_norms[sl], live),
+                               pool, dim=1, largest=False, sorted=True)
+        top_v, top_i = merge_topk(top_v, top_i, vals.to(torch.float32),
+                                  idx.to(torch.int32) + start, pool)
+    return top_i
+
+
 def blocked_rerank(q: torch.Tensor, base: torch.Tensor, cand: torch.Tensor,
                    k: int, metric: str = METRIC_L2, rb: int = 512
                    ) -> tuple[torch.Tensor, torch.Tensor]:

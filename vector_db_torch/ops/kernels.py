@@ -4,11 +4,19 @@
 Each function replaces the TPU kernel of the same name in
 ``vector_db_tpu/ops/pallas_kernels.py``:
 
-  * ``fused_int8_pool`` (:585) and ``fused_packed_pool`` (:900), one CUDA
-    kernel with two entry points, ``vector_db_torch/csrc/fused_int8_pool.cu``;
+  * ``fused_int8_pool`` (:585), ``fused_packed_pool`` (:900),
+    ``fused_int8g_pool`` (:726) and ``fused_raw_pool`` (:460): one
+    tensor-core tile loop (``vector_db_torch/csrc/pool_tile.cuh``) with four
+    entry points in ``vector_db_torch/csrc/fused_int8_pool.cu``;
+  * ``fused_adc_pool`` (:284): the same tile loop with the PQ decode in
+    place of the row copy, ``vector_db_torch/csrc/fused_adc_pool.cu``;
   * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``.
 
 Each source's header says what bounds it on an H100 and how it is laid out.
+The integer and gather kernels are bit-equal to their plain versions; the
+two bf16 pools sum exact products in f32 in the tensor cores' order, and
+:func:`check_float_pool` holds them to their plain versions within the f32
+summation-order bound.
 
 Dispatch is on the tensor's device and nothing else: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel, which is built from the
@@ -68,7 +76,7 @@ class _Library:
 
         sources = sorted(_CSRC.glob("*.cu"))
         digest = hashlib.sha256()
-        for src in sources:
+        for src in sorted(_CSRC.glob("*.cu*")):  # the headers too
             digest.update(src.read_bytes())
         out = BUILD_DIR / f"libvdb_torch_kernels_{digest.hexdigest()[:16]}.so"
         log_path = out.with_suffix(".log")
@@ -114,7 +122,14 @@ class _Library:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for pool in (lib.vdb_fused_int8_pool, lib.vdb_fused_packed_pool):
             pool.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
-            pool.restype = i32
+        lib.vdb_fused_int8g_pool.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.vdb_fused_raw_pool.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.vdb_fused_adc_pool.argtypes = ([ptr, ptr, i64] + [ptr] * 6
+                                           + [i32] * 7 + [ptr])
+        for entry in ("vdb_fused_int8_pool", "vdb_fused_packed_pool",
+                      "vdb_fused_int8g_pool", "vdb_fused_raw_pool",
+                      "vdb_fused_adc_pool"):
+            getattr(lib, entry).restype = i32
         lib.vdb_pq_decode_recon_t.argtypes = ([ptr, i64, ptr, ptr]
                                               + [i32] * 4 + [ptr])
         lib.vdb_pq_decode_recon_t.restype = i32
@@ -171,6 +186,41 @@ def _check_pool_args(q, base8, sel_off, sel_scale):
                          "cross term would not be exact in f32")
 
 
+def _pool_plain(score, n: int, qn: int, w: int, device, fill):
+    """The strided min pool of the plain versions: vals[q, c] = min over
+    passes j of the score of slot c + j*w (strict <: the earliest pass keeps
+    a tie), slots[q, c] its slot, starting from (``fill``, -1).
+    ``score(r0, r1)`` gives the [Q, r1 - r0] scores of slots r0..r1 (f32, or
+    int32 when ``fill`` is an int); slots past N score ``fill`` and never
+    win.  Passes go in chunks of at most ``PLAIN_CHUNK_BYTES`` of [Q,
+    passes * w] scores, so the [Q, N] scores never exist whole."""
+    dtype = torch.int32 if isinstance(fill, int) else torch.float32
+    vals = torch.full((qn, w), fill, dtype=dtype, device=device)
+    slots = torch.full((qn, w), -1, dtype=torch.int32, device=device)
+    passes = -(-n // w)
+    per_chunk = max(1, PLAIN_CHUNK_BYTES // max(1, 4 * qn * w))
+    cols = torch.arange(w, dtype=torch.int32, device=device)
+    for p0 in range(0, passes, per_chunk):
+        p1 = min(passes, p0 + per_chunk)
+        r0, r1 = p0 * w, min(n, p1 * w)
+        s = score(r0, r1)
+        if r1 - r0 < (p1 - p0) * w:  # ragged last pass
+            s = torch.nn.functional.pad(s, (0, (p1 - p0) * w - (r1 - r0)),
+                                        value=fill)
+        s = s.view(qn, p1 - p0, w)
+        for j in range(p1 - p0):
+            better = s[:, j] < vals
+            vals = torch.where(better, s[:, j], vals)
+            slots = torch.where(better, cols + (p0 + j) * w, slots)
+    return vals, slots
+
+
+def _mask_empty(vals: torch.Tensor, slots: torch.Tensor):
+    """An f32 pool's empty entries (+inf) get slot -1."""
+    return vals, torch.where(torch.isfinite(vals), slots,
+                             torch.full_like(slots, -1))
+
+
 def fused_int8_pool_plain(q: torch.Tensor, base8: torch.Tensor,
                           sel_off: torch.Tensor, sel_scale: torch.Tensor,
                           w: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -178,37 +228,17 @@ def fused_int8_pool_plain(q: torch.Tensor, base8: torch.Tensor,
 
     The cross term is an f32 matmul of the int8 values: every partial sum
     is an integer below 2^24 (d <= 1040), so it is exact with TF32 off.
-    Passes go in chunks of at most ``PLAIN_CHUNK_BYTES`` of [Q, passes * w]
-    scores, so the [Q, N] product never exists whole.
     """
     _check_pool_args(q, base8, sel_off, sel_scale)
     n, d = base8.shape
-    w = pool_width(w)
     q8, sq = _quantize_rows_int8(q.to(torch.float32))
     qf = _pad_cols(q8, d).to(torch.float32)
-    qn = q.shape[0]
-    dev = q.device
-    vals = torch.full((qn, w), float("inf"), device=dev)
-    slots = torch.full((qn, w), -1, dtype=torch.int32, device=dev)
-    passes = -(-n // w)
-    per_chunk = max(1, PLAIN_CHUNK_BYTES // max(1, 4 * qn * w))
-    cols = torch.arange(w, dtype=torch.int32, device=dev)
-    for p0 in range(0, passes, per_chunk):
-        p1 = min(passes, p0 + per_chunk)
-        r0, r1 = p0 * w, min(n, p1 * w)
-        cross = qf @ base8[r0:r1].to(torch.float32).T            # [Q, rows]
-        score = sel_off[None, r0:r1] + (cross * sel_scale[None, r0:r1]) * sq[:, None]
-        if r1 - r0 < (p1 - p0) * w:  # ragged last pass: missing slots +inf
-            score = torch.nn.functional.pad(
-                score, (0, (p1 - p0) * w - (r1 - r0)), value=float("inf"))
-        score = score.view(qn, p1 - p0, w)
-        for j in range(p1 - p0):
-            s = score[:, j]
-            better = s < vals  # strict: the earliest pass keeps a tie
-            vals = torch.where(better, s, vals)
-            slots = torch.where(better, cols + (p0 + j) * w, slots)
-    slots = torch.where(torch.isfinite(vals), slots, torch.full_like(slots, -1))
-    return vals, slots
+
+    def score(r0, r1):
+        cross = qf @ base8[r0:r1].to(torch.float32).T
+        return sel_off[None, r0:r1] + (cross * sel_scale[None, r0:r1]) * sq[:, None]
+    return _mask_empty(*_pool_plain(score, n, q.shape[0], pool_width(w),
+                                    q.device, float("inf")))
 
 
 def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
@@ -236,8 +266,8 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
     _check_pool_args(q, base8, sel_off, sel_scale)
     if base8.shape[1] % 4 != 0 or base8.data_ptr() % 4 != 0:
         raise ValueError("base8 rows must be whole 4-byte words (d % 4 == 0)")
-    out = _launch_pool("vdb_fused_int8_pool", q, base8, sel_off, sel_scale,
-                       pool_width(w), base8.shape[1])
+    out = _launch_scaled_pool("vdb_fused_int8_pool", q, base8, sel_off,
+                              sel_scale, pool_width(w), base8.shape[1])
     fused_int8_pool.launches += 1
     return out
 
@@ -245,50 +275,59 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
 fused_int8_pool.launches = 0
 
 
-def _launch_pool(entry: str, q, base, sel_off, sel_scale, w: int, d: int):
-    """Launch the pool kernel (``csrc/fused_int8_pool.cu``) through C entry
-    ``entry`` over ``base``'s rows (int8 [N, d] or int32 words [N, d/4]):
-    quantize and pad the queries, split the passes over blocks when the
-    query x column tiles alone leave the card's SMs idle (the partial pools
-    merge in pass order), raise if the launch fails."""
-    n = base.shape[0]
-    for name, t in (("base", base), ("sel_off", sel_off),
-                    ("sel_scale", sel_scale)):
+def _check_same_device(q, **tensors) -> None:
+    for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, queries on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
-        raise TypeError("sel_off/sel_scale must be float32")
-    qn = q.shape[0]
-    vals = torch.empty((qn, w), dtype=torch.float32, device=q.device)
-    slots = torch.empty((qn, w), dtype=torch.int32, device=q.device)
+
+
+def _run_pool(entry: str, head, mid, qn: int, n: int, w: int, device,
+              val_dtype=torch.float32):
+    """Launch a pool kernel through C entry ``entry`` as
+    ``entry(*head, part_vals, part_slots, vals, slots, qn, n, *mid, w,
+    splits, stream)`` and return (vals, slots) [qn, w].  The passes are
+    split over blocks when the query x column tiles alone leave the card's
+    SMs idle (the partial pools merge in pass order); raises if the launch
+    fails."""
+    vals = torch.empty((qn, w), dtype=val_dtype, device=device)
+    slots = torch.empty((qn, w), dtype=torch.int32, device=device)
     if qn == 0:
         return vals, slots
-    q8, sq = _quantize_rows_int8(q.to(torch.float32))
-    q8 = _pad_cols(q8, d).contiguous()
-    sq = sq.contiguous()
     lib = LIBRARY.get()
     passes = -(-n // w) if n else 0
     tiles = (w // LANES) * -(-qn // 64)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = max(1, min(passes, -(-4 * sms // tiles)))
     if splits > 1:
-        part_v = torch.empty((splits, qn, w), dtype=torch.float32,
-                             device=q.device)
+        part_v = torch.empty((splits, qn, w), dtype=val_dtype, device=device)
         part_s = torch.empty((splits, qn, w), dtype=torch.int32,
-                             device=q.device)
+                             device=device)
     else:
-        part_v = part_s = vals
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_v, part_s = vals, slots
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, entry)(
-            q8.data_ptr(), sq.data_ptr(), base.data_ptr(),
-            sel_off.data_ptr(), sel_scale.data_ptr(), part_v.data_ptr(),
-            part_s.data_ptr(), vals.data_ptr(), slots.data_ptr(),
-            qn, n, d, w, splits, stream)
+            *head, part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(),
+            slots.data_ptr(), qn, n, *mid, w, splits, stream)
     _raise_on_error(lib, entry, rc)
     return vals, slots
+
+
+def _launch_scaled_pool(entry: str, q, base, sel_off, sel_scale, w: int,
+                        d: int):
+    """B2/B4 through C entry ``entry`` over ``base``'s rows (int8 [N, d] or
+    int32 words [N, d/4]): quantize and pad the queries, then launch."""
+    _check_same_device(q, base=base, sel_off=sel_off, sel_scale=sel_scale)
+    if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
+        raise TypeError("sel_off/sel_scale must be float32")
+    q8, sq = _quantize_rows_int8(q.to(torch.float32))
+    q8 = _pad_cols(q8, d).contiguous()
+    sq = sq.contiguous()
+    return _run_pool(entry, (q8.data_ptr(), sq.data_ptr(), base.data_ptr(),
+                             sel_off.data_ptr(), sel_scale.data_ptr()),
+                     (d,), q.shape[0], base.shape[0], w, q.device)
 
 
 def _raise_on_error(lib, entry: str, rc: int) -> None:
@@ -379,8 +418,8 @@ def fused_packed_pool(q: torch.Tensor, packed: torch.Tensor,
     n = packed.shape[0]
     if sel_off.shape != (n,) or sel_scale.shape != (n,):
         raise ValueError("sel_off/sel_scale must be [N] like packed's rows")
-    out = _launch_pool("vdb_fused_packed_pool", q, packed, sel_off,
-                       sel_scale, w, 4 * packed.shape[1])
+    out = _launch_scaled_pool("vdb_fused_packed_pool", q, packed, sel_off,
+                              sel_scale, w, 4 * packed.shape[1])
     fused_packed_pool.launches += 1
     return out
 
@@ -449,3 +488,369 @@ def pq_decode_recon_t(codes_t: torch.Tensor, cbt: torch.Tensor) -> torch.Tensor:
 
 
 pq_decode_recon_t.launches = 0
+
+
+# ------------------------------------------------------- fused_int8g_pool
+#: a pool score at or above this is a dead or empty slot (the reference's
+#: ``_I32_REAL_MAX``): real scores are bounded by the off_i clip (2^26) plus
+#: max |cross| (127^2 * 1040 < 2^24); dead slots carry 2^29
+I32_REAL_MAX = 1 << 28
+_OFF_I_CLIP = float(1 << 26)
+_OFF_I_DEAD = float(1 << 29)
+_I32_INIT = 2**31 - 1
+
+
+def _int8g_condition(q, sel_off, sv, sgn: float, d: int):
+    """The per-batch integer conditioning of :func:`fused_int8g_pool`, in the
+    reference's order (``pallas_kernels.py:777-785``): one scale over the
+    whole batch sq = max(max|q|, 1e-12) / 127, q8 = round(q / sq), the
+    batch constant C = sgn * sv * sq and off_i = clip(round(off / C),
+    +-2^26) with 2^29 at dead slots.  Returns (q8 padded to d columns,
+    off_i int32, C)."""
+    q = q.to(torch.float32)
+    sq = torch.clamp(torch.amax(torch.abs(q)), min=1e-12) / 127.0
+    q8 = torch.clamp(torch.round(q / sq), -127, 127).to(torch.int8)
+    c = sgn * sv * sq
+    off_i = torch.where(
+        torch.isfinite(sel_off),
+        torch.clamp(torch.round(sel_off / c), -_OFF_I_CLIP, _OFF_I_CLIP),
+        _OFF_I_DEAD).to(torch.int32)
+    return _pad_cols(q8, d), off_i, c
+
+
+def _int8g_finish(vals_i, slots, c, n: int):
+    """The integer pool back to f32: vals_i * C where the score is real
+    (< 2^28, a slot below N), else +inf and slot -1 (``:826-828``)."""
+    real = (vals_i < I32_REAL_MAX) & (slots >= 0) & (slots < n)
+    vals = torch.where(real, vals_i.to(torch.float32) * c, float("inf"))
+    return vals, torch.where(real, slots, torch.full_like(slots, -1))
+
+
+def _check_int8g_args(q, base8, sel_off):
+    n, d = base8.shape
+    if q.ndim != 2 or q.shape[1] > d:
+        raise ValueError(f"queries {tuple(q.shape)} wider than shadow {d}")
+    if base8.dtype != torch.int8:
+        raise TypeError(f"base8 must be int8, got {base8.dtype}")
+    if sel_off.shape != (n,):
+        raise ValueError("sel_off must be [N] like base8's rows")
+    if d > MAX_INT8_POOL_DIM:
+        raise ValueError(f"row width {d} > {MAX_INT8_POOL_DIM}: the int32 "
+                         "cross term would not be exact in f32")
+
+
+def fused_int8g_pool_plain(q: torch.Tensor, base8: torch.Tensor,
+                           sel_off: torch.Tensor, sv: torch.Tensor,
+                           sgn: float, w: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_int8g_pool`, on any device: the
+    cross term is an exact f32 matmul of the int8 values (partial sums are
+    integers below 2^24), the scores ``off_i - cross`` and the pool int32."""
+    _check_int8g_args(q, base8, sel_off)
+    n, d = base8.shape
+    q8, off_i, c = _int8g_condition(q, sel_off, sv, sgn, d)
+    qf = q8.to(torch.float32)
+
+    def score(r0, r1):
+        cross = qf @ base8[r0:r1].to(torch.float32).T
+        return off_i[None, r0:r1] - cross.to(torch.int32)
+    vals_i, slots = _pool_plain(score, n, q.shape[0], pool_width(w),
+                                q.device, _I32_INIT)
+    return _int8g_finish(vals_i, slots, c, n)
+
+
+def fused_int8g_pool(q: torch.Tensor, base8: torch.Tensor,
+                     sel_off: torch.Tensor, sv: torch.Tensor, sgn: float,
+                     w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused s8 x s8 scan + strided-bucket min pool with an all-integer
+    epilogue, over a global-scale int8 shadow.
+
+    q [Q, d] f32, pre-centered by the caller, quantized here with ONE scale
+    over the whole batch (the padded rows included, as in the reference);
+    base8 [N, d8] int8 = round(centered row / sv), one scale ``sv`` (a 0-d
+    f32 tensor) for the corpus; sel_off [N] f32 (+inf at dead slots);
+    ``sgn`` > 0 the metric factor (2 under L2, 1 under cosine).  The score
+    of slot n is C * (off_i[n] - q8 . v8_n) with C = sgn * sv * sq (see
+    :func:`_int8g_condition`); the pool is ranked in int32 and scaled back
+    by C.  Returns an unranked pool like :func:`fused_int8_pool`: vals
+    [Q, W] f32 (+inf where empty) and slots [Q, W] int32 (-1).
+
+    A CPU tensor runs :func:`fused_int8g_pool_plain`; a CUDA tensor runs
+    the kernel (``csrc/fused_int8_pool.cu``, entry ``vdb_fused_int8g_pool``,
+    bit-equal to the plain version) and counts one launch in
+    ``fused_int8g_pool.launches``.
+    """
+    if q.device.type == "cpu":
+        return fused_int8g_pool_plain(q, base8, sel_off, sv, sgn, w)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_int8g_args(q, base8, sel_off)
+    n, d = base8.shape
+    if d % 4 != 0 or base8.data_ptr() % 4 != 0:
+        raise ValueError("base8 rows must be whole 4-byte words (d % 4 == 0)")
+    _check_same_device(q, base8=base8, sel_off=sel_off)
+    q8, off_i, c = _int8g_condition(q, sel_off, sv, sgn, d)
+    q8 = q8.contiguous()
+    w = pool_width(w)
+    vals_i, slots = _run_pool(
+        "vdb_fused_int8g_pool",
+        (q8.data_ptr(), base8.data_ptr(), off_i.data_ptr()), (d,),
+        q.shape[0], n, w, q.device, val_dtype=torch.int32)
+    fused_int8g_pool.launches += 1
+    return _int8g_finish(vals_i, slots, c, n)
+
+
+fused_int8g_pool.launches = 0
+
+
+# ---------------------------------------------------------- fused_raw_pool
+#: the largest bf16 row the pool kernel's shared-memory tiles hold on an
+#: H100: (64 + 128) rows of (d/2 + 4) words and two 128-column vectors must
+#: fit the 232,448 bytes one block may use
+MAX_BF16_POOL_DIM = 592
+
+
+def _check_bf16_dim(d: int) -> None:
+    if d > MAX_BF16_POOL_DIM:
+        raise ValueError(f"row width {d} > {MAX_BF16_POOL_DIM}: two bf16 "
+                         "tiles of it do not fit one block's shared memory")
+
+
+def _check_raw_args(q, base16, sel_off, sel_scale):
+    n, d = base16.shape
+    if q.ndim != 2 or q.shape[1] > d:
+        raise ValueError(f"queries {tuple(q.shape)} wider than shadow {d}")
+    if base16.dtype != torch.bfloat16:
+        raise TypeError(f"base16 must be bfloat16, got {base16.dtype}")
+    if sel_off.shape != (n,) or sel_scale.shape != (n,):
+        raise ValueError("sel_off/sel_scale must be [N] like base16's rows")
+
+
+def fused_raw_pool_plain(q: torch.Tensor, base16: torch.Tensor,
+                         sel_off: torch.Tensor, sel_scale: torch.Tensor,
+                         w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_raw_pool`, on any device: the
+    f32 matmul of the bf16 values (each product exact in f32, the sums in
+    f32), then ``off + cross * sc`` and the pool."""
+    _check_raw_args(q, base16, sel_off, sel_scale)
+    n, d = base16.shape
+    qf = _pad_cols(q.to(torch.bfloat16), d).to(torch.float32)
+
+    def score(r0, r1):
+        cross = qf @ base16[r0:r1].to(torch.float32).T
+        return sel_off[None, r0:r1] + cross * sel_scale[None, r0:r1]
+    return _mask_empty(*_pool_plain(score, n, q.shape[0], pool_width(w),
+                                    q.device, float("inf")))
+
+
+def fused_raw_pool(q: torch.Tensor, base16: torch.Tensor,
+                   sel_off: torch.Tensor, sel_scale: torch.Tensor,
+                   w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused bf16 scan + strided-bucket min pool over a bf16 corpus shadow.
+
+    q [Q, d] f32, pre-centered by the caller, rounded here to bf16 (nearest
+    even); base16 [N, d16] bf16 (d16 >= d, the extra columns the shadow's
+    zero padding); sel_off [N] f32 (+inf at dead slots); sel_scale [N] f32.
+    The score of slot n is ``off[n] + (q16 . v16_n) * sel_scale[n]``, the
+    products summed in f32.  Returns the unranked pool like
+    :func:`fused_int8_pool`.
+
+    A CPU tensor runs :func:`fused_raw_pool_plain`; a CUDA tensor runs the
+    kernel (``csrc/fused_int8_pool.cu``, entry ``vdb_fused_raw_pool``;
+    the f32 sums run in the tensor cores' order, so it agrees with the
+    plain version within the summation-order bound of
+    :func:`raw_pool_terms`) and counts one launch in
+    ``fused_raw_pool.launches``.
+    """
+    if q.device.type == "cpu":
+        return fused_raw_pool_plain(q, base16, sel_off, sel_scale, w)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_raw_args(q, base16, sel_off, sel_scale)
+    n, d = base16.shape
+    _check_bf16_dim(d)
+    if d % 2 != 0 or base16.data_ptr() % 4 != 0:
+        raise ValueError("base16 rows must be whole 4-byte words (d % 2 == 0)")
+    _check_same_device(q, base16=base16, sel_off=sel_off,
+                       sel_scale=sel_scale)
+    if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
+        raise TypeError("sel_off/sel_scale must be float32")
+    q16 = _pad_cols(q.to(torch.bfloat16), d).contiguous()
+    out = _run_pool("vdb_fused_raw_pool",
+                    (q16.data_ptr(), base16.data_ptr(), sel_off.data_ptr(),
+                     sel_scale.data_ptr()), (d,), q.shape[0], n,
+                    pool_width(w), q.device)
+    fused_raw_pool.launches += 1
+    return out
+
+
+fused_raw_pool.launches = 0
+
+
+# ---------------------------------------------------------- fused_adc_pool
+def _check_adc_args(q, codes_t, cbt, masked_norms):
+    s, n, sd, k = _check_decode_args(codes_t, cbt)
+    if q.ndim != 2 or q.shape[1] != s * sd:
+        raise ValueError(f"queries {tuple(q.shape)} do not match the "
+                         f"codebooks' {s * sd} dims")
+    if masked_norms.shape != (n,):
+        raise ValueError("masked_norms must be [N] like the code columns")
+    return s, n, sd, k
+
+
+def fused_adc_pool_plain(q: torch.Tensor, codes_t: torch.Tensor,
+                         cbt: torch.Tensor, masked_norms: torch.Tensor,
+                         w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_adc_pool`, on any device: the
+    plain decode (:func:`pq_decode_recon_t_plain`) of a pass chunk, the f32
+    product of the bf16 values, ``norms - 2 * cross`` and the pool."""
+    _check_adc_args(q, codes_t, cbt, masked_norms)
+    n = codes_t.shape[1]
+    qf = q.to(torch.bfloat16).to(torch.float32)
+
+    def score(r0, r1):
+        recon = pq_decode_recon_t_plain(codes_t[:, r0:r1], cbt)
+        cross = qf @ recon.to(torch.float32)
+        return masked_norms[None, r0:r1] - 2.0 * cross
+    return _mask_empty(*_pool_plain(score, n, q.shape[0], pool_width(w),
+                                    q.device, float("inf")))
+
+
+def fused_adc_pool(q: torch.Tensor, codes_t: torch.Tensor, cbt: torch.Tensor,
+                   masked_norms: torch.Tensor, w: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused PQ decode + bf16 scan + strided-bucket min pool, one kernel.
+
+    q [Q, d] (any float; rounded here to bf16 on every device, as the
+    reference does, ``pallas_kernels.py:332``) in PQ space; codes_t [S, N]
+    integer codes (on CUDA uint8 with unit column stride: a column slice
+    of a wider code matrix is read in place); cbt [S*sd, K <= 256] f32 in
+    the decode kernel's layout; masked_norms [N] f32 squared reconstruction
+    norms (+inf at dead slots).  The score of slot n is ``norms[n] - 2 *
+    (q16 . recon_n)``, recon_n the bf16 decode of column n; neither the
+    [d, N] reconstruction nor the [Q, N] scores is written.  Returns the
+    unranked pool like :func:`fused_int8_pool` (W = :func:`pool_width` (w);
+    N need not be a multiple of W).
+
+    A CPU tensor runs :func:`fused_adc_pool_plain`; a CUDA tensor runs the
+    kernel (``csrc/fused_adc_pool.cu``; it agrees with the plain version
+    within the summation-order bound of :func:`adc_pool_terms`) and counts
+    one launch in ``fused_adc_pool.launches``.
+    """
+    if q.device.type == "cpu":
+        return fused_adc_pool_plain(q, codes_t, cbt, masked_norms, w)
+    if codes_t.device.type != "cuda" or q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    s, n, sd, k = _check_adc_args(q, codes_t, cbt, masked_norms)
+    _check_bf16_dim(s * sd)
+    if (s * sd) % 2 != 0:
+        raise ValueError(f"row width {s * sd} must be even (bf16 words)")
+    if codes_t.dtype != torch.uint8 or codes_t.stride(1) != 1:
+        raise ValueError("codes_t must be uint8 with unit column stride")
+    _check_same_device(q, cbt=cbt, masked_norms=masked_norms)
+    if codes_t.device != q.device:
+        raise ValueError(f"codes_t on {codes_t.device}, queries on {q.device}")
+    if cbt.dtype != torch.float32 or masked_norms.dtype != torch.float32:
+        raise TypeError("cbt/masked_norms must be float32")
+    q16 = q.to(torch.bfloat16).contiguous()
+    # the [S, K, sd] bf16 table: one codebook entry is sd consecutive values
+    cbk = cbt.view(s, sd, k).permute(0, 2, 1).to(torch.bfloat16).contiguous()
+    out = _run_pool("vdb_fused_adc_pool",
+                    (q16.data_ptr(), codes_t.data_ptr(),
+                     max(codes_t.stride(0), n), cbk.data_ptr(),
+                     masked_norms.data_ptr()), (s, sd, k), q.shape[0], n,
+                    pool_width(w), q.device)
+    fused_adc_pool.launches += 1
+    return out
+
+
+fused_adc_pool.launches = 0
+
+
+# ------------------------------------------- holding a bf16 pool to its plain
+def _gathered_terms(q16f, rows_of, slots, chunk_q: int = 64):
+    """(cross, |q|.|v|) [Q, W] of each query with the row of its pool slot:
+    ``rows_of(idx)`` gives the f32 rows [m, d] of slots idx [m]."""
+    qn, w = slots.shape
+    cross = torch.empty((qn, w), device=slots.device)
+    absp = torch.empty((qn, w), device=slots.device)
+    for q0 in range(0, qn, chunk_q):
+        s = slots[q0:q0 + chunk_q].clamp(min=0).long()
+        v = rows_of(s.reshape(-1)).reshape(*s.shape, -1)      # [c, W, d]
+        qq = q16f[q0:q0 + chunk_q, :, None]
+        cross[q0:q0 + chunk_q] = torch.bmm(v, qq)[:, :, 0]
+        absp[q0:q0 + chunk_q] = torch.bmm(v.abs(), qq.abs())[:, :, 0]
+    return cross, absp
+
+
+def _summation_bound(d: int, absp, sc_abs, score):
+    """The f32 summation-order bound 2 d 2^-24 (|q|.|v|) |sc| (two sums of
+    the same exact products in different orders differ by at most this),
+    plus one ulp of the score for the epilogue's two roundings of values
+    that already differ."""
+    return 2.0 * d * 2.0 ** -24 * absp * sc_abs + 2.0 ** -23 * score.abs()
+
+
+def raw_pool_terms(q, base16, sel_off, sel_scale, slots):
+    """For a [Q, W] slot matrix of :func:`fused_raw_pool`: the plain score
+    of each query with its slot and the summation-order bound of that
+    score (:func:`check_float_pool`)."""
+    d = base16.shape[1]
+    q16f = _pad_cols(q.to(torch.bfloat16), d).to(torch.float32)
+    cross, absp = _gathered_terms(
+        q16f, lambda i: base16[i].to(torch.float32), slots)
+    s = slots.clamp(min=0).long()
+    score = sel_off[s] + cross * sel_scale[s]
+    return score, _summation_bound(d, absp, sel_scale[s].abs(), score)
+
+
+def adc_pool_terms(q, codes_t, cbt, masked_norms, slots):
+    """:func:`raw_pool_terms` for :func:`fused_adc_pool`: the rows are the
+    bf16 decodes of the slots' code columns, ``|sc|`` = 2."""
+    d = cbt.shape[0]
+    q16f = q.to(torch.bfloat16).to(torch.float32)
+    cross, absp = _gathered_terms(
+        q16f, lambda i: pq_decode_recon_t_plain(
+            codes_t[:, i], cbt).to(torch.float32).T, slots)
+    score = masked_norms[slots.clamp(min=0).long()] - 2.0 * cross
+    return score, _summation_bound(d, absp, 2.0, score)
+
+
+def check_float_pool(kernel, plain, terms, w: int) -> dict:
+    """Hold a bf16 pool kernel's (vals, slots) to its plain version's where
+    bit-equality cannot hold (the f32 sums run in another order):
+
+      * the empty entries (+inf, slot -1) are the same;
+      * the slots agree in >= 99.9% of the entries;
+      * where they agree, |kernel - plain| <= the bound at that slot;
+      * where they differ, the kernel's slot lies in the entry's bucket,
+        the kernel's value is within the bound of the plain score of its
+        slot, and that score is within the two slots' bounds of the plain
+        minimum (the kernel's pick can beat the plain one only by both
+        rounding errors).
+
+    ``terms(slots)`` returns (plain score, bound) [Q, W] for a slot matrix
+    (:func:`raw_pool_terms`, :func:`adc_pool_terms`).  Returns the
+    agreement share, the largest |difference| and ``ok``."""
+    kv, ks = kernel
+    pv, ps = plain
+    empty_k, empty_p = ks < 0, ps < 0
+    same_empty = bool(torch.equal(empty_k, empty_p)
+                      and torch.isinf(kv[empty_k]).all()
+                      and torch.isfinite(kv[~empty_k]).all())
+    live = ~empty_p
+    agree = (ks == ps) & live
+    share = float(agree.sum()) / max(1, int(live.sum()))
+    k_score, k_bound = terms(ks)
+    _, p_bound = terms(ps)
+    diff = (kv - pv).abs()
+    ok_agree = bool((diff[agree] <= p_bound[agree]).all())
+    dis = live & ~agree
+    col = torch.arange(ks.shape[1], device=ks.device)[None, :].expand_as(ks)
+    ok_dis = bool(((ks[dis] % w) == col[dis]).all()
+                  and ((kv[dis] - k_score[dis]).abs() <= k_bound[dis]).all()
+                  and ((k_score[dis] - pv[dis]).abs()
+                       <= k_bound[dis] + p_bound[dis]).all())
+    err = float(diff[live].max()) if live.any() else 0.0
+    return {"slot_agreement": share, "max_abs_err": err,
+            "ok": same_empty and share >= 0.999 and ok_agree and ok_dis}
