@@ -22,6 +22,18 @@ name and power limit):
                f. fused_adc_pool at S=64, sd=8, K in {256, 200}, N in
                   {4000, 524,288}, Q in {1, 1024}, w = N / 32 (within the
                   bound);
+               g. fused_ivf_pool at the 1M scan_ivf shape (nlist=513,
+                  cap=2688, p_cap=512, d=512, winners 4, 2, 1) with dead
+                  positions, unprobed clusters and part-filled prober tiles,
+                  and at Q=1's shape (p_cap=32, 64 probed clusters):
+                  bit-equal on the rows the merge reads;
+               h. fused_scan_topk at Q in {13, 1024}, N in {4000, 100,000},
+                  d=512, k=10, winners in {1, 2}, rows masked by a +inf norm
+                  (within the bound of ops/kernels.check_scan_topk); it has
+                  no index caller in either package, so no path launches
+                  it: its entry reports the path's 0 launches with
+                  "no_index_caller": true, and one self-test call's count
+                  is printed on a line of its own;
   4. 100k    — the flagship through VectorDatabase: 512-d x 100,000 rows,
                HnswPqConfig(num_subspaces=64, training_samples=20000),
                add_batch through the WAL, auto -> scan_exact, recall@10
@@ -47,11 +59,24 @@ name and power limit):
                adc_pool="approx", adc_select_r=128, refine_store="bf16" on
                512-d x 100,000 spectral rows by bulk_load
                (pq_decode_recon_t must launch), recall@10 >= 0.96; then
-               adc_pool="fused" (fused_adc_pool must launch), >= 0.96.
+               adc_pool="fused" (fused_adc_pool must launch), >= 0.96;
+  8. scan_ivf 1M — the cluster-pruned tier through VectorDatabase on
+               1,048,576 x 512 spectral rows (BENCH_REPORT.md:214-251,
+               benchmarks/bench_scan_ivf.py): a. compressed + residual by
+               bulk_load_stream (8 chunks of 131,072), nlist=0 (auto),
+               nprobe=64, fused_ivf_pool must launch and no other pool
+               kernel, recall@10 >= 0.93, a profiled index search, and CRUD
+               (300 adds found from the exact overlay, a removed id gone, the
+               overlay budget crossed -> relayout); b. the raw store by
+               bulk_load, recall@10 >= 0.93.
 
-Every path of phases 4-7 runs with all kernel launch counts set to 0 just
-before it and read just after.  Then a JSON line of the kernels, and as the
-last line {"ok": true, "device": {...}}.  A failed phase raises and the
+Every path of phases 4-8 runs with all kernel launch counts set to 0 just
+before it and read just after.  Then a JSON line of the kernels (each with
+its time, its plain version's, its launches on the main path, its bound at
+the timed shape: the larger of its bytes over 3.35 TB/s and its operations
+over the peak of their type, and a library call's time where one PyTorch
+call computes the same function, else null), and as the last line
+{"ok": true, "device": {...}}.  A failed phase raises and the
 script exits non-zero without that line; so does a machine without CUDA.
 """
 
@@ -90,6 +115,17 @@ CFG_10M = dict(raw_store=False, num_subspaces=64, training_samples=20000,
 CFG_MEMBOUND = dict(num_subspaces=64, training_samples=20000,
                     search_mode="adc_fast", adc_pool="approx",
                     adc_select_r=128, refine_store="bf16")
+N_IVF_CHUNKS = 8  # x 131,072 = 1,048,576 rows
+CFG_IVF = dict(raw_store=False, refine_residual=True, search_mode="scan_ivf",
+               nlist=0, nprobe=64, num_subspaces=64, training_samples=20000)
+CFG_IVF_RAW = dict(search_mode="scan_ivf", nprobe=64, num_subspaces=64,
+                   training_samples=20000)
+IVF_SHAPE = dict(nlist=513, cap=2688, p_cap=512, d=512)  # the 1M grid
+SCAN_SHAPES_Q = (13, 1024)
+SCAN_SHAPES_N = (4000, 100_000)
+#: the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fused_int8_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
                         "vector_db_tpu/ops/pallas_kernels.py:585"),
@@ -103,9 +139,17 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        "vector_db_tpu/ops/pallas_kernels.py:460"),
     "fused_adc_pool": ("vector_db_torch/csrc/fused_adc_pool.cu",
                        "vector_db_tpu/ops/pallas_kernels.py:284"),
+    "fused_ivf_pool": ("vector_db_torch/csrc/fused_ivf_pool.cu",
+                       "vector_db_tpu/ops/pallas_kernels.py:1153"),
+    "fused_scan_topk": ("vector_db_torch/csrc/fused_scan_topk.cu",
+                        "vector_db_tpu/ops/pallas_kernels.py:988"),
 }
 POOL_KERNELS = ("fused_int8_pool", "fused_packed_pool", "fused_int8g_pool",
-                "fused_raw_pool", "fused_adc_pool")
+                "fused_raw_pool", "fused_adc_pool", "fused_ivf_pool")
+#: kernels without an index caller in either package: the main path cannot
+#: launch them, so their reported launches are the path's (0), they carry
+#: "no_index_caller": true, and the never-launched check names them out
+NO_INDEX_CALLER = ("fused_scan_topk",)
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -233,16 +277,41 @@ def phase_kernel():
         "phase 3 fused_int8_pool", "Q=1024 N=1001472 d=512 w=2048",
         lambda: kn.fused_int8_pool(qc, base8, off, sc, 2048),
         lambda: kn.fused_int8_pool_plain(qc, base8, off, sc, 2048))
-    del shadows, base8, off, sc
+    n = base8.shape[0]
+    b = bound("phase 3 fused_int8_pool", n * DIM + 8 * n + 4 * NQ * DIM
+              + 8 * NQ * 2048, 2 * NQ * n * DIM, "int8")
+    q8 = torch.randint(-127, 128, (NQ, DIM), device=DEVICE, dtype=torch.int8)
+    product_only("phase 3 torch._int_mm [1024, 512] x [512, 1001472]",
+                 lambda: torch._int_mm(q8, base8.T))
+    del shadows, base8, off, sc, q8
     torch.cuda.empty_cache()
-    return kernel_entry("fused_int8_pool", worst, ms, plain_ms)
+    return kernel_entry("fused_int8_pool", worst, ms, plain_ms, b)
 
 
-def kernel_entry(name, err, ms, plain_ms):
+def bound(label, nbytes, ops, kind):
+    """The least time the card could take for work of ``nbytes`` moved and
+    ``ops`` operations of type ``kind``: (ms, "bytes" or "operations"),
+    printed on a line of its own."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    say(f"{label} bound: {nbytes} bytes -> {t_bytes} ms, {ops} {kind} ops "
+        f"-> {t_ops} ms: {max(t_bytes, t_ops)} ms, bound by {by}")
+    return max(t_bytes, t_ops), by
+
+
+def kernel_entry(name, err, ms, plain_ms, bound_ms_by, library_ms=None):
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+            "bound_by": bound_ms_by[1], "library_ms": library_ms}
+
+
+def product_only(label, fn):
+    """CUDA-event time of a library product alone (not the same function as
+    the kernel, which also scores and pools): printed, not reported."""
+    timing(f"{label} product only (best of 3)", cuda_ms(fn), "ms")
 
 
 def max_abs_err(got, want):
@@ -286,9 +355,11 @@ def phase_decode():
         "phase 3b pq_decode_recon_t", "S=64 sd=8 K=256 N=524288",
         lambda: kn.pq_decode_recon_t(codes, cbt),
         lambda: kn.pq_decode_recon_t_plain(codes, cbt))
+    b = bound("phase 3b pq_decode_recon_t", 64 * n + 512 * 256 * 4
+              + 512 * n * 2, 0, "bf16")  # a gather: no arithmetic
     del codes, cbt
     torch.cuda.empty_cache()
-    return kernel_entry("pq_decode_recon_t", worst, ms, plain_ms)
+    return kernel_entry("pq_decode_recon_t", worst, ms, plain_ms, b)
 
 
 def phase_packed():
@@ -343,9 +414,12 @@ def phase_packed():
         "phase 3c fused_packed_pool", "Q=1024 N=1001472 d=512 w=2048",
         lambda: kn.fused_packed_pool(qc, packed, off, sc, 2048),
         lambda: kn.fused_packed_pool_plain(qc, packed, off, sc, 2048))
+    n = packed.shape[0]
+    b = bound("phase 3c fused_packed_pool", n * DIM + 8 * n + 4 * NQ * DIM
+              + 8 * NQ * 2048, 2 * NQ * n * DIM, "int8")
     del stores, packed, off, sc
     torch.cuda.empty_cache()
-    return kernel_entry("fused_packed_pool", worst, ms, plain_ms)
+    return kernel_entry("fused_packed_pool", worst, ms, plain_ms, b)
 
 
 def timed_pair(label, shape, kernel, plain):
@@ -403,9 +477,11 @@ def phase_int8g():
         "phase 3d fused_int8g_pool", f"Q={NQ} N={n} d={DIM} w=2048",
         lambda: kn.fused_int8g_pool(qc, base8, off, sv, sgn, 2048),
         lambda: kn.fused_int8g_pool_plain(qc, base8, off, sv, sgn, 2048))
+    b = bound("phase 3d fused_int8g_pool", n * DIM + 4 * n + 4 * NQ * DIM
+              + 8 * NQ * 2048, 2 * NQ * n * DIM, "int8")
     del base8, off
     torch.cuda.empty_cache()
-    return kernel_entry("fused_int8g_pool", worst, ms, plain_ms)
+    return kernel_entry("fused_int8g_pool", worst, ms, plain_ms, b)
 
 
 def hold_float_pool(label, got, want, terms, w):
@@ -453,9 +529,14 @@ def phase_raw():
         "phase 3e fused_raw_pool", f"Q={NQ} N={n} d={DIM} w=2048",
         lambda: kn.fused_raw_pool(qc, base16, off, sc, 2048),
         lambda: kn.fused_raw_pool_plain(qc, base16, off, sc, 2048))
-    del base16, off, sc
+    b = bound("phase 3e fused_raw_pool", 2 * n * DIM + 8 * n + 4 * NQ * DIM
+              + 8 * NQ * 2048, 2 * NQ * n * DIM, "bf16")
+    q16 = qc.to(torch.bfloat16)
+    product_only(f"phase 3e bf16 torch.mm [1024, 512] x [512, {n}]",
+                 lambda: torch.mm(q16, base16.T))
+    del base16, off, sc, q16
     torch.cuda.empty_cache()
-    return kernel_entry("fused_raw_pool", worst, ms, plain_ms)
+    return kernel_entry("fused_raw_pool", worst, ms, plain_ms, b)
 
 
 def phase_adc():
@@ -496,9 +577,13 @@ def phase_adc():
         f"Q={NQ} S={s} sd={sd} K=256 N={ADC_SHAPES_N[-1]} w={w}",
         lambda: kn.fused_adc_pool(queries, codes, cbt, norms, w),
         lambda: kn.fused_adc_pool_plain(queries, codes, cbt, norms, w))
+    n = ADC_SHAPES_N[-1]
+    b = bound("phase 3f fused_adc_pool", s * n + s * sd * 256 * 4 + 4 * n
+              + 4 * NQ * s * sd + 8 * NQ * kn.pool_width(w),
+              2 * NQ * n * s * sd, "bf16")
     del cases, codes, cbt, norms
     torch.cuda.empty_cache()
-    return kernel_entry("fused_adc_pool", worst, ms, plain_ms)
+    return kernel_entry("fused_adc_pool", worst, ms, plain_ms, b)
 
 
 def spectrum():
@@ -687,8 +772,8 @@ def phase_1m():
     return counts
 
 
-def stream_10m(queries, work):
-    """The 10M corpus as bulk_load_stream chunks: chunk c is randn from a
+def stream_spectral(queries, work, n_chunks):
+    """A spectral corpus as bulk_load_stream chunks: chunk c is randn from a
     CUDA generator seeded 42 + c times the spectrum, ids c*131072 + i.
     Exact top-10 ground truth is merged per chunk on the way (so the f32
     corpus never exists whole); ``work`` accumulates the seconds spent on
@@ -700,7 +785,7 @@ def stream_10m(queries, work):
     ones = torch.ones(N_10M_CHUNK, dtype=torch.bool, device=DEVICE)
     gt_d = torch.full((NQ, K), float("inf"), device=DEVICE)
     gt_i = torch.full((NQ, K), -1, dtype=torch.int32, device=DEVICE)
-    for c in range(N_10M_CHUNKS):
+    for c in range(n_chunks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g = torch.Generator(device=DEVICE).manual_seed(42 + c)
@@ -726,7 +811,7 @@ def phase_10m():
     reset_launches()
     db = make_db(n + 1024, cfg=CFG_10M)
     t0 = time.perf_counter()
-    rows = db.bulk_load_stream(stream_10m(queries, work))
+    rows = db.bulk_load_stream(stream_spectral(queries, work, N_10M_CHUNKS))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     gt = work["gt"]
@@ -819,6 +904,313 @@ def phase_membound():
     return {name: c + fused[name] for name, c in counts.items()}
 
 
+def read_rows(counts, p_cap):
+    """The pool rows a merge reads: prober ranks below each cluster's
+    count, cluster-major."""
+    first = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device) * p_cap,
+        counts.long())
+    start = torch.repeat_interleave(torch.cumsum(counts.long(), 0)
+                                    - counts.long(), counts.long())
+    return first + torch.arange(first.numel(), device=counts.device) - start
+
+
+def ivf_case(g, nlist, cap, p_cap, d, counts):
+    """Random int8 probers and cluster rows, ~20% +inf offsets (grid pads
+    and disabled rows) and negative scales, as a layout's."""
+    qsel = torch.randint(-127, 128, (nlist * p_cap, d), device=DEVICE,
+                         generator=g, dtype=torch.int8).view(torch.int32)
+    cm = torch.randint(-127, 128, (nlist * cap, d), device=DEVICE,
+                       generator=g, dtype=torch.int8).view(torch.int32)
+    off = torch.randn(nlist * cap, device=DEVICE, generator=g) * 100
+    off[torch.rand(nlist * cap, device=DEVICE, generator=g) < 0.2] = \
+        float("inf")
+    sc = -torch.rand(nlist * cap, device=DEVICE, generator=g) * 0.01
+    return counts.clamp(max=p_cap).to(torch.int32), qsel, cm, off, sc
+
+
+def phase_ivf_kernel():
+    """3g: fused_ivf_pool (B8) vs plain at the 1M scan_ivf grid, bit-equal
+    on the rows the merge reads; returns the kernels-line entry."""
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    nlist, cap, p_cap, d = (IVF_SHAPE[k] for k in ("nlist", "cap", "p_cap",
+                                                    "d"))
+    # ~128 probers a cluster, 10% of clusters unprobed, a few tiles full
+    counts = torch.randint(1, 256, (nlist,), device=DEVICE, generator=g)
+    counts[torch.rand(nlist, device=DEVICE, generator=g) < 0.1] = 0
+    counts[:4] = p_cap
+    one = torch.zeros(nlist, device=DEVICE, dtype=torch.int32)
+    one[torch.randperm(nlist, device=DEVICE, generator=g)[:64]] = 1
+    cases = [(p_cap, 4, counts), (p_cap, 2, counts), (p_cap, 1, counts),
+             (32, 4, one)]
+    worst = 0.0
+    main = None
+    for pc, winners, cnt in cases:
+        args = ivf_case(g, nlist, cap, pc, d, cnt)
+        kv, kp = kn.fused_ivf_pool(*args, nlist, cap, pc, winners)
+        pv, pp = kn.fused_ivf_pool_plain(*args, nlist, cap, pc, winners)
+        torch.cuda.synchronize()
+        rows = read_rows(args[0], pc)
+        fin = torch.isfinite(pv[rows])
+        same = (torch.equal(kv[rows], pv[rows])
+                and torch.equal(kp[rows][fin], pp[rows][fin]))
+        err = max_abs_err(kv[rows], pv[rows])
+        say(f"phase 3g ivf: nlist={nlist} cap={cap} p_cap={pc} d={d} "
+            f"winners={winners} probed={int((args[0] > 0).sum())} "
+            f"rows_read={rows.numel()} bit_equal={same} max_abs_err={err}")
+        if not same:
+            raise RuntimeError("fused_ivf_pool disagrees with its plain "
+                               f"version at p_cap={pc} winners={winners}")
+        worst = max(worst, err)
+        if main is None:
+            main = args
+    ms, plain_ms = timed_pair(
+        "phase 3g fused_ivf_pool",
+        f"nlist={nlist} cap={cap} p_cap={p_cap} d={d} winners=4",
+        lambda: kn.fused_ivf_pool(*main, nlist, cap, p_cap, 4),
+        lambda: kn.fused_ivf_pool_plain(*main, nlist, cap, p_cap, 4))
+    probed = int((counts > 0).sum())
+    live = int(counts.clamp(max=p_cap).sum())
+    b = bound("phase 3g fused_ivf_pool", probed * cap * (d + 8) + live * d
+              + 4 * nlist + live * 128 * 8, 2 * live * cap * d, "int8")
+    del main, cases
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_ivf_pool", worst, ms, plain_ms, b)
+
+
+def phase_scan_topk():
+    """3h: fused_scan_topk (B1) vs plain within the f32 summation-order
+    bound.  No index of either package calls it, so its entry is marked
+    ``no_index_caller``.  Returns the kernels-line entry."""
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    worst = 0.0
+    data = {}
+    for n in SCAN_SHAPES_N:
+        base = torch.randn(n, DIM, device=DEVICE, generator=g)
+        bn = (base * base).sum(1)
+        bn[torch.rand(n, device=DEVICE, generator=g) < 0.05] = float("inf")
+        data[n] = (base, bn)
+    queries = torch.randn(NQ, DIM, device=DEVICE, generator=g)
+    for n, (base, bn) in data.items():
+        for qn in SCAN_SHAPES_Q:
+            for winners in (1, 2):
+                q = queries[:qn]
+                got = kn.fused_scan_topk(q, base, bn, K, winners=winners)
+                want = kn.fused_scan_topk_plain(q, base, bn, K,
+                                                winners=winners)
+                torch.cuda.synchronize()
+                res = kn.check_scan_topk(got, want, q, base, bn)
+                say(f"phase 3h scan_topk: Q={qn} N={n} d={DIM} k={K} "
+                    f"winners={winners} id_agreement={res['id_agreement']} "
+                    f"max_abs_err={res['max_abs_err']} "
+                    f"within_bound={res['ok']}")
+                if not res["ok"]:
+                    raise RuntimeError("fused_scan_topk leaves the bound of "
+                                       f"its plain version at Q={qn} N={n}")
+                worst = max(worst, res["max_abs_err"])
+    base, bn = data[SCAN_SHAPES_N[-1]]
+    n = base.shape[0]
+    ms, plain_ms = timed_pair(
+        "phase 3h fused_scan_topk", f"Q={NQ} N={n} d={DIM} k={K} winners=1",
+        lambda: kn.fused_scan_topk(queries, base, bn, K),
+        lambda: kn.fused_scan_topk_plain(queries, base, bn, K))
+    b = bound("phase 3h fused_scan_topk", 4 * (NQ * DIM + n * DIM + n)
+              + 8 * NQ * K, 2 * NQ * n * (DIM + 1), "f32")
+    product_only(f"phase 3h f32 torch.mm [1024, 512] x [512, {n}]",
+                 lambda: torch.mm(queries, base.T))
+    # the wrapper's count, shown on its own line: no path runs this kernel
+    reset_launches()
+    kn.fused_scan_topk(queries, base, bn, K)
+    read_launches("3h fused_scan_topk self-test (one call, not a path)",
+                  must_launch=("fused_scan_topk",))
+    del data, base, bn
+    torch.cuda.empty_cache()
+    entry = kernel_entry("fused_scan_topk", worst, ms, plain_ms, b)
+    entry["no_index_caller"] = True
+    return entry
+
+
+def profile_search(label, fn):
+    """One fn() under torch.profiler after a warm-up: the device kernels
+    by total time and the device's idle share of the host window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # kernels only: an aten op's self device time repeats its kernels'
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    device = sum(r[0] for r in rows)
+    if not rows:
+        say(f"phase {label} profile: no device time in the trace "
+            "(not measured)")
+        return
+    timing(f"phase {label} profile: wall {wall:.3f} ms, device {device:.3f} "
+           f"ms, idle", 1 - device / wall, "of the window")
+    for ms, count, key in rows[:12]:
+        say(f"phase {label} profile: {ms:.3f} ms in {count} x {key[:90]}")
+
+
+def phase_ivf():
+    """8: scan_ivf at 1M through VectorDatabase, compressed (a) and raw
+    (b); returns the launch counts of its paths."""
+    n = N_10M_CHUNK * N_IVF_CHUNKS
+    torch.cuda.empty_cache()
+    queries = torch.randn(
+        NQ, DIM, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(7)) * spectrum()
+    work = {"seconds": 0.0}
+    counts = {name: 0 for name in KERNELS}
+
+    def add(c):
+        for name in counts:
+            counts[name] += c[name]
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    db = make_db(n + 1024, cfg=CFG_IVF)
+    ix = db.index
+    coarse = {"seconds": 0.0}
+    fit = ix._coarse_kmeans
+
+    def timed_fit(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(*a, **kw)
+        torch.cuda.synchronize()
+        coarse["seconds"] += time.perf_counter() - t0
+        return out
+
+    ix._coarse_kmeans = timed_fit
+    t0 = time.perf_counter()
+    rows = db.bulk_load_stream(stream_spectral(queries, work, N_IVF_CHUNKS))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    gt = work["gt"]
+    timing(f"phase 8a ingest (bulk_load_stream of {rows} rows: train + "
+           "coarse quantizer + pack + residual + encode; generation and "
+           "ground truth excluded)", total - work["seconds"], "s")
+    timing("phase 8a coarse quantizer training (inside the ingest)",
+           coarse["seconds"], "s")
+    t0 = time.perf_counter()
+    lay = ix._ivf_layout()
+    torch.cuda.synchronize()
+    timing("phase 8a layout build (choices + balanced placement + gather)",
+           time.perf_counter() - t0, "s")
+    nprobe, p_cap, pool = ix.ivf_search_shape(NQ, 16)
+    say(f"phase 8a: rows={db.size()} capacity={ix.store.capacity} "
+        f"nlist={lay.centroids.shape[0]} cap={lay.cap} nprobe={nprobe} "
+        f"p_cap={p_cap} pool={pool} spilled={lay.spilled} "
+        f"grid_bytes={lay.cm_packed.numel() * 4}")
+    add(read_launches("8a ingest"))
+    reset_launches()
+    _, rec, ids = serve(db, "8a scan_ivf 1M compressed", queries, gt)
+    timing(f"phase 8a index QPS (Q={NQ}, k={K}, best of 3)",
+           NQ / host_s(lambda: ix.search_batch(queries, K)), "queries/s")
+    add(read_launches("8a scan_ivf 1M compressed",
+                      must_launch=("fused_ivf_pool",),
+                      must_not=POOL_KERNELS[:-1] + NO_INDEX_CALLER))
+    timing("phase 8a peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+    if rec < 0.93:
+        raise RuntimeError(f"8a scan_ivf recall@10 {rec} < 0.93")
+    reset_launches()
+    profile_search("8a index.search_batch Q=1024",
+                   lambda: ix.search_batch(queries, K))
+    profile_search("8a index.search_batch Q=1",
+                   lambda: ix.search_batch(queries[:1], K))
+    add(read_launches("8a profiled searches", must_launch=("fused_ivf_pool",)))
+    # CRUD: adds land in the exact overlay, a removal takes effect at once,
+    # the overlay budget crossed lays the grid out again
+    reset_launches()
+    gen = torch.Generator(device=DEVICE).manual_seed(99)
+    new = torch.randn(300, DIM, device=DEVICE, generator=gen) * spectrum()
+    new_ids = list(range(10**8, 10**8 + 300))
+    if len(db.add_batch(new_ids, new)) != 300:
+        raise RuntimeError("8a CRUD: add_batch refused rows")
+    found = [r[0].id if r else -1 for r in db.search_batch(new, K)]
+    hit = sum(f == i for f, i in zip(found, new_ids)) / 300
+    overlay = ix._ivf_overlay.size
+    victim = ids[0][0]
+    if not db.delete_vector(victim):
+        raise RuntimeError("8a CRUD: delete_vector failed")
+    gone = victim not in result_ids(db.search_batch(queries[:1], K))[0]
+    more = torch.randn(800, DIM, device=DEVICE, generator=gen) * spectrum()
+    db.add_batch(range(2 * 10**8, 2 * 10**8 + 800), more)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.search_batch(queries[:1], K)
+    relayout_s = time.perf_counter() - t0
+    drained = ix._ivf_overlay.size == 0 and ix._ivf_cache[0] == \
+        ix.store.version
+    say(f"phase 8a CRUD: 300 adds found={hit} overlay={overlay} "
+        f"removed id gone={gone} overlay after 800 more adds and a search="
+        f"{ix._ivf_overlay.size} relayout={drained} rows={db.size()}")
+    timing("phase 8a relayout search (Q=1, layout rebuilt)", relayout_s, "s")
+    add(read_launches("8a CRUD", must_launch=("fused_ivf_pool",)))
+    if hit < 0.99 or overlay != 300 or not gone or not drained:
+        raise RuntimeError("8a scan_ivf CRUD failed")
+    db.close()
+    del db, ix, lay
+    torch.cuda.empty_cache()
+
+    # 8b: the raw store, the same corpus by bulk_load
+    g_chunks = [torch.randn(N_10M_CHUNK, DIM, device=DEVICE,
+                            generator=torch.Generator(device=DEVICE)
+                            .manual_seed(42 + c)) * spectrum()
+                for c in range(N_IVF_CHUNKS)]
+    corpus = torch.cat(g_chunks)
+    del g_chunks
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    db = make_db(n, cfg=CFG_IVF_RAW)
+    t0 = time.perf_counter()
+    db.bulk_load(range(n), corpus)
+    torch.cuda.synchronize()
+    timing("phase 8b raw build (bulk_load + train + coarse quantizer + "
+           "encode)", time.perf_counter() - t0, "s")
+    del corpus
+    t0 = time.perf_counter()
+    lay = db.index._ivf_layout()
+    torch.cuda.synchronize()
+    timing("phase 8b layout build", time.perf_counter() - t0, "s")
+    say(f"phase 8b: rows={db.size()} nlist={lay.centroids.shape[0]} "
+        f"cap={lay.cap} spilled={lay.spilled}")
+    _, rec_b, _ = serve(db, "8b scan_ivf 1M raw", queries, gt)
+    timing(f"phase 8b index QPS (Q={NQ}, k={K}, best of 3)",
+           NQ / host_s(lambda: db.index.search_batch(queries, K)),
+           "queries/s")
+    profile_search("8b index.search_batch Q=1",
+                   lambda: db.index.search_batch(queries[:1], K))
+    add(read_launches("8b scan_ivf 1M raw", must_launch=("fused_ivf_pool",),
+                      must_not=POOL_KERNELS[:-1] + NO_INDEX_CALLER))
+    timing("phase 8b peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+    if rec_b < 0.93:
+        raise RuntimeError(f"8b scan_ivf raw recall@10 {rec_b} < 0.93")
+    db.close()
+    del db, lay
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -832,14 +1224,17 @@ def main():
                "fused_packed_pool": phase_packed(),
                "fused_int8g_pool": phase_int8g(),
                "fused_raw_pool": phase_raw(),
-               "fused_adc_pool": phase_adc()}
+               "fused_adc_pool": phase_adc(),
+               "fused_ivf_pool": phase_ivf_kernel(),
+               "fused_scan_topk": phase_scan_topk()}
     # the main path: each phase sets every launch count to 0 just before
     # its paths and reads them just after
-    for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound()):
+    for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),
+                   phase_ivf()):
         for name, c in counts.items():
             entries[name]["launches"] += c
     for name, entry in entries.items():
-        if entry["launches"] == 0:
+        if entry["launches"] == 0 and name not in NO_INDEX_CALLER:
             raise RuntimeError(f"the main path never launched {name}")
     shutil.rmtree(WORK, ignore_errors=True)
     timing("chip_smoke total", time.perf_counter() - t_start, "s")

@@ -462,7 +462,7 @@ def test_compressed_fused_adc_matches_reference():
 
 
 @pytest.mark.parametrize("mode,item", [("pca", "A10"), ("adc", "A10"),
-                                       ("graph", "A10"), ("scan_ivf", "A12")])
+                                       ("graph", "A10")])
 def test_unported_modes_still_raise(mode, item):
     with pytest.raises(NotImplementedError, match=item):
         hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(search_mode=mode),

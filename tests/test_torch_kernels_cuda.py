@@ -2,7 +2,9 @@
 (``ops/kernels.py``): B2 ``fused_int8_pool``, B3 ``pq_decode_recon_t``, B4
 ``fused_packed_pool`` and B7 ``fused_int8g_pool`` bit-equal; B6
 ``fused_raw_pool`` and B5 ``fused_adc_pool`` within the f32 summation-order
-bound of ``ops/kernels.check_float_pool``.  Every test is marked ``cuda``
+bound of ``ops/kernels.check_float_pool``; B8 ``fused_ivf_pool`` bit-equal on
+the rows the merge reads, B1 ``fused_scan_topk`` within the bound of
+``ops/kernels.check_scan_topk``.  Every test is marked ``cuda``
 and skips without a card.  This file imports no JAX, so it runs on a machine
 with a card and no JAX:
 
@@ -112,4 +114,59 @@ def test_new_pool_kernels_agree_with_plain_on_card():
         res = tk.check_float_pool(
             got, want, lambda sl: tk.adc_pool_terms(q, codes, cbt, mn, sl),
             512)
+        assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_ivf_pool_bit_equal_to_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dev = "cuda"
+    for nlist, cap, p_cap, d, winners in [(7, 512, 96, 64, 4), (5, 1024, 32,
+                                                                  36, 1),
+                                          (9, 256, 64, 512, 2)]:
+        qsel = torch.randint(-127, 128, (nlist * p_cap, d), device=dev,
+                             generator=g, dtype=torch.int8).view(torch.int32)
+        cm = torch.randint(-127, 128, (nlist * cap, d), device=dev,
+                           generator=g, dtype=torch.int8).view(torch.int32)
+        off = torch.randn(nlist * cap, device=dev, generator=g) * 100
+        off[torch.rand(nlist * cap, device=dev, generator=g) < 0.1] = \
+            float("inf")
+        sc = -torch.rand(nlist * cap, device=dev, generator=g) * 0.05
+        counts = torch.randint(0, p_cap + 1, (nlist,), device=dev,
+                               generator=g, dtype=torch.int32)
+        counts[0] = 0
+        before = tk.fused_ivf_pool.launches
+        kv, kp = tk.fused_ivf_pool(counts, qsel, cm, off, sc, nlist, cap,
+                                   p_cap, winners)
+        pv, pp = tk.fused_ivf_pool_plain(counts, qsel, cm, off, sc, nlist,
+                                         cap, p_cap, winners)
+        torch.cuda.synchronize()
+        assert tk.fused_ivf_pool.launches == before + 1
+        rows = torch.cat([c * p_cap + torch.arange(int(counts[c]),
+                                                   device=dev)
+                          for c in range(nlist)])
+        assert torch.equal(kv[rows], pv[rows])
+        fin = torch.isfinite(pv[rows])
+        assert torch.equal(kp[rows][fin], pp[rows][fin])
+
+
+@pytest.mark.cuda
+def test_scan_topk_within_bound_of_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for qn, n, d, k, winners in [(13, 4000, 512, 10, 1), (70, 5003, 36, 20, 2),
+                                 (1, 300, 64, 10, 2)]:
+        base = torch.randn(n, d, device="cuda", generator=g)
+        q = torch.randn(qn, d, device="cuda", generator=g)
+        bn = (base * base).sum(1)
+        bn[::17] = float("inf")
+        before = tk.fused_scan_topk.launches
+        got = tk.fused_scan_topk(q, base, bn, k, winners=winners)
+        want = tk.fused_scan_topk_plain(q, base, bn, k, winners=winners)
+        torch.cuda.synchronize()
+        assert tk.fused_scan_topk.launches == before + 1
+        res = tk.check_scan_topk(got, want, q, base, bn)
         assert res["ok"], res

@@ -106,9 +106,11 @@ class HnswPqConfig:
     ``refine_residual``) with ``use_graph=False``, and the search modes
     ``auto``, ``scan_exact``, ``scan_pallas_int8`` (``int8_epilogue``
     ``per_row`` or ``global``), ``scan_pallas``, ``scan_bf16``, ``adc_fast``
-    (pools ``bucket``, ``approx`` and ``fused``) and ``scan_int8``; ``pca``,
-    ``adc``, the graph and ``scan_ivf`` raise ``NotImplementedError`` naming
-    their ROADMAP item.
+    (pools ``bucket``, ``approx`` and ``fused``), ``scan_int8`` and
+    ``scan_ivf`` (the coarse quantizer: ``nlist``, 0 auto-sizes it under
+    scan_ivf; ``nprobe``; ``ivf_p_cap``, ``ivf_winners``, ``ivf_pool``, 0 =
+    the reference's rules); ``pca``, ``adc`` and the graph raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     m: int = 32

@@ -25,6 +25,13 @@ row is encoded, and ``search_batch`` scans:
     kernel decodes, scores and pools (``ops/kernels.fused_adc_pool``);
   * ``scan_int8`` — the exhaustive scan over int8 rows (the compressed
     store, or a raw store with ``refine_store="int8"``);
+  * ``scan_ivf`` — the cluster-pruned scan (``ops/ivf_scan``): a coarse
+    k-means quantizer (``nlist`` centroids, 0 auto-sizes it at training), a
+    balanced cluster-major int8 layout of the live rows, ``nprobe`` probed
+    clusters a query scored by ``ops/kernels.fused_ivf_pool``, then the
+    exact f32 (raw store) or int8 + residual (compressed) refine, with the
+    rows written since the last layout scored exactly beside the pool
+    (:func:`pallas_ivf_refine_raw`, :func:`pallas_ivf_refine_packed`);
   * ``auto`` — raw store: scan_exact below 700,000 live rows,
     scan_pallas_int8 at and above (the reference's crossover,
     :func:`_auto_scan_mode`); compressed store: adc_fast.
@@ -34,39 +41,39 @@ and optionally a residual level (``refine_residual``) and no f32 matrix;
 ``bulk_load_stream`` fills it chunk by chunk.  Caches derived from the
 store or the codes are keyed on version counters (``store.version``, the
 codes' own ``_codes_version``): the port writes in place, so the
-reference's array-identity keys would never change.  ``pca``, ``adc``, the
-graph and the IVF tier raise ``NotImplementedError`` naming their ROADMAP
-item.  Unlike the reference, no [L, cap, M] graph is allocated.
+reference's array-identity keys would never change.  ``pca``, ``adc`` and
+the graph raise ``NotImplementedError`` naming their ROADMAP item.  Unlike
+the reference, no [L, cap, M] graph is allocated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..api.config import HnswPqConfig
 from ..core.store import VectorStore
-from ..ops import adc
+from ..ops import adc, ivf_scan
 from ..ops.distance import (bf16_pool_scan, blocked_knn, blocked_knn_fast,
                             blocked_knn_int8, blocked_rerank,
                             blocked_rerank_int8, normalize_rows,
-                            pack_bf16_rows, pack_int8_rows, words_to_f32)
-from ..ops.kernels import (fused_int8_pool, fused_int8g_pool,
+                            pack_bf16_rows, pack_int8_rows, pairwise_sq_l2,
+                            words_to_f32)
+from ..ops.kernels import (IVF_PW, LANES, fused_int8_pool, fused_int8g_pool,
                            fused_packed_pool, fused_raw_pool,
                            pq_decode_recon_t, preserved_pool_width)
-from ..ops.kmeans import subspace_kmeans_fit
+from ..ops.kmeans import kmeans_fit, kmeans_fit_blocked, subspace_kmeans_fit
 from .base import (VectorIndex, as_queries, pad_queries_pow2, pow2,
                    to_host_results)
 
 #: search modes the port serves, and the ROADMAP item that ports each other
 PORTED_MODES = ("auto", "scan_exact", "scan_pallas_int8", "scan_pallas",
-                "scan_bf16", "adc_fast", "scan_int8")
-_MODE_ROADMAP = {"pca": "A10", "adc": "A10", "graph": "A10",
-                 "scan_ivf": "A12"}
+                "scan_bf16", "adc_fast", "scan_int8", "scan_ivf")
+_MODE_ROADMAP = {"pca": "A10", "adc": "A10", "graph": "A10"}
 #: modes that read the raw f32 rows (refused by a compressed store)
 RAW_ONLY_MODES = ("scan_exact", "scan_pallas", "scan_bf16", "graph")
 #: live rows at which auto switches from scan_exact to scan_pallas_int8
@@ -77,6 +84,9 @@ SHADOW_PAD_ROWS = 2048
 SHADOW_BUILD_ROWS = 1 << 16
 #: code columns decoded per step of the reconstruction-norm pass
 RECON_NORM_CHUNK = 1 << 19
+#: rows per step of the coarse assignment and of the layout's choices pass
+#: is (1 << 26) // nlist: a [rows, nlist] f32 block of at most 256 MB
+COARSE_BLOCK_ELEMS = 1 << 26
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -119,8 +129,6 @@ class HnswPqIndex(VectorIndex):
         if config.search_mode not in PORTED_MODES:
             raise _not_ported(f"search_mode={config.search_mode!r}",
                               _MODE_ROADMAP.get(config.search_mode, "A10"))
-        if config.nlist > 0:
-            raise _not_ported("nlist > 0 (the IVF coarse quantizer)", "A12")
         self.config = config
         self.store = VectorStore(capacity, dim, raw=config.raw_store,
                                  device=device,
@@ -135,6 +143,12 @@ class HnswPqIndex(VectorIndex):
         self.trained = False
         self.seed = 42
         self._level_counter = 0  # checkpoint field of the reference's graph
+        # the coarse quantizer (config.nlist > 0): centroids [nlist, dim] in
+        # probe space, and each slot's nearest centroid on the host (-1 for
+        # dead slots, and for rows train() places under scan_ivf, whose
+        # layout takes its own top-8 choices), as the reference keeps them
+        self.coarse_centroids: Optional[torch.Tensor] = None
+        self.coarse_assign = np.full(self.store.capacity, -1, np.int32)
         # derived caches, each (version key, value):
         #   _scan8_cache  raw int8 scan shadow (base8, off, sc, center_vec)
         #                 with its centering constant _scan8_aux
@@ -147,6 +161,11 @@ class HnswPqIndex(VectorIndex):
         #   _packed_cache raw-store bf16 or int8 refine store
         #   _fast_cache   ADC tables (codes_t, cbt, recon norms), keyed on
         #                 (_codes_version, codebooks)
+        #   _ivf_cache    the scan_ivf layout (_IvfLayout); rows written
+        #                 since its build are disabled in its grid and kept
+        #                 in _ivf_overlay (host slots, scored exactly), up
+        #                 to _IVF_OVERLAY_MAX before the next search relays
+        #                 it out
         self._scan8_cache: Optional[tuple] = None
         self._scan8_aux: Optional[torch.Tensor] = None
         self._scan8g_cache: Optional[tuple] = None
@@ -157,6 +176,9 @@ class HnswPqIndex(VectorIndex):
         self._scan8p_cache: Optional[tuple] = None
         self._packed_cache: Optional[tuple] = None
         self._fast_cache: Optional[tuple] = None
+        self._ivf_cache: Optional[tuple] = None
+        self._ivf_overlay = np.empty(0, np.int64)
+        self._ivf_overlay_dev: Optional[torch.Tensor] = None
         # rows (store slots) written since a cache was built, for its
         # incremental refresh: [] = none, None = unknown -> full rebuild.
         # _fast_dirty records re-encoded slots and has one writer,
@@ -166,12 +188,14 @@ class HnswPqIndex(VectorIndex):
         self._scan16_dirty: Optional[list] = []
         self._pack_dirty: Optional[list] = []
         self._fast_dirty: Optional[list] = []
-        # concurrent searches must not both refresh a cache in place
-        self._cache_lock = threading.Lock()
+        self._ivf_dirty: Optional[list] = []
+        # concurrent searches must not both refresh a cache in place; an
+        # RLock: the scan_ivf layout reads the scan shadows under it
+        self._cache_lock = threading.RLock()
 
     # ------------------------------------------------------------- mutation
     _ROW_RECORDS = ("_scan8_dirty", "_scan8g_dirty", "_scan16_dirty",
-                    "_pack_dirty")
+                    "_pack_dirty", "_ivf_dirty")
 
     def _note_slots(self, attr: str, slots: np.ndarray) -> None:
         """Append slots to a dirty record; past max(8192, capacity / 8)
@@ -217,6 +241,8 @@ class HnswPqIndex(VectorIndex):
                 self.train()
         else:
             self._encode_slots(slots_np)
+            if self.coarse_centroids is not None:
+                self._assign_coarse(slots_np)
         return accepted
 
     def bulk_load(self, ids: Sequence[int], vectors) -> list[int]:
@@ -274,6 +300,9 @@ class HnswPqIndex(VectorIndex):
                 self.store.write_range(start, ids_np, vecs)
                 self.codes[start:start + c] = adc.pq_encode(
                     self._pq_space(vecs), self.codebooks)
+                if self.coarse_centroids is not None:
+                    self.coarse_assign[start:start + c] = self._nearest_coarse(
+                        vecs)
                 start += c
         finally:
             # the freelist reflects whatever was written, even on a raise
@@ -283,7 +312,10 @@ class HnswPqIndex(VectorIndex):
 
     def _fit_quantizers(self, data: torch.Tensor) -> None:
         """Fit the PQ codebooks (and the dimension permutation) on a
-        training sample of the first streamed chunk; encodes nothing."""
+        training sample of the first streamed chunk, and the coarse
+        quantizer on the chunk itself when ``nlist > 0`` (under scan_ivf
+        ``nlist = 0`` is sized from the store capacity: the final live
+        count is unknown mid-stream); encodes nothing."""
         n = data.shape[0]
         if n < self.config.num_centroids:
             raise ValueError(
@@ -296,6 +328,18 @@ class HnswPqIndex(VectorIndex):
                                       replace=False))
             sample = data[torch.as_tensor(pick, device=data.device)]
         self._fit_codebooks(sample)
+        if self.config.nlist == 0 and self.config.search_mode == "scan_ivf":
+            self.config.nlist = ivf_scan.auto_ivf_geometry(
+                self.store.capacity, winners=self.config.ivf_winners)[0]
+        if self.config.nlist > 0:
+            nlist = min(self.config.nlist, max(1, n // 8))
+            full = normalize_rows(data) if self.metric == "cosine" else data
+            if n > max(256 * nlist, 262144):
+                rng = np.random.default_rng(self.seed + 7)
+                pick = np.sort(rng.choice(n, max(256 * nlist, 262144),
+                                          replace=False))
+                full = full[torch.as_tensor(pick, device=data.device)]
+            self._set_coarse(self._coarse_kmeans(full, nlist))
 
     def _fit_codebooks(self, data: torch.Tensor) -> None:
         """Per-subspace k-means++ on training rows (normalized under
@@ -321,13 +365,17 @@ class HnswPqIndex(VectorIndex):
         if slot is None:
             return False
         self._note_row_mutation(np.asarray([slot]))
+        self.coarse_assign[slot] = -1
         return True
 
     # --------------------------------------------------------------- train
     def train(self) -> bool:
         """Per-subspace k-means++ PQ training on up to ``training_samples``
         live rows (the same host-side sample as the reference), then encode
-        every live row."""
+        every live row.  With ``nlist > 0`` (under scan_ivf ``nlist = 0`` is
+        auto-sized from the live rows, and sticks) the coarse quantizer
+        trains on up to max(256 nlist, 262144) live rows (sampled with seed
+        + 7) and, under any other mode, assigns every live row."""
         if self.store.size() < self.config.num_centroids:
             return False
         live = np.flatnonzero(self.store.state.valid.cpu().numpy())
@@ -338,7 +386,62 @@ class HnswPqIndex(VectorIndex):
                                 replace=False)
         self._fit_codebooks(self.store.rows(np.sort(sample)))
         self._encode_slots(live)
+        if self.config.nlist == 0 and self.config.search_mode == "scan_ivf":
+            self.config.nlist = ivf_scan.auto_ivf_geometry(
+                live.size, winners=self.config.ivf_winners)[0]
+        if self.config.nlist > 0:
+            nlist = min(self.config.nlist, max(1, live.size // 8))
+            rows = live
+            if rows.size > max(256 * nlist, 262144):
+                rng = np.random.default_rng(self.seed + 7)
+                rows = np.sort(rng.choice(rows, max(256 * nlist, 262144),
+                                          replace=False))
+            full = self.store.rows(rows)
+            if self.metric == "cosine":
+                full = normalize_rows(full)  # the quantizer on the sphere
+            self._set_coarse(self._coarse_kmeans(full, nlist))
+            if self.config.search_mode != "scan_ivf":
+                # scan_ivf places rows by its own top-8 choices pass
+                self._assign_coarse(live)
         return True
+
+    def _coarse_kmeans(self, full: torch.Tensor, nlist: int) -> torch.Tensor:
+        """The coarse quantizer: random init (generator seed + 1) and
+        Lloyd, the dense :func:`kmeans_fit` while rows * nlist <= 2^27, past
+        that :func:`kmeans_fit_blocked` over the sample trimmed to a whole
+        number of blocks (a few training rows, never corpus rows)."""
+        rows = full.shape[0]
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        iters = self.config.training_iterations
+        if rows * nlist > (1 << 27):
+            chunk = max(128, min(rows, (1 << 26) // nlist) // 128 * 128)
+            return kmeans_fit_blocked(gen, full[:rows // chunk * chunk],
+                                      k=nlist, iters=iters, chunk=chunk)
+        return kmeans_fit(gen, full[None], k=nlist, iters=iters,
+                          plus_plus=False)[0][0]
+
+    def _set_coarse(self, centroids: Optional[torch.Tensor]) -> None:
+        """New coarse centroids: the scan_ivf layout built on the old ones
+        is dropped."""
+        self.coarse_centroids = centroids
+        self._ivf_cache = None
+
+    def _nearest_coarse(self, vecs: torch.Tensor) -> np.ndarray:
+        """Each row's nearest coarse centroid (rows normalized under
+        cosine), on the host."""
+        if self.metric == "cosine":
+            vecs = normalize_rows(vecs)
+        d = pairwise_sq_l2(vecs, self.coarse_centroids)
+        return torch.argmin(d, dim=1).to(torch.int32).cpu().numpy()
+
+    def _assign_coarse(self, slots: np.ndarray) -> None:
+        """coarse_assign of the given slots, in row blocks (no [N, d] f32
+        block of the compressed store exists whole)."""
+        slots = np.asarray(slots, np.int64)
+        step = max(1, COARSE_BLOCK_ELEMS // self.coarse_centroids.shape[0])
+        for s in range(0, slots.size, step):
+            sl = slots[s:s + step]
+            self.coarse_assign[sl] = self._nearest_coarse(self.store.rows(sl))
 
     def build(self) -> None:
         """Train if needed, else re-encode every live row."""
@@ -545,6 +648,99 @@ class HnswPqIndex(VectorIndex):
                                 cnorms)
             return self._fast_cache[2:]
 
+    # ------------------------------------------------------ scan_ivf layout
+    #: rows written since the last layout that a search scores exactly
+    #: beside the pool; past it the next search lays the grid out again
+    _IVF_OVERLAY_MAX = 1024
+
+    def _ivf_layout(self) -> "_IvfLayout":
+        """The balanced cluster-major layout for scan_ivf, current with the
+        store.  Keyed on ``store.version`` (the reference keys it on array
+        identity, which in-place writes never change).  Rows written or
+        removed since the build are handled without moving grid rows: their
+        positions get a +inf offset and their slots join the exact overlay,
+        O(dirty) per search.  Past ``_IVF_OVERLAY_MAX`` overlay rows, or
+        after an untracked rewrite, the layout is built again."""
+        with self._cache_lock:
+            cache = self._ivf_cache
+            if cache is not None and cache[0] == self.store.version:
+                return cache[1]
+            if cache is not None:
+                slots = self._take_dirty("_ivf_dirty")
+                if slots is not None:
+                    overlay = np.union1d(self._ivf_overlay,
+                                         slots.cpu().numpy())
+                    if overlay.size <= self._IVF_OVERLAY_MAX:
+                        lay = cache[1]
+                        pos = lay.slot2pos[slots]
+                        lay.off_cm[pos[pos >= 0].long()] = float("inf")
+                        lay.slot2pos[slots] = -1
+                        self._ivf_overlay = overlay
+                        self._ivf_overlay_dev = None
+                        self._ivf_cache = (self.store.version, lay)
+                        return lay
+            self._ivf_cache = None  # free the old grid first
+            lay = self._build_ivf_layout()
+            self._ivf_cache = (self.store.version, lay)
+            self._ivf_dirty = []
+            self._ivf_overlay = np.empty(0, np.int64)
+            self._ivf_overlay_dev = None
+            return lay
+
+    def _build_ivf_layout(self) -> "_IvfLayout":
+        """Every live row's top-8 clusters (``ivf_scan.coarse_choices``),
+        the balanced placement (``ivf_scan.balanced_layout_dev``) at cap =
+        1.3x the mean fill, rounded to 128 and capped by the pool width, and
+        the cluster-major gather of the int8 rows with their selection
+        offsets and scales: the raw store's from its per-row int8 shadow
+        (:meth:`_scan8_shadow`), the compressed store's from its own packed
+        rows (:meth:`_scan8p_shadow`).  All on the device."""
+        st = self.store.state
+        cents = self.coarse_centroids
+        nlist = cents.shape[0]
+        n_live = self.store.size()
+        winners = max(1, self.config.ivf_winners)
+        cap_max = (IVF_PW // winners) * LANES
+        cap = min(max(-(-int(n_live / nlist * 1.3) // LANES) * LANES, LANES),
+                  cap_max)
+        if nlist * cap < n_live:
+            raise ValueError(
+                f"scan_ivf: nlist={nlist} cannot hold {n_live} rows at the "
+                f"kernel's cluster capacity limit {cap_max} (ivf_winners="
+                f"{winners}); retrain with a larger nlist (0 auto-sizes) or "
+                "fewer ivf_winners")
+        rows = st.capacity
+        chunk = max(LANES, COARSE_BLOCK_ELEMS // nlist)
+        if self.store.raw:
+            base8, off, sc, cvec = self._scan8_shadow()
+            packed_src = base8[:rows].view(torch.int32)
+            choices = ivf_scan.coarse_choices(st.vectors, None, cents,
+                                              self.metric, 8, chunk)
+        else:
+            off, sc, cvec = self._scan8p_shadow()
+            packed_src = st.packed
+            choices = ivf_scan.coarse_choices(st.packed, st.scales, cents,
+                                              self.metric, 8, chunk)
+        pos2slot, slot2pos, spilled = ivf_scan.balanced_layout_dev(
+            choices, st.valid, nlist, cap)
+        del choices
+        cm, off_cm, sc_cm = _gather_ivf_cm(packed_src, off[:rows], sc[:rows],
+                                           pos2slot)
+        return _IvfLayout(cents, cm, off_cm, sc_cm, cvec, pos2slot, slot2pos,
+                          cap, int(spilled))
+
+    def _ivf_overlay_padded(self) -> Optional[torch.Tensor]:
+        """The overlay slots on the device, padded with -1 to a power of
+        two (a bounded set of shapes, as in the reference), or None."""
+        if self._ivf_overlay.size == 0:
+            return None
+        if self._ivf_overlay_dev is None:
+            n = self._ivf_overlay.size
+            arr = np.full(pow2(n), -1, np.int64)
+            arr[:n] = self._ivf_overlay
+            self._ivf_overlay_dev = torch.as_tensor(arr, device=self.device)
+        return self._ivf_overlay_dev
+
     # --------------------------------------------------------------- search
     def _f32_scan_block(self, capacity: int, q_n: int) -> int:
         """Block length of the blocked exact scan: few big blocks, the
@@ -645,6 +841,8 @@ class HnswPqIndex(VectorIndex):
             return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
         elif mode == "adc_fast":
             dists, ext = self._adc_fast(padded, k_pad, resid, rscales)
+        elif mode == "scan_ivf":
+            dists, ext = self._scan_ivf(padded, k_pad, resid, rscales)
         else:
             raise _not_ported(f"search_mode={mode!r}",
                               _MODE_ROADMAP.get(mode, "A10"))
@@ -660,6 +858,39 @@ class HnswPqIndex(VectorIndex):
         if not self.store.raw:
             return "adc_fast"
         return _auto_scan_mode(self.config.use_graph, n_live)
+
+    def ivf_search_shape(self, q_pad: int, k_pad: int) -> tuple:
+        """(nprobe, p_cap, pool) of a scan_ivf search of ``q_pad`` padded
+        queries for ``k_pad`` results: nprobe clamped to [1, nlist]; the
+        prober tile p_cap = ivf_p_cap or pow2(4 Q nprobe / nlist) in [32,
+        512] (~4x the mean probers of a cluster); the candidate pool =
+        ivf_pool or min(max(4 k, 256), nprobe * 128)."""
+        nlist = self.coarse_centroids.shape[0]
+        nprobe = max(1, min(self.config.nprobe, nlist))
+        p_cap = self.config.ivf_p_cap or int(np.clip(
+            pow2(max(1, 4 * q_pad * nprobe // nlist)), 32, 512))
+        pool = self.config.ivf_pool or min(max(4 * k_pad, 256),
+                                           nprobe * IVF_PW)
+        return nprobe, p_cap, pool
+
+    def _scan_ivf(self, padded, k_pad, resid, rscales):
+        """scan_ivf on either store (:meth:`ivf_search_shape`)."""
+        if self.coarse_centroids is None:
+            raise ValueError(
+                "search_mode='scan_ivf' needs a trained coarse quantizer; "
+                "call train()/build() after loading rows (nlist=0 auto-sizes "
+                "the partition count)")
+        st = self.store.state
+        lay = self._ivf_layout()
+        args = (self._ivf_overlay_padded(), k_pad, self.metric,
+                *self.ivf_search_shape(padded.shape[0], k_pad),
+                max(1, self.config.ivf_winners))
+        if self.store.raw:
+            return pallas_ivf_refine_raw(padded, lay, st.vectors, st.valid,
+                                         st.ids, *args)
+        return pallas_ivf_refine_packed(padded, lay, st.packed, st.scales,
+                                        st.norms, st.valid, st.ids, *args,
+                                        resid=resid, rscales=rscales)
 
     def _adc_fast(self, padded, k_pad, resid, rscales):
         """adc_fast on either store: chunked once the [Q, N] f32 block would
@@ -737,12 +968,16 @@ class HnswPqIndex(VectorIndex):
             out["codebooks"] = self.codebooks.cpu().numpy()
         if self.perm is not None:
             out["perm"] = self.perm.cpu().numpy()
+        if self.coarse_centroids is not None:
+            out["coarse_centroids"] = self.coarse_centroids.cpu().numpy()
+            out["coarse_assign"] = self.coarse_assign
         return out
 
     def load_state_arrays(self, arrays: dict) -> None:
         """Load ``state_arrays()`` of either package, raw or compressed
-        store (numpy arrays; the reference's graph and other modes' state
-        are ignored) onto this index's device."""
+        store, with the coarse quantizer when it has one (numpy arrays; the
+        reference's graph and other modes' state are ignored) onto this
+        index's device."""
         dev = self.device
         self.store = VectorStore.from_host(arrays["store"], dev)
         self.codes = torch.tensor(np.asarray(arrays["codes"], np.uint8),
@@ -756,10 +991,21 @@ class HnswPqIndex(VectorIndex):
         self.perm = (torch.tensor(np.asarray(arrays["perm"], np.int64),
                                   device=dev)
                      if "perm" in arrays else None)
+        if "coarse_centroids" in arrays:
+            self._set_coarse(torch.tensor(
+                np.asarray(arrays["coarse_centroids"], np.float32),
+                device=dev))
+            self.coarse_assign = np.asarray(arrays["coarse_assign"],
+                                            np.int32).copy()
+        else:
+            self._set_coarse(None)
+            self.coarse_assign = np.full(self.store.capacity, -1, np.int32)
         # the new store restarts its version: drop every derived cache
         self._scan8_cache = self._scan8p_cache = None
         self._scan8g_cache = self._scan16_cache = None
-        self._packed_cache = self._fast_cache = None
+        self._packed_cache = self._fast_cache = self._ivf_cache = None
+        self._ivf_overlay = np.empty(0, np.int64)
+        self._ivf_overlay_dev = None
         self._codes_version += 1
         self._note_store_rewrite()
 
@@ -1107,3 +1353,72 @@ def exact_scan_search(queries, base, norms, valid, ids, k, metric, block_n):
     ext = torch.where(slots >= 0, ids[slots.clamp(min=0).long()],
                       torch.full_like(slots, -1))
     return d, ext
+
+
+class _IvfLayout(NamedTuple):
+    """The balanced cluster-major layout of scan_ivf (built by
+    ``HnswPqIndex._build_ivf_layout``; ``ops/ivf_scan`` has the design)."""
+
+    centroids: torch.Tensor  # [nlist, d] coarse centroids (probe space)
+    cm_packed: torch.Tensor  # [nlist*cap, d/4] int32 cluster-major int8 rows
+    off_cm: torch.Tensor     # [nlist*cap] f32 selection offset (+inf pads)
+    sc_cm: torch.Tensor      # [nlist*cap] f32 selection scale
+    cvec: torch.Tensor       # [d] query centering vector
+    pos2slot: torch.Tensor   # [nlist*cap] int32 grid position -> store slot
+    slot2pos: torch.Tensor   # [capacity] int32 store slot -> grid position
+    cap: int                 # rows per cluster
+    spilled: int             # rows placed outside their top-8 clusters
+
+
+def _gather_ivf_cm(packed_src, off, sc, pos2slot):
+    """The packed rows and their conditioning in cluster-major order (one
+    row gather; the -1 pads of the grid get off = +inf, sc = 0)."""
+    live = pos2slot >= 0
+    safe = pos2slot.clamp(min=0).long()
+    return (packed_src[safe], torch.where(live, off[safe], float("inf")),
+            torch.where(live, sc[safe], 0.0))
+
+
+def _ivf_candidates_overlay(queries, lay, valid, overlay, metric, nprobe,
+                            p_cap, pool, winners):
+    """The head of both scan_ivf refines: the pruned candidates
+    (``ivf_scan.ivf_pool_candidates``) with dead slots dropped, and the
+    live overlay slots appended to every query's candidates (disjoint from
+    the pool: their grid positions are disabled)."""
+    _, slots = ivf_scan.ivf_pool_candidates(
+        queries, lay.centroids, lay.cm_packed, lay.off_cm, lay.sc_cm,
+        lay.cvec, lay.pos2slot, metric, nprobe, p_cap, pool, winners)
+    slots = torch.where((slots >= 0) & valid[slots.clamp(min=0).long()],
+                        slots, -1)
+    if overlay is not None:
+        ov = torch.where((overlay >= 0) & valid[overlay.clamp(min=0)],
+                         overlay, -1).to(slots.dtype)
+        slots = torch.cat([slots, ov[None, :].expand(slots.shape[0], -1)],
+                          dim=1)
+    return slots
+
+
+def pallas_ivf_refine_packed(queries, lay, packed, scales, norms, valid, ids,
+                             overlay, k, metric, nprobe, p_cap, pool,
+                             winners, resid=None, rscales=None):
+    """scan_ivf on the compressed store: the pruned candidates, then the
+    int8 (+ residual) refine with exact write-time norms: (dists [Q, k],
+    external ids [Q, k], -1 where empty).  The name is the reference's;
+    the pool runs ``ops/kernels.fused_ivf_pool``."""
+    cand = _ivf_candidates_overlay(queries, lay, valid, overlay, metric,
+                                   nprobe, p_cap, pool, winners)
+    d, slots = blocked_rerank_int8(queries, packed, scales, cand, k, metric,
+                                   b_norms=norms, resid=resid,
+                                   rscales=rscales)
+    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                      torch.full_like(slots, -1).to(ids.dtype))
+    return d, ext
+
+
+def pallas_ivf_refine_raw(queries, lay, base, valid, ids, overlay, k, metric,
+                          nprobe, p_cap, pool, winners):
+    """scan_ivf on the raw store: the pruned candidates, then the exact f32
+    refine."""
+    cand = _ivf_candidates_overlay(queries, lay, valid, overlay, metric,
+                                   nprobe, p_cap, pool, winners)
+    return _rerank_to_ids(queries, base, cand, ids, k, metric, 512)

@@ -10,13 +10,18 @@ Each function replaces the TPU kernel of the same name in
     entry points in ``vector_db_torch/csrc/fused_int8_pool.cu``;
   * ``fused_adc_pool`` (:284): the same tile loop with the PQ decode in
     place of the row copy, ``vector_db_torch/csrc/fused_adc_pool.cu``;
-  * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``.
+  * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``;
+  * ``fused_ivf_pool`` (:1153), the cluster-pruned scan of ``scan_ivf``,
+    ``vector_db_torch/csrc/fused_ivf_pool.cu``;
+  * ``fused_scan_topk`` (:988), the f32 bucket-winner scan,
+    ``vector_db_torch/csrc/fused_scan_topk.cu``.
 
 Each source's header says what bounds it on an H100 and how it is laid out.
 The integer and gather kernels are bit-equal to their plain versions; the
 two bf16 pools sum exact products in f32 in the tensor cores' order, and
 :func:`check_float_pool` holds them to their plain versions within the f32
-summation-order bound.
+summation-order bound (:func:`check_scan_topk` does the same for the f32
+scan).
 
 Dispatch is on the tensor's device and nothing else: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel, which is built from the
@@ -132,7 +137,11 @@ class _Library:
             getattr(lib, entry).restype = i32
         lib.vdb_pq_decode_recon_t.argtypes = ([ptr, i64, ptr, ptr]
                                               + [i32] * 4 + [ptr])
-        lib.vdb_pq_decode_recon_t.restype = i32
+        lib.vdb_fused_ivf_pool.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.vdb_fused_scan_topk.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        for entry in ("vdb_pq_decode_recon_t", "vdb_fused_ivf_pool",
+                      "vdb_fused_scan_topk"):
+            getattr(lib, entry).restype = i32
         lib.vdb_cuda_error_string.argtypes = [i32]
         lib.vdb_cuda_error_string.restype = ctypes.c_char_p
         self.lib, self.path = lib, out
@@ -854,3 +863,344 @@ def check_float_pool(kernel, plain, terms, w: int) -> dict:
     err = float(diff[live].max()) if live.any() else 0.0
     return {"slot_agreement": share, "max_abs_err": err,
             "ok": same_empty and share >= 0.999 and ok_agree and ok_dis}
+
+
+# ---------------------------------------------------------- fused_ivf_pool
+#: the width of one (cluster, prober) pool row (the reference's ``IVF_PW``)
+IVF_PW = 128
+#: bytes of [clusters, p_cap, cap] f32 scores one step of the plain version
+#: holds
+IVF_PLAIN_CHUNK_BYTES = 256 << 20
+
+
+def _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist: int,
+                    cap: int, p_cap: int, winners: int) -> int:
+    """Validate a cluster-pruned pool call; returns the words per row."""
+    dw = cm.shape[1]
+    if qsel.dtype != torch.int32 or cm.dtype != torch.int32:
+        raise TypeError("qsel and cm must be int32 words of four int8 dims")
+    if tuple(qsel.shape) != (nlist * p_cap, dw):
+        raise ValueError(f"qsel {tuple(qsel.shape)} is not [nlist * p_cap = "
+                         f"{nlist * p_cap}, {dw}]")
+    if cm.shape[0] != nlist * cap:
+        raise ValueError(f"cm has {cm.shape[0]} rows, not nlist * cap = "
+                         f"{nlist * cap}")
+    if not cm.is_contiguous():
+        raise ValueError("cm must be contiguous")
+    if sel_off.shape != (nlist * cap,) or sel_scale.shape != (nlist * cap,):
+        raise ValueError("sel_off/sel_scale must be [nlist * cap]")
+    if counts.shape != (nlist,):
+        raise ValueError("counts must be [nlist]")
+    if cap % LANES or winners < 1 or winners * (cap // LANES) > IVF_PW:
+        raise ValueError(f"cap={cap} must be a multiple of {LANES} with "
+                         f"winners * cap / {LANES} <= {IVF_PW}")
+    if 4 * dw > MAX_INT8_POOL_DIM:
+        raise ValueError(f"row width {4 * dw} > {MAX_INT8_POOL_DIM}: the "
+                         "int32 cross term would not be exact in f32")
+    return dw
+
+
+def fused_ivf_pool_plain(counts: torch.Tensor, qsel: torch.Tensor,
+                         cm: torch.Tensor, sel_off: torch.Tensor,
+                         sel_scale: torch.Tensor, nlist: int, cap: int,
+                         p_cap: int, winners: int = 4
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_ivf_pool`, on any device: for
+    each probed cluster (a host list of the clusters with counts > 0) the
+    f32 product of the unpacked int8 rows (exact: integer partial sums below
+    2^24), ``off + cross * sc``, and the winners by repeated ``argmin``
+    (first index on ties) with the winner masked to +inf.  Every row of a
+    probed cluster is written, those past its count too."""
+    dw = _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist, cap,
+                         p_cap, winners)
+    dev = cm.device
+    bpb = cap // LANES
+    used = winners * bpb
+    vals = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.float32,
+                       device=dev)
+    pos = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.int32, device=dev)
+    probed = torch.nonzero(counts > 0).flatten()
+    per = max(1, IVF_PLAIN_CHUNK_BYTES // (4 * p_cap * cap))
+    lane_base = torch.arange(bpb, device=dev) * LANES
+    rank = torch.arange(p_cap, device=dev)
+    for s in range(0, probed.numel(), per):
+        cid = probed[s:s + per]
+        b = cid.numel()
+        q = unpack_words_int8(qsel.view(nlist, p_cap, dw)[cid].reshape(
+            -1, dw)).to(torch.float32).view(b, p_cap, 4 * dw)
+        v = unpack_words_int8(cm.view(nlist, cap, dw)[cid].reshape(
+            -1, dw)).to(torch.float32).view(b, cap, 4 * dw)
+        cross = torch.bmm(q, v.transpose(1, 2))                 # [b, P, cap]
+        cur = (sel_off.view(nlist, cap)[cid][:, None, :]
+               + cross * sel_scale.view(nlist, cap)[cid][:, None, :])
+        cur = cur.view(b, p_cap, bpb, LANES)
+        first = (cid * cap)[:, None, None] + lane_base[None, None, :]
+        cols_v, cols_p = [], []
+        for t in range(winners):
+            a = torch.argmin(cur, dim=3, keepdim=True)          # [b, P, bpb, 1]
+            cols_v.append(torch.gather(cur, 3, a)[..., 0])
+            cols_p.append(first + a[..., 0])
+            if t + 1 < winners:
+                cur = cur.scatter(3, a, float("inf"))
+        rows = (cid[:, None] * p_cap + rank[None, :]).reshape(-1)
+        vals[rows, :used] = torch.cat(cols_v, dim=2).reshape(-1, used)
+        pos[rows, :used] = torch.cat(cols_p, dim=2).reshape(-1, used).to(
+            torch.int32)
+        vals[rows, used:] = float("inf")
+        pos[rows, used:] = -1
+    return vals, pos
+
+
+def fused_ivf_pool(counts: torch.Tensor, qsel: torch.Tensor, cm: torch.Tensor,
+                   sel_off: torch.Tensor, sel_scale: torch.Tensor, nlist: int,
+                   cap: int, p_cap: int, winners: int = 4
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cluster-pruned s8 scan + per-bucket winners (``search_mode=
+    "scan_ivf"``).
+
+    counts [nlist] int32: the prober rows of each cluster's tile (0 = the
+    cluster is not probed; the port's device-built stand-in for the
+    reference's sorted worklist); qsel [nlist * p_cap, d/4] int32 words of
+    the prober queries' int8 rows (one global batch scale, pre-folded into
+    ``sel_scale``); cm [nlist * cap, d/4] int32 the cluster-major corpus
+    rows; sel_off / sel_scale [nlist * cap] f32 per grid position (+inf off
+    at pads and disabled rows).  For prober row p of cluster c and grid
+    position c*cap + j the score is ``off + f32(q8 . v8) * sc``; each
+    128-column bucket b keeps its ``winners`` best, winner t in column
+    t * cap/128 + b with position c*cap + b*128 + lane; columns past
+    winners * cap/128 hold (+inf, -1).  Returns (vals [nlist * p_cap, 128]
+    f32, pos [nlist * p_cap, 128] int32).  Rows of unprobed clusters and
+    rows at or past a cluster's count are undefined: callers read only the
+    rows of their (query, probe) pairs.
+
+    A CPU tensor runs :func:`fused_ivf_pool_plain`; a CUDA tensor runs the
+    kernel (``csrc/fused_ivf_pool.cu``, bit-equal to the plain version on
+    the rows that are read) and counts one launch in
+    ``fused_ivf_pool.launches``.
+    """
+    if cm.device.type == "cpu":
+        return fused_ivf_pool_plain(counts, qsel, cm, sel_off, sel_scale,
+                                    nlist, cap, p_cap, winners)
+    if cm.device.type != "cuda":
+        raise ValueError(f"unsupported device {cm.device}")
+    dw = _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist, cap,
+                         p_cap, winners)
+    _check_same_device(cm, counts=counts, qsel=qsel, sel_off=sel_off,
+                       sel_scale=sel_scale)
+    if counts.dtype != torch.int32:
+        raise TypeError("counts must be int32")
+    if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
+        raise TypeError("sel_off/sel_scale must be float32")
+    vals = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.float32,
+                       device=cm.device)
+    pos = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.int32,
+                      device=cm.device)
+    lib = LIBRARY.get()
+    with torch.cuda.device(cm.device):
+        stream = torch.cuda.current_stream(cm.device).cuda_stream
+        rc = lib.vdb_fused_ivf_pool(
+            counts.data_ptr(), qsel.data_ptr(), cm.data_ptr(),
+            sel_off.data_ptr(), sel_scale.data_ptr(), vals.data_ptr(),
+            pos.data_ptr(), nlist, cap, p_cap, dw, winners, stream)
+    _raise_on_error(lib, "vdb_fused_ivf_pool", rc)
+    fused_ivf_pool.launches += 1
+    return vals, pos
+
+
+fused_ivf_pool.launches = 0
+
+
+# --------------------------------------------------------- fused_scan_topk
+def _check_scan_topk_args(q, base, b_norms, winners: int,
+                          block_n: int) -> None:
+    if q.ndim != 2 or base.ndim != 2 or q.shape[1] != base.shape[1]:
+        raise ValueError(f"queries {tuple(q.shape)} and base "
+                         f"{tuple(base.shape)} must be [*, D] alike")
+    if b_norms.shape != (base.shape[0],):
+        raise ValueError("b_norms must be [N] like base's rows")
+    if q.shape[0] == 0 or base.shape[0] == 0:
+        raise ValueError("fused_scan_topk needs queries and rows")
+    if winners not in (1, 2):
+        raise ValueError(f"winners must be 1 or 2, got {winners}")
+    if block_n <= 0 or block_n % LANES:
+        raise ValueError(f"block_n={block_n} must be a multiple of {LANES}")
+
+
+def _scan_buckets(n: int, block_n: int) -> int:
+    """Buckets of the reference's grid: N padded to whole column blocks."""
+    return -(-n // block_n) * block_n // LANES
+
+
+def _scan_topk_finish(q, vals, idxs, k: int):
+    """The reference's tail (``pallas_kernels.py:1061-1075``): an exact
+    top-k over the winners (a stable sort: the lower column wins a tie, as
+    ``lax.top_k`` does), -1 where the winner is +inf, + |q|^2 floored at 0,
+    padded with (+inf, -1) past the number of winners."""
+    k_eff = min(k, vals.shape[1])
+    v, arg = torch.sort(vals, dim=1, stable=True)
+    v, arg = v[:, :k_eff], arg[:, :k_eff]
+    out_i = torch.gather(idxs, 1, arg)
+    out_i = torch.where(torch.isfinite(v), out_i, torch.full_like(out_i, -1))
+    q_norms = torch.sum(q * q, dim=1, keepdim=True)
+    out_d = torch.clamp(v + q_norms, min=0.0)
+    out_d = torch.where(out_i >= 0, out_d, float("inf"))
+    if k_eff < k:
+        out_d = torch.nn.functional.pad(out_d, (0, k - k_eff),
+                                        value=float("inf"))
+        out_i = torch.nn.functional.pad(out_i, (0, k - k_eff), value=-1)
+    return out_d, out_i
+
+
+def fused_scan_topk_plain(q: torch.Tensor, base: torch.Tensor,
+                          b_norms: torch.Tensor, k: int, q_tile: int = 256,
+                          block_n: int = 2048, winners: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_scan_topk`, on any device: the
+    reference's augmented f32 product ``[-2q; 1] . [v; |v|^2]`` per
+    ``q_tile`` queries and whole ``block_n`` column blocks (rows past N are
+    zeros with a +inf norm), the bucket winners by ``argmin`` (first index
+    on ties), then :func:`_scan_topk_finish`."""
+    _check_scan_topk_args(q, base, b_norms, winners, block_n)
+    qn, d = q.shape
+    n = base.shape[0]
+    dev = q.device
+    bpb = block_n // LANES
+    buckets = _scan_buckets(n, block_n)
+    vals = torch.empty((qn, buckets * winners), dtype=torch.float32,
+                       device=dev)
+    idxs = torch.empty((qn, buckets * winners), dtype=torch.int32, device=dev)
+    q_aug = torch.cat([-2.0 * q.to(torch.float32),
+                       torch.ones((qn, 1), device=dev)], dim=1)
+    q_tile = max(1, min(q_tile, qn))
+    per = max(1, PLAIN_CHUNK_BYTES // (4 * q_tile * block_n))  # blocks a step
+    for j0 in range(0, buckets // bpb, per):
+        j1 = min(buckets // bpb, j0 + per)
+        r0, r1 = j0 * block_n, min(n, j1 * block_n)
+        b_aug = torch.cat([base[r0:r1].to(torch.float32),
+                           b_norms[r0:r1, None].to(torch.float32)], dim=1)
+        pad = (j1 - j0) * block_n - (r1 - r0)
+        if pad:
+            tail = torch.zeros((pad, d + 1), device=dev)
+            tail[:, d] = float("inf")
+            b_aug = torch.cat([b_aug, tail])
+        lanes = (r0 + torch.arange((j1 - j0) * bpb, device=dev) * LANES
+                 ).view(1, j1 - j0, bpb)
+        for q0 in range(0, qn, q_tile):
+            s = q_aug[q0:q0 + q_tile] @ b_aug.T
+            d3 = s.view(s.shape[0], j1 - j0, bpb, LANES)
+            cols_v, cols_i = [], []
+            for t in range(winners):
+                a = torch.argmin(d3, dim=3, keepdim=True)
+                cols_v.append(torch.gather(d3, 3, a)[..., 0])
+                cols_i.append(lanes + a[..., 0])
+                if t + 1 < winners:
+                    d3 = d3.scatter(3, a, float("inf"))
+            # block j's columns: winner 0 of its buckets, then winner 1
+            c0, c1 = j0 * bpb * winners, j1 * bpb * winners
+            vals[q0:q0 + q_tile, c0:c1] = torch.stack(cols_v, 2).reshape(
+                s.shape[0], -1)
+            idxs[q0:q0 + q_tile, c0:c1] = torch.stack(cols_i, 2).reshape(
+                s.shape[0], -1).to(torch.int32)
+    return _scan_topk_finish(q.to(torch.float32), vals, idxs, k)
+
+
+def fused_scan_topk(q: torch.Tensor, base: torch.Tensor,
+                    b_norms: torch.Tensor, k: int, q_tile: int = 256,
+                    block_n: int = 2048, winners: int = 1
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused f32 distance + bucketed partial top-k over the whole corpus.
+
+    q [Q, D] f32; base [N, D] f32; b_norms [N] squared norms (+inf for rows
+    that must never be returned).  Each 128-row bucket keeps ``winners``
+    (1 or 2) exact-distance winners; an exact top-k over them plus |q|^2
+    gives (sq-dists [Q, k] f32, indices [Q, k] int32) ascending, +inf / -1
+    past the winners.  ``block_n`` sets the order of the winner columns
+    (the reference's grid, so ties resolve alike) and the plain version's
+    column block; ``q_tile`` only the plain version's query tile.
+
+    A CPU tensor runs :func:`fused_scan_topk_plain`; a CUDA tensor runs the
+    kernel (``csrc/fused_scan_topk.cu``, f32 FFMA; within the
+    summation-order bound of :func:`check_scan_topk`) and counts one launch
+    in ``fused_scan_topk.launches``.
+    """
+    if q.device.type == "cpu":
+        return fused_scan_topk_plain(q, base, b_norms, k, q_tile, block_n,
+                                     winners)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_scan_topk_args(q, base, b_norms, winners, block_n)
+    _check_same_device(q, base=base, b_norms=b_norms)
+    if base.dtype != torch.float32 or b_norms.dtype != torch.float32:
+        raise TypeError("base and b_norms must be float32")
+    qn, d = q.shape
+    n = base.shape[0]
+    buckets = _scan_buckets(n, block_n)
+    qm2 = (-2.0 * q.to(torch.float32)).contiguous()  # exact scaling
+    vals = torch.empty((qn, buckets * winners), dtype=torch.float32,
+                       device=q.device)
+    idxs = torch.empty((qn, buckets * winners), dtype=torch.int32,
+                       device=q.device)
+    lib = LIBRARY.get()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vdb_fused_scan_topk(
+            qm2.data_ptr(), base.data_ptr(), b_norms.data_ptr(),
+            vals.data_ptr(), idxs.data_ptr(), qn, n, d, winners,
+            block_n // LANES, buckets, stream)
+    _raise_on_error(lib, "vdb_fused_scan_topk", rc)
+    fused_scan_topk.launches += 1
+    return _scan_topk_finish(q.to(torch.float32), vals, idxs, k)
+
+
+fused_scan_topk.launches = 0
+
+
+def _scan_topk_terms(q, base, b_norms, ids):
+    """For [Q, k] ids of :func:`fused_scan_topk`: the distance in float64
+    and the f32 bound of any summation order of it, 2 (D + 2) 2^-24 times
+    the sum of the magnitudes of its terms (2|q|.|v|, |v|^2 and |q|^2, the
+    last summed in f32 too)."""
+    s = ids.clamp(min=0).long()
+    v = base[s].double()                                   # [Q, k, D]
+    qd = q.double()[:, None, :]
+    vn = b_norms[s].double()
+    qn = (qd * qd).sum(-1)
+    ref = torch.clamp(vn - 2.0 * (v * qd).sum(-1) + qn, min=0.0)
+    terms = 2.0 * (v.abs() * qd.abs()).sum(-1) + vn.abs() + qn
+    return ref, 2.0 * (q.shape[1] + 2) * 2.0 ** -24 * terms
+
+
+def check_scan_topk(kernel, plain, q, base, b_norms) -> dict:
+    """Hold :func:`fused_scan_topk` (dists, ids) to its plain version's
+    where bit-equality cannot hold (the f32 sums run in another order):
+
+      * the empty entries (+inf, -1) are the same;
+      * the ids agree in >= 99.9% of the live entries;
+      * each side's distance is within the bound of
+        :func:`_scan_topk_terms` (plus one ulp of the final add) of the
+        float64 distance of its own id;
+      * entry by entry, the two distances differ by at most both entries'
+        bounds (a differing id is a near-tie the two orders broke apart).
+
+    Returns the agreement share, the largest |difference| and ``ok``."""
+    dk, ik = kernel
+    dp, ip = plain
+    empty_k, empty_p = ik < 0, ip < 0
+    same_empty = bool(torch.equal(empty_k, empty_p)
+                      and torch.isinf(dk[empty_k]).all()
+                      and torch.isinf(dp[empty_p]).all())
+    live = ~empty_p & ~empty_k
+    agree = (ik == ip) & live
+    share = float(agree.sum()) / max(1, int(live.sum()))
+    ref_k, bk = _scan_topk_terms(q, base, b_norms, ik)
+    ref_p, bp = _scan_topk_terms(q, base, b_norms, ip)
+    dkd, dpd = dk.double(), dp.double()
+    ulp = 2.0 ** -23
+    ok_k = bool(((dkd - ref_k).abs() <= bk + ulp * dkd.abs())[live].all())
+    ok_p = bool(((dpd - ref_p).abs() <= bp + ulp * dpd.abs())[live].all())
+    ok_pair = bool(((dkd - dpd).abs()
+                    <= bk + bp + ulp * (dkd.abs() + dpd.abs()))[live].all())
+    err = float((dk - dp)[live].abs().max()) if live.any() else 0.0
+    return {"id_agreement": share, "max_abs_err": err,
+            "ok": same_empty and share >= 0.999 and ok_k and ok_p
+            and ok_pair}

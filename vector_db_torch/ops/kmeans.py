@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from .distance import pairwise_sq_l2
+
 
 def _batched_sq_l2(data: torch.Tensor, centroids: torch.Tensor,
                    data_norms: torch.Tensor) -> torch.Tensor:
@@ -124,3 +126,34 @@ def subspace_kmeans_fit(gen: torch.Generator, data: torch.Tensor,
     codebooks, _ = kmeans_fit(gen, sub.contiguous(), k, iters, n_valid,
                               plus_plus)
     return codebooks
+
+
+def kmeans_fit_blocked(gen: torch.Generator, data: torch.Tensor, k: int,
+                       iters: int = 10, chunk: int = 8192) -> torch.Tensor:
+    """Row-blocked Lloyd for large n * k (the ``scan_ivf`` coarse
+    quantizer, whose nlist reaches thousands): each step streams the rows in
+    ``chunk``-row blocks and accumulates (sums, counts), so the largest
+    transient is one [chunk, k] score block, never the [n, k] one-hot of
+    :func:`kmeans_fit`.  Random init from ``gen``, drawn as
+    :func:`kmeans_fit` draws it for one problem (the same generator gives
+    the same init).  data [n, d] with n % chunk == 0 (callers trim their
+    sample, never pad it).  Returns the centroids [k, d] only."""
+    n, d = data.shape
+    if n % chunk:
+        raise ValueError(f"rows ({n}) must be a multiple of chunk ({chunk})")
+    idx = torch.randint(0, max(n, 1), (1, k), generator=gen,
+                        device=gen.device).to(data.device)[0]
+    centroids = data[idx]
+    for _ in range(iters):
+        sums = torch.zeros((k, d), dtype=data.dtype, device=data.device)
+        counts = torch.zeros((k,), dtype=data.dtype, device=data.device)
+        for s in range(0, n, chunk):
+            blk = data[s:s + chunk]
+            nearest = torch.argmin(pairwise_sq_l2(blk, centroids), dim=1)
+            # a one-hot product, as in the reference: deterministic sums
+            onehot = torch.nn.functional.one_hot(nearest, k).to(data.dtype)
+            sums += onehot.T @ blk
+            counts += onehot.sum(0)
+        centroids = torch.where(counts[:, None] > 0,
+                                sums / counts.clamp(min=1)[:, None], centroids)
+    return centroids
