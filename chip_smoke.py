@@ -18,10 +18,17 @@ name and power limit):
                   (and an N that w does not divide must raise);
                d. fused_int8g_pool at Q in {1, 13, 1024}, w in {64, 2048},
                   N=1,001,472 with dead slots (bit-equal);
-               e. fused_raw_pool at the shapes of d (within the bound);
+               e. fused_raw_pool at the shapes of d, and at the ragged
+                  shapes Q in {1, 13, 129, 1024} x d in {32, 96, 512, 592}
+                  with N = 5003 (not a multiple of the pool width); timed
+                  at Q=1024 and Q=1, and at forced pass-split counts beside
+                  ops/kernels.pool_splits' plan (within the bound);
                f. fused_adc_pool at S=64, sd=8, K in {256, 200}, N in
-                  {4000, 524,288}, Q in {1, 1024}, w = N / 32 (within the
-                  bound);
+                  {4000, 524,288}, Q in {1, 1024}, w = N / 32, and at the
+                  ragged shapes Q in {1, 13, 129, 1024} x (S, sd) giving d
+                  in {32, 96, 512, 592} with codebook entries of 2, 4, 8,
+                  16 and 32 bytes, K=200, N = 5003; timed at Q=1024 and
+                  Q=1, and at forced pass-split counts (within the bound);
                g. fused_ivf_pool at the 1M scan_ivf shape (nlist=513,
                   cap=2688, p_cap=512, d=512, winners 4, 2, 1) with dead
                   positions, unprobed clusters and part-filled prober tiles,
@@ -42,7 +49,7 @@ name and power limit):
   5. 1M      — the same config at 512-d x 1,000,000 rows by bulk_load of the
                device tensor, auto -> scan_pallas_int8 (fused_int8_pool must
                launch), then on the same database scan_pallas
-               (fused_raw_pool), scan_pallas_int8 with
+               (fused_raw_pool; its index time and a profiled search), scan_pallas_int8 with
                int8_epilogue="global" (fused_int8g_pool) and scan_bf16 (no
                pool kernel), each recall@10 >= 0.95, and CRUD in the two new
                kernel modes;
@@ -53,8 +60,8 @@ name and power limit):
                auto -> adc_fast (pq_decode_recon_t must launch), recall@10
                >= 0.94; scan_pallas_int8 (fused_packed_pool must launch),
                recall@10 >= 0.96; adc_fast with adc_pool="fused"
-               (fused_adc_pool must launch), recall@10 >= 0.94; CRUD at 10M
-               live;
+               (fused_adc_pool must launch; its index time and a profiled
+               search), recall@10 >= 0.94; CRUD at 10M live;
   7. 100k memory-bound — the raw store with search_mode="adc_fast",
                adc_pool="approx", adc_select_r=128, refine_store="bf16" on
                512-d x 100,000 spectral rows by bulk_load
@@ -108,6 +115,11 @@ ADC_SHAPES_K = (256, 200)
 ADC_SHAPES_N = (4000, 524_288)
 ADC_SHAPES_Q = (1, 1024)
 ADC_BUCKET = 32
+RAGGED_Q = (1, 13, 129, 1024)
+RAGGED_N = 5003
+RAGGED_RAW_D = (32, 96, 512, 592)
+#: (S, sd): d = 32, 96, 512, 592 with entries of 4, 2, 8, 16 and 32 bytes
+RAGGED_ADC = ((16, 2), (96, 1), (128, 4), (74, 8), (37, 16))
 N_10M_CHUNK = 131_072
 N_10M_CHUNKS = 76
 CFG_10M = dict(raw_store=False, num_subspaces=64, training_samples=20000,
@@ -135,7 +147,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                           "vector_db_tpu/ops/pallas_kernels.py:900"),
     "fused_int8g_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
                          "vector_db_tpu/ops/pallas_kernels.py:726"),
-    "fused_raw_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
+    "fused_raw_pool": ("vector_db_torch/csrc/fused_raw_pool.cu",
                        "vector_db_tpu/ops/pallas_kernels.py:460"),
     "fused_adc_pool": ("vector_db_torch/csrc/fused_adc_pool.cu",
                        "vector_db_tpu/ops/pallas_kernels.py:284"),
@@ -229,7 +241,7 @@ def phase_build():
     lib = build_kernels()
     say(f"phase 2 build: {lib.path}")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Performance" in line:
             say(f"phase 2 build: ptxas {line.strip()}")
     timing("phase 2 build seconds (nvcc + load)", time.perf_counter() - t0, "s")
 
@@ -300,12 +312,13 @@ def bound(label, nbytes, ops, kind):
     return max(t_bytes, t_ops), by
 
 
-def kernel_entry(name, err, ms, plain_ms, bound_ms_by, library_ms=None):
+def kernel_entry(name, err, ms, plain_ms, bound_ms_by, library_ms=None,
+                 **extra):
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
-            "bound_by": bound_ms_by[1], "library_ms": library_ms}
+            "bound_by": bound_ms_by[1], "library_ms": library_ms, **extra}
 
 
 def product_only(label, fn):
@@ -529,6 +542,11 @@ def phase_raw():
         "phase 3e fused_raw_pool", f"Q={NQ} N={n} d={DIM} w=2048",
         lambda: kn.fused_raw_pool(qc, base16, off, sc, 2048),
         lambda: kn.fused_raw_pool_plain(qc, base16, off, sc, 2048))
+    q1_ms = cuda_ms(lambda: kn.fused_raw_pool(qc[:1], base16, off, sc, 2048))
+    timing(f"phase 3e fused_raw_pool kernel Q=1 N={n} d={DIM} w=2048 "
+           "(best of 3)", q1_ms, "ms")
+    split_sweep("phase 3e fused_raw_pool", (1024, 129, 1), (1, 2, 4, 8, 16),
+                lambda qn: kn.fused_raw_pool(qc[:qn], base16, off, sc, 2048))
     b = bound("phase 3e fused_raw_pool", 2 * n * DIM + 8 * n + 4 * NQ * DIM
               + 8 * NQ * 2048, 2 * NQ * n * DIM, "bf16")
     q16 = qc.to(torch.bfloat16)
@@ -536,7 +554,55 @@ def phase_raw():
                  lambda: torch.mm(q16, base16.T))
     del base16, off, sc, q16
     torch.cuda.empty_cache()
-    return kernel_entry("fused_raw_pool", worst, ms, plain_ms, b)
+    worst = max(worst, ragged_raw())
+    return kernel_entry("fused_raw_pool", worst, ms, plain_ms, b,
+                        q1_ms=q1_ms)
+
+
+def split_sweep(label, qns, splits, run):
+    """Kernel time at forced pass-split counts beside the plan's own
+    (ops/kernels.pool_splits), printed: the measurement behind the bf16
+    pools' split plan."""
+    from vector_db_torch.ops import kernels as kn
+
+    plan = kn.pool_splits
+    try:
+        for qn in qns:
+            times = {"plan": cuda_ms(lambda: run(qn))}
+            for sp in splits:
+                kn.pool_splits = lambda *a, sp=sp: sp
+                times[sp] = cuda_ms(lambda: run(qn))
+            kn.pool_splits = plan
+            timing(f"{label} Q={qn} ms by pass splits (best of 3)",
+                   json.dumps(times), "")
+    finally:
+        kn.pool_splits = plan
+
+
+def ragged_raw():
+    """3e: fused_raw_pool at the ragged shapes (Q past a 128-query tile, d
+    not a multiple of the 64-dim k-chunk, N not a multiple of the pool
+    width, the widest rows the tiles take); returns the largest error."""
+    from vector_db_torch.index.hnsw_pq import _build_scan16_shadow
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    worst = 0.0
+    for d in RAGGED_RAW_D:
+        rows = torch.randn(RAGGED_N, d, device=DEVICE, generator=g) + 0.5
+        valid = torch.rand(RAGGED_N, device=DEVICE, generator=g) > 0.05
+        base16, off, sc, cvec, _ = _build_scan16_shadow(
+            rows, (rows * rows).sum(1), valid, "l2", 1)
+        queries = torch.randn(max(RAGGED_Q), d, device=DEVICE, generator=g)
+        for qn in RAGGED_Q:
+            q = queries[:qn] - cvec[None, :]
+            worst = max(worst, hold_float_pool(
+                f"phase 3e raw ragged: Q={qn} N={RAGGED_N} d={d} w=300",
+                kn.fused_raw_pool(q, base16, off, sc, 300),
+                kn.fused_raw_pool_plain(q, base16, off, sc, 300),
+                lambda s, q=q: kn.raw_pool_terms(q, base16, off, sc, s),
+                kn.pool_width(300)))
+    return worst
 
 
 def phase_adc():
@@ -577,13 +643,62 @@ def phase_adc():
         f"Q={NQ} S={s} sd={sd} K=256 N={ADC_SHAPES_N[-1]} w={w}",
         lambda: kn.fused_adc_pool(queries, codes, cbt, norms, w),
         lambda: kn.fused_adc_pool_plain(queries, codes, cbt, norms, w))
+    q1_ms = cuda_ms(lambda: kn.fused_adc_pool(queries[:1], codes, cbt, norms,
+                                              w))
     n = ADC_SHAPES_N[-1]
+    timing(f"phase 3f fused_adc_pool kernel Q=1 S={s} sd={sd} K=256 N={n} "
+           f"w={w} (best of 3)", q1_ms, "ms")
+    split_sweep("phase 3f fused_adc_pool", (1024, 1), (1, 2, 4),
+                lambda qn: kn.fused_adc_pool(queries[:qn], codes, cbt, norms,
+                                             w))
     b = bound("phase 3f fused_adc_pool", s * n + s * sd * 256 * 4 + 4 * n
               + 4 * NQ * s * sd + 8 * NQ * kn.pool_width(w),
               2 * NQ * n * s * sd, "bf16")
-    del cases, codes, cbt, norms
+    q16 = queries.to(torch.bfloat16)
+    recon = kn.pq_decode_recon_t_plain(codes, cbt)
+    product_only(f"phase 3f bf16 torch.mm [1024, {s * sd}] x [{s * sd}, {n}]",
+                 lambda: torch.mm(q16, recon))
+    del cases, codes, cbt, norms, q16, recon
     torch.cuda.empty_cache()
-    return kernel_entry("fused_adc_pool", worst, ms, plain_ms, b)
+    worst = max(worst, ragged_adc())
+    return kernel_entry("fused_adc_pool", worst, ms, plain_ms, b,
+                        q1_ms=q1_ms)
+
+
+def ragged_adc():
+    """3f: fused_adc_pool at the ragged shapes: each (S, sd) of RAGGED_ADC
+    (entries that are not one 16-byte vector, d not a multiple of 64, the
+    widest rows), K=200, N not a multiple of the pool width, on a column
+    slice that starts at an odd column (byte code loads) and on an aligned
+    one; returns the largest error."""
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    worst = 0.0
+    k, n, w = 200, RAGGED_N, 300
+    for s, sd in RAGGED_ADC:
+        cbt = torch.randn(s * sd, k, device=DEVICE, generator=g) * 0.3
+        wide = torch.randint(0, k, (s, 2 * n + 64), device=DEVICE,
+                             generator=g, dtype=torch.uint8)
+        queries = torch.randn(max(RAGGED_Q), s * sd, device=DEVICE,
+                              generator=g)
+        for start in (1, 64):
+            codes = wide[:, start:start + n]
+            norms = kn.pq_decode_recon_t_plain(codes, cbt).to(
+                torch.float32).square().sum(0)
+            norms[torch.rand(n, device=DEVICE, generator=g) < 0.05] = \
+                float("inf")
+            for qn in RAGGED_Q:
+                q = queries[:qn]
+                worst = max(worst, hold_float_pool(
+                    f"phase 3f adc ragged: Q={qn} S={s} sd={sd} K={k} N={n} "
+                    f"w={w} start={start}",
+                    kn.fused_adc_pool(q, codes, cbt, norms, w),
+                    kn.fused_adc_pool_plain(q, codes, cbt, norms, w),
+                    lambda sl, q=q, codes=codes, norms=norms:
+                        kn.adc_pool_terms(q, codes, cbt, norms, sl),
+                    kn.pool_width(w)))
+    return worst
 
 
 def spectrum():
@@ -758,6 +873,8 @@ def phase_1m():
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         _, rec, _ = serve(db, label, queries, gt)
+        if mode == "scan_pallas":
+            index_time(label, db.index, queries)
         add(read_launches(label, must_launch=must, must_not=must_not))
         timing(f"phase {label} peak device memory",
                torch.cuda.max_memory_allocated() / 2**30, "GiB")
@@ -845,6 +962,8 @@ def phase_10m():
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         resolved, rec, ids = serve(db, label, queries, gt)
+        if pool == "fused":
+            index_time(label, db.index, queries)
         add(read_launches(label, must_launch=(kernel,),
                           must_not=(other, "fused_int8_pool")))
         timing(f"phase {label} peak device memory",
@@ -1032,6 +1151,15 @@ def phase_scan_topk():
     entry = kernel_entry("fused_scan_topk", worst, ms, plain_ms, b)
     entry["no_index_caller"] = True
     return entry
+
+
+def index_time(label, index, queries):
+    """Index-level time of one Q=1024 search (best of 3, host clock around
+    synchronised work) and one profiled search's device split."""
+    timing(f"phase {label} index.search_batch time (Q={NQ}, k={K}, best of 3)",
+           host_s(lambda: index.search_batch(queries, K)) * 1e3, "ms")
+    profile_search(f"{label} index.search_batch Q={NQ}",
+                   lambda: index.search_batch(queries, K))
 
 
 def profile_search(label, fn):

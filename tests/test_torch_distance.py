@@ -2,7 +2,12 @@
 reference's on the same seeded, tie-free inputs.
 
 Tolerance: ids equal; distances within rtol 1e-5 (the f32 sums run in
-another order).
+another order).  That bound holds for f32 sums only, so every test here
+runs both packages' matmuls at full f32 precision (JAX's
+``default_matmul_precision("highest")``, torch's "highest"): on a CPU with
+bf16 matrix units (AMX) a library left at its default precision may take
+a reduced-precision dot, whose error on these 32-dim rows (between 4e-6
+for three bf16 passes and 6e-4 for TF32) exceeds the bound.
 """
 
 import numpy as np
@@ -15,6 +20,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from vector_db_tpu.ops import distance as ref  # noqa: E402
 from vector_db_torch.ops import distance as td  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _full_f32_matmuls():
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    with jax.default_matmul_precision("highest"):
+        yield
+    torch.set_float32_matmul_precision(before)
 
 
 def _data(seed, n=2000, d=32, q=16):

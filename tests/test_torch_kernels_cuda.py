@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (``ops/kernels.py``): B2 ``fused_int8_pool``, B3 ``pq_decode_recon_t``, B4
 ``fused_packed_pool`` and B7 ``fused_int8g_pool`` bit-equal; B6
-``fused_raw_pool`` and B5 ``fused_adc_pool`` within the f32 summation-order
+``fused_raw_pool`` and B5 ``fused_adc_pool`` (the wgmma tile loop, at the
+main path's shapes and the ragged ones) within the f32 summation-order
 bound of ``ops/kernels.check_float_pool``; B8 ``fused_ivf_pool`` bit-equal on
 the rows the merge reads, B1 ``fused_scan_topk`` within the bound of
 ``ops/kernels.check_scan_topk``.  Every test is marked ``cuda``
@@ -170,3 +171,76 @@ def test_scan_topk_within_bound_of_plain_on_card():
         assert tk.fused_scan_topk.launches == before + 1
         res = tk.check_scan_topk(got, want, q, base, bn)
         assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96, 512, 592, 640])
+def test_raw_pool_ragged_shapes_within_bound_on_card(d):
+    """B6 on the wgmma tile loop: queries past one 128-row tile, d not a
+    multiple of the 64-dim k-chunk (592, and 640, the widest: a three-stage
+    ring), N not a multiple of the pool width, and a width the shadow did
+    not pad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    n = 5003
+    base = torch.randn(n, d, device="cuda", generator=g) + 0.5
+    valid = torch.rand(n, device="cuda", generator=g) > 0.05
+    b16, off, sc, cvec, _ = hp._build_scan16_shadow(
+        base, (base * base).sum(1), valid, "l2", 1)
+    for qn in (1, 13, 129, 1024):
+        q = torch.randn(qn, d, device="cuda", generator=g) - cvec
+        before = tk.fused_raw_pool.launches
+        got = tk.fused_raw_pool(q, b16, off, sc, 300)
+        want = tk.fused_raw_pool_plain(q, b16, off, sc, 300)
+        torch.cuda.synchronize()
+        assert tk.fused_raw_pool.launches == before + 1
+        res = tk.check_float_pool(
+            got, want, lambda s, q=q: tk.raw_pool_terms(q, b16, off, sc, s),
+            tk.pool_width(300))
+        assert res["ok"], (qn, res)
+    if d != 96:
+        return
+    # rows of 36 dims: not whole 16-byte vectors, so the wrapper pads a copy
+    b36 = b16[:, :36].contiguous()
+    q = torch.randn(13, 36, device="cuda", generator=g)
+    got = tk.fused_raw_pool(q, b36, off, sc, 300)
+    want = tk.fused_raw_pool_plain(q, b36, off, sc, 300)
+    res = tk.check_float_pool(
+        got, want, lambda s: tk.raw_pool_terms(q, b36, off, sc, s),
+        tk.pool_width(300))
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sd", [(16, 2), (96, 1), (128, 4), (74, 8),
+                                  (37, 16)])
+def test_adc_pool_ragged_shapes_within_bound_on_card(s, sd):
+    """B5 on the wgmma tile loop: codebook entries of 4, 2, 8, 16 and 32
+    bytes (the decode's unit templates), d in {32, 96, 512, 592}, K=200,
+    N not a multiple of the pool width, code slices that start at an odd
+    column (byte code loads) and at an aligned one, Q past one tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    k, n, w = 200, 5003, 300
+    cbt = torch.randn(s * sd, k, device="cuda", generator=g) * 0.3
+    wide = torch.randint(0, k, (s, n + 128), device="cuda", generator=g,
+                         dtype=torch.uint8)
+    for start in (1, 64):
+        codes = wide[:, start:start + n]
+        mn = tk.pq_decode_recon_t_plain(codes, cbt).float().square().sum(0)
+        mn[::13] = float("inf")
+        for qn in (1, 13, 129, 1024):
+            q = torch.randn(qn, s * sd, device="cuda", generator=g)
+            before = tk.fused_adc_pool.launches
+            got = tk.fused_adc_pool(q, codes, cbt, mn, w)
+            want = tk.fused_adc_pool_plain(q, codes, cbt, mn, w)
+            torch.cuda.synchronize()
+            assert tk.fused_adc_pool.launches == before + 1
+            res = tk.check_float_pool(
+                got, want,
+                lambda sl, q=q, codes=codes, mn=mn: tk.adc_pool_terms(
+                    q, codes, cbt, mn, sl),
+                tk.pool_width(w))
+            assert res["ok"], (start, qn, res)

@@ -1,204 +1,293 @@
-// Fused PQ decode + bf16 scan + strided-bucket min pool, for NVIDIA Hopper.
+// Fused PQ decode + bf16 scan + strided-bucket min pool, for NVIDIA Hopper:
+// the producer of the bf16 tile loop (pool_wgmma.cuh) that decodes codes
+// into the ring.
 //
 // Replaces the TPU kernel `fused_adc_pool` of
 // vector_db_tpu/ops/pallas_kernels.py (:284, pallas_call at :338; body
 // `_make_adc_pool_kernel` :229-278).
 //
-// What it computes, for bf16 queries q16 [Q, d] in PQ space, codes_t [S, N]
-// uint8 (row s at codes + s * ld), the codebooks as cbk [S, K, sd] bf16
-// (cbk[s, c, j] = bf16_rn(codebooks[s, c, j]), rounded to nearest even by
-// the wrapper, so a decoded value is bit for bit the decode kernel's,
-// pq_decode.cu) and masked_norms [N] f32 (+inf at dead slots):
+// What it computes, for bf16 queries q16 [Q, d8] in PQ space (d = S * sd,
+// d8 = d rounded up to 8, the extra columns zero), codes_t [S, N] uint8 (row
+// s at codes + s * ld), the codebooks as cbk [S, K, sd] bf16 (cbk[s, c, j] =
+// bf16_rn(codebooks[s, c, j]), rounded to nearest even by the wrapper, so a
+// decoded value is bit for bit the decode kernel's, pq_decode.cu) and
+// masked_norms [N] f32 (+inf at dead slots):
 //
 //   recon(n)   = the concatenation over s of cbk[s, codes_t[s, n], :]  [d]
 //   score(q,n) = masked_norms[n] - 2 * (q16 . recon(n))   (f32 sums)
 //   vals[q, c] = min over passes j of score(q, c + j*W), slots[q, c] its
 //                slot; +inf / -1 where empty.
 //
-// It is the bf16 pool of fused_int8_pool.cu (the tile loop of
-// pool_tile.cuh) with a decode in place of the row copy: each pass decodes
-// its 128 columns straight into the shared bf16 tile [128][d], so neither
-// the [d, N] reconstruction nor the [Q, N] scores reach device memory.  One
-// (column, subspace) is one load of sd bf16 from the [S, K, sd] table (16
-// bytes at sd = 8; the table is 256 KB at d = 512, K = 256 and stays in L2),
-// and the 128 codes of a subspace are one contiguous 128-byte read of the
-// uint8 code row (a column slice of the [S, cap] matrix is read in place).
-// Any K <= 256 indexes the table directly; a ragged N is masked in the
-// kernel (slots past N decode to zeros and score +inf), so nothing is padded
-// or copied.  The epilogue rounds each operation (__fmul_rn, __fsub_rn).
+// It is B6's tile loop with a decode in place of the TMA row copy: each
+// ring stage, [128 columns x 64 dims], is decoded straight into the
+// swizzled shared tile, so neither the [d, N] reconstruction nor the
+// [Q, N] scores reach device memory.  One (column, subspace) is one
+// cp.async of its codebook entry from the [S, K, sd] table (16 bytes at
+// sd = 8; the table is 256 KB at d = 512, K = 256 and stays in L2); thread
+// (warp u, lane c) of the producer warpgroup decodes columns 4c .. 4c+3 of
+// the stage's units u, u+4, ... with one 4-byte load of their four codes
+// (byte loads where the code rows are not 4-byte aligned or at N), and,
+// for entries of 16 or 8 bytes, loads the next stage's codes while the
+// copies of this one fly.  A stage is
+// handed to the consumers after cp.async.wait_group and
+// fence.proxy.async.shared::cta (the copies are generic-proxy writes that
+// wgmma, an async-proxy reader, would not otherwise see).  Dims past d and
+// slots past N are written as zeros (and those slots score +inf through
+// their norms).  Any K <= 256 indexes the table directly; entries of 16, 8, 4
+// or 2 bytes (the largest unit that divides the entry and the table's
+// alignment) are template instances.  The epilogue rounds each operation
+// (__fmul_rn, __fsub_rn).
 //
 // What bounds it on an H100: at the main path's shape (Q = 1024, a 524,288-
-// column chunk, d = 512) the 5.5e11 bf16 multiply-adds.  The decode is
-// redone for each 64-query tile (16 times at Q = 1024, as the reference
-// notes at :303-305); each decode reads as many bytes from L2 as the bf16
-// row copy of fused_raw_pool reads from device memory.  The f32 sums run in
-// the tensor cores' order, so the scores agree with the plain version within
-// the f32 summation-order bound 2 d 2^-24 (|q|.|recon|) * 2.
+// column chunk, d = 512) the 5.5e11 bf16 multiply-adds.  The decode is redone
+// for each 128-query tile (8 times at Q = 1024, as the reference notes at
+// :303-305), 128 KB of L2 gathers per block and pass.  The f32 sums run in the
+// tensor cores' order, so the scores agree with the plain version within the
+// f32 summation-order bound 2 d 2^-24 (|q|.|recon|) * 2.
 
-#include "pool_tile.cuh"
+#include "pool_wgmma.cuh"
 
 namespace {
 
-struct AdcBf16 {
-  using Acc = float;
-  using Val = float;
-  using Col = float;
+// Copy kUnit bytes global -> shared (cp.async; 2 bytes by a plain load).
+template <int kUnit>
+__device__ __forceinline__ void copy_unit(uint32_t dst, const void* src) {
+  if constexpr (kUnit >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(kUnit)
+                 : "memory");
+  } else {
+    const unsigned short v = __ldg(static_cast<const unsigned short*>(src));
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  }
+}
+
+template <int kUnit>
+__device__ __forceinline__ void zero_unit(uint32_t dst) {
+  if constexpr (kUnit == 16) {
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst),
+                 "r"(0)
+                 : "memory");
+  } else if constexpr (kUnit == 8) {
+    asm volatile("st.shared.v2.u32 [%0], {%1, %1};\n" ::"r"(dst), "r"(0)
+                 : "memory");
+  } else if constexpr (kUnit == 4) {
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(0) : "memory");
+  } else {
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst),
+                 "h"((unsigned short)0)
+                 : "memory");
+  }
+}
+
+template <int kUnit>
+struct AdcDecode {
+  static constexpr int kFullArrivals = 4;     // one per producer warp
+  static constexpr int kPer = 32 / kUnit;     // units a thread decodes a stage
+  static constexpr bool kPrefetch = kUnit >= 8;  // codes of the next stage
   const uint8_t* codes;
   long long ld;
   const __nv_bfloat16* cbk;
   const float* norms;
-  int S, sd, K;
-  int unit;  // bytes per load of a codebook entry: 16, 8, 4 or 2
+  int d, sd, K;
+  bool codes4;  // code rows 4-byte aligned: one load for four columns
 
-  __device__ static float init() { return INFINITY; }
-  __device__ float row_value(int, int) const { return 0.f; }
-
-  // zero the pad words past the d dims of every tile row, once: the decode
-  // writes only the first d bf16 of a row
-  __device__ void prepare(int32_t* s_b, int dw, int dw8, int stride) const {
-    const int pad = dw8 - dw;
-    for (int i = threadIdx.x; i < pool::kTN * pad; i += pool::kThreads)
-      s_b[(i / pad) * stride + dw + i % pad] = 0;
-  }
-
-  __device__ void stage(int32_t* s_b, long long row0, int N, int, int,
-                        int stride, bool) const {
-    const int entry = sd * 2;  // bytes of one codebook entry
-    if (unit == 16) {
-      stage16(s_b, row0, N, stride, entry / 16);
-      return;
-    }
-    for (int i = threadIdx.x; i < pool::kTN * S; i += pool::kThreads) {
-      const int r = i % pool::kTN;
-      const int s = i / pool::kTN;
-      const long long slot = row0 + r;
-      char* dst = reinterpret_cast<char*>(s_b + r * stride) + s * entry;
-      const char* src = nullptr;
-      if (slot < N) {
-        const int code = __ldg(codes + (size_t)s * ld + slot);
-        src = reinterpret_cast<const char*>(cbk + ((size_t)s * K + code) * sd);
-      }
-      switch (unit) {
-        case 16:
-          for (int b = 0; b < entry; b += 16)
-            *reinterpret_cast<int4*>(dst + b) =
-                src ? __ldg(reinterpret_cast<const int4*>(src + b))
-                    : make_int4(0, 0, 0, 0);
-          break;
-        case 8:
-          for (int b = 0; b < entry; b += 8)
-            *reinterpret_cast<int2*>(dst + b) =
-                src ? __ldg(reinterpret_cast<const int2*>(src + b))
-                    : make_int2(0, 0);
-          break;
-        case 4:
-          for (int b = 0; b < entry; b += 4)
-            *reinterpret_cast<int*>(dst + b) =
-                src ? __ldg(reinterpret_cast<const int*>(src + b)) : 0;
-          break;
-        default:
-          for (int b = 0; b < entry; b += 2)
-            *reinterpret_cast<unsigned short*>(dst + b) =
-                src ? __ldg(reinterpret_cast<const unsigned short*>(src + b))
-                    : (unsigned short)0;
-      }
-    }
-  }
-
-  // The decode when an entry is whole 16-byte vectors (sd % 8 == 0, the
-  // main path's sd = 8): item i is vector `part` of the entry of column r
-  // in subspace s.  Each thread loads kBatch codes, then their kBatch table
-  // vectors, then stores them, so kBatch independent code -> table chains
-  // are in flight at once instead of one (the loads come from L2).
-  __device__ void stage16(int32_t* s_b, long long row0, int N, int stride,
-                          int parts) const {
-    constexpr int kBatch = 8;
-    const int items = pool::kTN * S * parts;
-    for (int i0 = threadIdx.x; i0 < items; i0 += pool::kThreads * kBatch) {
-      int code[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * pool::kThreads;
-        const int r = i % pool::kTN;
-        const int s = i / pool::kTN / parts;
-        code[u] = -1;
-        if (i < items && row0 + r < N)
-          code[u] = __ldg(codes + (size_t)s * ld + row0 + r);
-      }
-      int4 v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * pool::kThreads;
-        const int rest = i / pool::kTN;
-        const int s = rest / parts;
-        v[u] = make_int4(0, 0, 0, 0);
-        if (code[u] >= 0)
-          v[u] = __ldg(reinterpret_cast<const int4*>(
-                           cbk + ((size_t)s * K + code[u]) * sd) +
-                       (rest - s * parts));
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * pool::kThreads;
-        if (i >= items) break;
-        const int r = i % pool::kTN;
-        const int rest = i / pool::kTN;
-        const int s = rest / parts;
-        *reinterpret_cast<int4*>(reinterpret_cast<char*>(s_b + r * stride) +
-                                 s * sd * 2 + (rest - s * parts) * 16) = v[u];
-      }
-    }
-  }
-
-  __device__ void stage_cols(float* c0, float* c1, int i, long long slot,
-                             int N) const {
-    c0[i] = slot < N ? norms[slot] : INFINITY;
-    c1[i] = 0.f;
-  }
-  __device__ static float score(float acc, float o, float, float) {
+  __device__ __forceinline__ static float score(float acc, float o, float) {
     return __fsub_rn(o, __fmul_rn(2.f, acc));
   }
-  __device__ static int32_t final_slot(float v, int32_t s) {
-    return isfinite(v) ? s : -1;
+  __device__ __forceinline__ void col_values(long long slot, int N,
+                                             float& v0, float& v1) const {
+    v0 = slot < N ? __ldg(norms + slot) : INFINITY;
+    v1 = 0.f;
+  }
+
+  // The codes of columns row0 + 4 cg .. + 3 (byte b = column 4 cg + b) in
+  // the subspace of unit m of k-chunk kc (0 past d or N).
+  __device__ __forceinline__ uint32_t code_word(long long row0, int kc, int N,
+                                                int cg, int m) const {
+    const long long col0 = row0 + 4 * cg;
+    const int dim0 = wg::kTK * kc + m * (kUnit / 2);
+    if (dim0 >= d || col0 >= N) return 0;
+    const uint8_t* src = codes + (size_t)(dim0 / sd) * ld + col0;
+    if (codes4 && col0 + 4 <= N)
+      return __ldg(reinterpret_cast<const uint32_t*>(src));
+    uint32_t cw = 0;
+    for (int b = 0; b < 4; ++b)
+      if (col0 + b < N) cw |= (uint32_t)__ldg(src + b) << (8 * b);
+    return cw;
+  }
+
+  // Decode unit m of those four columns into the stage at shared address
+  // `stage`: column r, byte ob of its 128-byte row lands at r*128 +
+  // ((ob/16) ^ (r%8))*16 + ob%16, the 128-byte swizzle of the wgmma
+  // descriptors.
+  __device__ __forceinline__ void decode_unit(uint32_t stage, uint32_t cw,
+                                             long long row0, int kc, int N,
+                                             int cg, int m) const {
+    const int ob = m * kUnit;
+    const int dim0 = wg::kTK * kc + ob / 2;
+    const int s = dim0 / sd;
+    const __nv_bfloat16* entry = cbk + (size_t)s * K * sd + (dim0 - s * sd);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r = 4 * cg + b;
+      const uint32_t dst =
+          stage + r * 128 + ((((ob >> 4) ^ (r & 7)) << 4) | (ob & 15));
+      if (dim0 < d && row0 + r < N)
+        copy_unit<kUnit>(dst, entry + (size_t)((cw >> (8 * b)) & 255) * sd);
+      else
+        zero_unit<kUnit>(dst);
+    }
+  }
+
+  // Thread (warp ul, lane cg) decodes units ul, ul + 4, ... of a stage:
+  // with kPrefetch from the codes loaded during the previous stage, else
+  // one unit at a time (entries of 4 or 2 bytes: many units, few
+  // registers).
+  __device__ __forceinline__ void load_codes(uint32_t (&cw)[kPer],
+                                             long long row0, int kc, int N,
+                                             int cg, int ul) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      cw[i] = code_word(row0, kc, N, cg, ul + 4 * i);
+  }
+  __device__ __forceinline__ void decode_stage(uint32_t stage,
+                                               const uint32_t (&cw)[kPer],
+                                               long long row0, int kc,
+                                               int N, int cg,
+                                               int ul) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      uint32_t c;
+      if constexpr (kPrefetch)
+        c = cw[i];
+      else
+        c = code_word(row0, kc, N, cg, ul + 4 * i);
+      decode_unit(stage, c, row0, kc, N, cg, ul + 4 * i);
+    }
+  }
+
+  // All four producer warps decode; stage `it` is handed over once stage
+  // it+1's copies are started, so two stages of gathers are in flight a
+  // thread.
+  __device__ __forceinline__ void produce(const wg::Ring& r,
+                                          const CUtensorMap*, int N, int W,
+                                          int c0, int p_begin,
+                                          int p_end) const {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int total = (p_end - p_begin) * r.kc_n;
+    if (total <= 0) return;
+    uint32_t cur[kPer], nxt[kPer];  // unused without kPrefetch
+    float v0[4], v1[4];
+    int kc = 0, pl = 0, s = 0;
+    uint32_t ph = 0;
+    long long row0 = (long long)p_begin * W + c0;
+    if constexpr (kPrefetch) load_codes(cur, row0, 0, N, lane, warp);
+    for (int it = 0; it < total; ++it) {
+      if (warp == 0 && kc == 0) wg::col_load(*this, row0, N, lane, v0, v1);
+      wg::wait(r.empty + 8 * s, ph ^ 1);
+      decode_stage(r.stage + s * wg::kChunkBytes, cur, row0, kc, N, lane,
+                   warp);
+      wg::cp_async_commit();
+      int nkc = kc + 1;
+      long long nrow0 = row0;
+      if (nkc == r.kc_n) {
+        nkc = 0;
+        nrow0 += W;
+      }
+      if constexpr (kPrefetch) {
+        if (it + 1 < total) load_codes(nxt, nrow0, nkc, N, lane, warp);
+      }
+      if (it > 0) {
+        wg::cp_async_wait<1>();
+        hand_over(r, (it - 1) % r.stages, lane);
+      }
+      if (warp == 0 && kc == r.kc_n - 1) wg::col_store(r, pl, lane, v0, v1);
+      if (++s == r.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+      if constexpr (kPrefetch) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) cur[i] = nxt[i];
+      }
+      if (nkc == 0) ++pl;
+      kc = nkc;
+      row0 = nrow0;
+    }
+    wg::cp_async_wait<0>();
+    hand_over(r, (total - 1) % r.stages, lane);
+  }
+
+  // A stage's copies are complete in this thread: make them visible to the
+  // async proxy, then one arrival per warp.
+  __device__ __forceinline__ static void hand_over(const wg::Ring& r, int s,
+                                                   int lane) {
+    wg::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) wg::arrive(r.full + 8 * s);
   }
 };
+
+template <int kUnit>
+int launch_unit(const void* q16, const uint8_t* codes, long long ld,
+                const void* cbk, const void* norms, void* part_vals,
+                void* part_slots, void* vals, void* slots, int q, int n,
+                int S, int sd, int K, int w, int splits, void* stream) {
+  AdcDecode<kUnit> op;
+  op.codes = codes;
+  op.ld = ld;
+  op.cbk = static_cast<const __nv_bfloat16*>(cbk);
+  op.norms = static_cast<const float*>(norms);
+  op.d = S * sd;
+  op.sd = sd;
+  op.K = K;
+  op.codes4 = reinterpret_cast<uintptr_t>(codes) % 4 == 0 && ld % 4 == 0;
+  return wg::launch(q16, nullptr, op, part_vals, part_slots, vals, slots, q,
+                    n, (S * sd + 7) & ~7, w, splits, stream);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`.  q16 [q, S*sd] bf16 contiguous, S*sd even; codes: S
-// rows of n uint8 codes < K <= 256, row stride ld >= n bytes; cbk
-// [S, K, sd] bf16 contiguous; norms [n] f32; w % 128 == 0.  With
-// splits == 1 the kernel writes vals/slots [q, w] directly; otherwise
-// part_vals/part_slots [splits, q, w], merged into vals/slots.  Returns
-// cudaGetLastError().
+// Launch on `stream`.  q16 [q, d8] bf16 contiguous (d8 = S*sd rounded up to
+// 8, the extra columns zero, 16-byte aligned); codes: S rows of n uint8
+// codes < K <= 256, row stride ld >= n bytes; cbk [S, K, sd] bf16
+// contiguous; norms [n] f32; w % 128 == 0.  With splits == 1 the kernel
+// writes vals/slots [q, w] directly; otherwise part_vals/part_slots
+// [splits, q, w], merged into vals/slots.  Returns 0, a cudaError_t, or
+// wg::kTensorMapError + a CUresult.
 int vdb_fused_adc_pool(const void* q16, const void* codes, long long ld,
                        const void* cbk, const void* norms, void* part_vals,
                        void* part_slots, void* vals, void* slots, int q, int n,
                        int S, int sd, int K, int w, int splits, void* stream) {
-  const int d = S * sd;
-  if (S <= 0 || sd <= 0 || d % 2 != 0 || K <= 0 || K > 256 || ld < n)
+  if (S <= 0 || sd <= 0 || K <= 0 || K > 256 || ld < n)
     return (int)cudaErrorInvalidValue;
-  AdcBf16 op;
-  op.codes = static_cast<const uint8_t*>(codes);
-  op.ld = ld;
-  op.cbk = static_cast<const __nv_bfloat16*>(cbk);
-  op.norms = static_cast<const float*>(norms);
-  op.S = S;
-  op.sd = sd;
-  op.K = K;
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  // the widest unit that divides a codebook entry and the table's alignment
   const uintptr_t base = reinterpret_cast<uintptr_t>(cbk);
-  op.unit = 2;
+  int unit = 2;
   for (int u = 16; u > 2; u /= 2)
     if ((sd * 2) % u == 0 && base % u == 0) {
-      op.unit = u;
+      unit = u;
       break;
     }
-  const bool vec16 = (d / 2) % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(q16) % 16 == 0;
-  return pool::launch(q16, op, part_vals, part_slots, vals, slots, q, n, d / 2,
-                      w, splits, vec16, stream);
+  switch (unit) {
+    case 16:
+      return launch_unit<16>(q16, c, ld, cbk, norms, part_vals, part_slots,
+                             vals, slots, q, n, S, sd, K, w, splits, stream);
+    case 8:
+      return launch_unit<8>(q16, c, ld, cbk, norms, part_vals, part_slots,
+                            vals, slots, q, n, S, sd, K, w, splits, stream);
+    case 4:
+      return launch_unit<4>(q16, c, ld, cbk, norms, part_vals, part_slots,
+                            vals, slots, q, n, S, sd, K, w, splits, stream);
+    default:
+      return launch_unit<2>(q16, c, ld, cbk, norms, part_vals, part_slots,
+                            vals, slots, q, n, S, sd, K, w, splits, stream);
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// Fused scan + strided-bucket min pool over a corpus matrix, for NVIDIA
-// Hopper: four TPU kernels of vector_db_tpu/ops/pallas_kernels.py through one
-// tile loop (pool_tile.cuh) with three epilogues.
+// Fused s8 scan + strided-bucket min pool over a corpus matrix, for NVIDIA
+// Hopper: three TPU kernels of vector_db_tpu/ops/pallas_kernels.py through one
+// tile loop (pool_tile.cuh) with two epilogues.  (The bf16 pool B6 is
+// fused_raw_pool.cu, on the wgmma tile loop of pool_wgmma.cuh.)
 //
 //   entry                   TPU kernel (pallas_call)   operands, epilogue
 //   vdb_fused_int8_pool     fused_int8_pool :585 (:631)  s8 x s8 -> s32,
@@ -9,8 +10,6 @@
 //                           compressed store's int32-packed rows
 //   vdb_fused_int8g_pool    fused_int8g_pool :726 (:797)  s8 x s8 -> s32,
 //                           body :712-718                i32 off_i - x
-//   vdb_fused_raw_pool      fused_raw_pool :460 (:519)    bf16 x bf16 -> f32,
-//                           body :444-452                f32 off + x*sc
 //
 // What each computes, for queries q [Q, d] and corpus rows v [N, d] with the
 // per-slot columns off [N] (and sc [N]):
@@ -21,21 +20,15 @@
 //     INT32_MAX; slots past N score 2^29 (a dead slot).  The wrapper scales the
 //     [Q, W] result back to f32 and masks scores >= 2^28, as the reference
 //     does outside its kernel (:826-828).
-//   * bf16 (B6): score = off[n] + (q16 . v16_n) * sc[n], the product of bf16
-//     values summed in f32; +inf/-1 where empty.
 //
-// The f32 epilogues round each operation separately (__fmul_rn / __fadd_rn)
-// in the reference's order, so nvcc cannot contract them into an FMA.  The s8
+// The f32 epilogue rounds each operation separately (__fmul_rn / __fadd_rn)
+// in the reference's order, so nvcc cannot contract it into an FMA.  The s8
 // cross terms are exact (|q8 . v8| <= 127^2 * d < 2^24 for d <= 1040), so B2,
 // B4 and B7 are bit-equal to their plain PyTorch versions (ops/kernels.py).
-// B6's f32 sums run in the tensor cores' order, not the plain matmul's: its
-// scores agree within the f32 summation-order bound 2 d 2^-24 (|q|.|v|) |sc|.
 //
 // What bounds them on an H100: at the main path's shape (Q = 1024 queries,
 // N ~ 1M slots, d = 512) the 5.4e11 multiply-adds, on the tensor cores
-// through mma.sync; the corpus itself is 0.5 GB (s8) or 1 GB (bf16).  A bf16
-// row takes twice the shared memory of an s8 row, so B6 fits one block per SM
-// at d = 512 and refuses rows wider than 592 dims (the wrapper raises first).
+// through mma.sync; the corpus itself is 0.5 GB.
 //
 // On the TPU, B4 unpacks its int32 words by shifts into a lane-permuted order;
 // on this card the little-endian words are the int8 rows in true dim order,
@@ -89,29 +82,6 @@ struct GlobalS8 : pool::MatrixRows {
   }
   __device__ static int score(int acc, int o, float, float) { return o - acc; }
   __device__ static int32_t final_slot(int, int32_t s) { return s; }
-};
-
-// B6: f32 score = off + cross * sc over bf16 rows.
-struct RawBf16 : pool::MatrixRows {
-  using Acc = float;
-  using Val = float;
-  using Col = float;
-  const float* off;
-  const float* sc;
-  __device__ static float init() { return INFINITY; }
-  __device__ void prepare(int32_t*, int, int, int) const {}
-  __device__ float row_value(int, int) const { return 0.f; }
-  __device__ void stage_cols(float* c0, float* c1, int i, long long slot,
-                             int N) const {
-    c0[i] = slot < N ? off[slot] : INFINITY;
-    c1[i] = slot < N ? sc[slot] : 0.f;
-  }
-  __device__ static float score(float acc, float o, float c, float) {
-    return __fadd_rn(o, __fmul_rn(acc, c));
-  }
-  __device__ static int32_t final_slot(float v, int32_t s) {
-    return isfinite(v) ? s : -1;
-  }
 };
 
 bool aligned16(const void* a, const void* b, int dw) {
@@ -176,25 +146,6 @@ int vdb_fused_int8g_pool(const void* q8, const void* base8, const void* off_i,
   op.off_i = static_cast<const int32_t*>(off_i);
   return pool::launch(q8, op, part_vals, part_slots, vals, slots, q, n, d / 4,
                       w, splits, aligned16(q8, base8, d / 4), stream);
-}
-
-// B6: q16 [q, d] bf16, base16 [n, d] bf16, off/sc [n] f32; d % 2 == 0.
-int vdb_fused_raw_pool(const void* q16, const void* base16, const void* off,
-                       const void* sc, void* part_vals, void* part_slots,
-                       void* vals, void* slots, int q, int n, int d, int w,
-                       int splits, void* stream) {
-  if (d <= 0 || d % 2 != 0) return (int)cudaErrorInvalidValue;
-  RawBf16 op;
-  op.base = static_cast<const int32_t*>(base16);
-  op.off = static_cast<const float*>(off);
-  op.sc = static_cast<const float*>(sc);
-  return pool::launch(q16, op, part_vals, part_slots, vals, slots, q, n,
-                      d / 2, w, splits, aligned16(q16, base16, d / 2),
-                      stream);
-}
-
-const char* vdb_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,5 +1,8 @@
-// The tensor-core scan + strided-bucket min pool shared by every pool kernel
-// of the port (fused_int8_pool.cu: B2, B4, B6, B7; fused_adc_pool.cu: B5).
+// The s8 tensor-core scan + strided-bucket min pool shared by the int8 pool
+// kernels of the port (fused_int8_pool.cu: B2, B4, B7; fused_ivf_pool.cu, B8,
+// reuses its fragments and row staging).  The bf16 pools (B6
+// fused_raw_pool.cu, B5 fused_adc_pool.cu) run on the wgmma tile loop of
+// pool_wgmma.cuh, which reuses merge_splits_kernel below.
 //
 // One kernel template, `pool_kernel<Op>`, computes for queries q [Q, dw words]
 // and the N corpus rows that `Op` stages into shared memory:
@@ -13,21 +16,19 @@
 // loop inside each block, because Hopper runs blocks in parallel and in no
 // order.  Each block keeps a 64-query tile resident in shared memory and
 // streams the 128 slots of each pass through shared memory; its 8 warps (2 x 4)
-// each own a 32 x 32 output tile of `mma.sync` products read straight from the
-// shared rows (rows padded by 16 bytes: conflict-free fragments).  The s8
-// m16n8k32 and the bf16 m16n8k16 products have the same fragment layout in
-// 4-byte words (A: row g word t, row g+8 word t, row g word t+4, row g+8 word
-// t+4; B: row g words t and t+4), so one tile loop serves both and a row is
-// always `dw` words: d int8 dims or d/2 bf16 dims.  The running (value, slot)
-// minimum stays in registers across passes and is written once.  When the
-// query x column tiles alone cannot fill the card, the passes are split over
-// gridDim.z into partial pools that `merge_splits_kernel` merges in pass order,
-// which keeps the earliest-pass tie rule.  Loads are not overlapped with the
-// products (no cp.async/TMA ring) and wgmma is not used: later work.
+// each own a 32 x 32 output tile of s8 `mma.sync` m16n8k32 products read
+// straight from the shared rows (rows padded by 16 bytes: conflict-free
+// fragments; A: row g word t, row g+8 word t, row g word t+4, row g+8 word
+// t+4; B: row g words t and t+4), a row being `dw` 4-byte words of d int8
+// dims.  The running (value, slot) minimum stays in registers across passes
+// and is written once.  When the query x column tiles alone cannot fill the
+// card, the passes are split over gridDim.z into partial pools that
+// `merge_splits_kernel` merges in pass order, which keeps the earliest-pass
+// tie rule.  Loads are not overlapped with the products (no cp.async/TMA
+// ring) and wgmma is not used: later work.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,17 +52,6 @@ __device__ __forceinline__ void mma(int (&d)[4], const int (&a)[4], int b0,
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D += A * B for one m16n8k16 tile: A 16 x 16 bf16 (row), B 16 x 8 bf16
-// (col), f32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const int (&a)[4], int b0,
-                                    int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -93,7 +83,7 @@ __device__ __forceinline__ void stage_rows(int32_t* dst, int rows, int dw,
   }
 }
 
-// The rows of a corpus matrix [N, dw] words, staged as they are (B2, B4, B6,
+// The rows of a corpus matrix [N, dw] words, staged as they are (B2, B4,
 // B7).  Slots past N stage as zeros.
 struct MatrixRows {
   const int32_t* base;

@@ -4,12 +4,15 @@
 Each function replaces the TPU kernel of the same name in
 ``vector_db_tpu/ops/pallas_kernels.py``:
 
-  * ``fused_int8_pool`` (:585), ``fused_packed_pool`` (:900),
-    ``fused_int8g_pool`` (:726) and ``fused_raw_pool`` (:460): one
-    tensor-core tile loop (``vector_db_torch/csrc/pool_tile.cuh``) with four
-    entry points in ``vector_db_torch/csrc/fused_int8_pool.cu``;
-  * ``fused_adc_pool`` (:284): the same tile loop with the PQ decode in
-    place of the row copy, ``vector_db_torch/csrc/fused_adc_pool.cu``;
+  * ``fused_int8_pool`` (:585), ``fused_packed_pool`` (:900) and
+    ``fused_int8g_pool`` (:726): one s8 tensor-core tile loop
+    (``vector_db_torch/csrc/pool_tile.cuh``) with three entry points in
+    ``vector_db_torch/csrc/fused_int8_pool.cu``;
+  * ``fused_raw_pool`` (:460) and ``fused_adc_pool`` (:284): one bf16
+    tile loop on ``wgmma`` with a producer warpgroup
+    (``vector_db_torch/csrc/pool_wgmma.cuh``), fed by TMA in
+    ``vector_db_torch/csrc/fused_raw_pool.cu`` and by the PQ decode in
+    ``vector_db_torch/csrc/fused_adc_pool.cu``;
   * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``;
   * ``fused_ivf_pool`` (:1153), the cluster-pruned scan of ``scan_ivf``,
     ``vector_db_torch/csrc/fused_ivf_pool.cu``;
@@ -292,23 +295,45 @@ def _check_same_device(q, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+#: query rows per block of the s8 pools (``csrc/pool_tile.cuh``) and of the
+#: bf16 pools (``csrc/pool_wgmma.cuh``: two consumer warpgroups x m64)
+S8_TILE_Q = 64
+BF16_TILE_Q = 128
+
+
+def pool_splits(qn: int, n: int, w: int, sms: int, tile_q: int) -> int:
+    """How many blocks share the passes of one (query tile, 128-column)
+    tile, each taking at least one pass.  The s8 pools (two blocks an SM)
+    aim at ~4 blocks an SM.  The bf16 pools (one block an SM) take one wave
+    when their tiles fill >= 90% of the SMs, else ~2 waves, which also
+    evens out tiles whose query rows lie partly past Q (the pass-split
+    sweep of chip_smoke.py phases 3e/3f, on an H100)."""
+    passes = -(-n // w) if n else 0
+    tiles = (w // LANES) * -(-qn // tile_q)
+    if tile_q == BF16_TILE_Q:
+        want = 1 if 10 * tiles >= 9 * sms else 2 * sms // tiles
+    else:
+        want = -(-4 * sms // tiles)
+    want = max(1, min(passes, want))
+    # as many splits as ceil(passes / want) passes each fill: none is empty
+    return -(-passes // -(-passes // want)) if passes else 1
+
+
 def _run_pool(entry: str, head, mid, qn: int, n: int, w: int, device,
-              val_dtype=torch.float32):
+              val_dtype=torch.float32, tile_q: int = S8_TILE_Q):
     """Launch a pool kernel through C entry ``entry`` as
     ``entry(*head, part_vals, part_slots, vals, slots, qn, n, *mid, w,
     splits, stream)`` and return (vals, slots) [qn, w].  The passes are
-    split over blocks when the query x column tiles alone leave the card's
-    SMs idle (the partial pools merge in pass order); raises if the launch
-    fails."""
+    split over blocks when the query x column tiles (``tile_q`` queries by
+    128 columns) alone leave the card's SMs idle (:func:`pool_splits`; the
+    partial pools merge in pass order); raises if the launch fails."""
     vals = torch.empty((qn, w), dtype=val_dtype, device=device)
     slots = torch.empty((qn, w), dtype=torch.int32, device=device)
     if qn == 0:
         return vals, slots
     lib = LIBRARY.get()
-    passes = -(-n // w) if n else 0
-    tiles = (w // LANES) * -(-qn // 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(passes, -(-4 * sms // tiles)))
+    splits = pool_splits(qn, n, w, sms, tile_q)
     if splits > 1:
         part_v = torch.empty((splits, qn, w), dtype=val_dtype, device=device)
         part_s = torch.empty((splits, qn, w), dtype=torch.int32,
@@ -613,16 +638,24 @@ fused_int8g_pool.launches = 0
 
 
 # ---------------------------------------------------------- fused_raw_pool
-#: the largest bf16 row the pool kernel's shared-memory tiles hold on an
-#: H100: (64 + 128) rows of (d/2 + 4) words and two 128-column vectors must
-#: fit the 232,448 bytes one block may use
-MAX_BF16_POOL_DIM = 592
+#: the shared memory of one block of the bf16 pools (``csrc/pool_wgmma.cuh``)
+#: on an H100: the resident [128, d] query tile in 64-dim k-chunks of 16 KB,
+#: at least three 16 KB ring stages, 2 KB of per-column values, 128 B of
+#: barriers and 1 KB to align the tiles, within the 232,448 bytes one block
+#: may use
+_WG_SMEM = 232448
+_WG_CHUNK = BF16_TILE_Q * 64 * 2
+_WG_FIXED = 1024 + 2048 + 128
+_WG_MIN_STAGES = 3
+#: the widest bf16 row those tiles hold: 640 dims
+MAX_BF16_POOL_DIM = 64 * ((_WG_SMEM - _WG_FIXED) // _WG_CHUNK - _WG_MIN_STAGES)
 
 
 def _check_bf16_dim(d: int) -> None:
     if d > MAX_BF16_POOL_DIM:
-        raise ValueError(f"row width {d} > {MAX_BF16_POOL_DIM}: two bf16 "
-                         "tiles of it do not fit one block's shared memory")
+        raise ValueError(f"row width {d} > {MAX_BF16_POOL_DIM}: the query "
+                         "tile and three ring stages of it do not fit one "
+                         "block's shared memory")
 
 
 def _check_raw_args(q, base16, sel_off, sel_scale):
@@ -665,11 +698,10 @@ def fused_raw_pool(q: torch.Tensor, base16: torch.Tensor,
     :func:`fused_int8_pool`.
 
     A CPU tensor runs :func:`fused_raw_pool_plain`; a CUDA tensor runs the
-    kernel (``csrc/fused_int8_pool.cu``, entry ``vdb_fused_raw_pool``;
-    the f32 sums run in the tensor cores' order, so it agrees with the
-    plain version within the summation-order bound of
-    :func:`raw_pool_terms`) and counts one launch in
-    ``fused_raw_pool.launches``.
+    kernel (``csrc/fused_raw_pool.cu`` on ``csrc/pool_wgmma.cuh``; the f32
+    sums run in the tensor cores' order, so it agrees with the plain
+    version within the summation-order bound of :func:`raw_pool_terms`)
+    and counts one launch in ``fused_raw_pool.launches``.
     """
     if q.device.type == "cpu":
         return fused_raw_pool_plain(q, base16, sel_off, sel_scale, w)
@@ -678,17 +710,22 @@ def fused_raw_pool(q: torch.Tensor, base16: torch.Tensor,
     _check_raw_args(q, base16, sel_off, sel_scale)
     n, d = base16.shape
     _check_bf16_dim(d)
-    if d % 2 != 0 or base16.data_ptr() % 4 != 0:
-        raise ValueError("base16 rows must be whole 4-byte words (d % 2 == 0)")
     _check_same_device(q, base16=base16, sel_off=sel_off,
                        sel_scale=sel_scale)
     if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
         raise TypeError("sel_off/sel_scale must be float32")
-    q16 = _pad_cols(q.to(torch.bfloat16), d).contiguous()
+    d8 = d + (-d) % 8
+    if d8 != d or base16.data_ptr() % 16:
+        # TMA reads rows of whole, aligned 16-byte vectors: a copy, for
+        # callers other than the index (its shadows are padded to 8 dims)
+        padded = torch.zeros((n, d8), dtype=torch.bfloat16, device=q.device)
+        padded[:, :d] = base16
+        base16 = padded
+    q16 = _pad_cols(q.to(torch.bfloat16), d8).contiguous()
     out = _run_pool("vdb_fused_raw_pool",
                     (q16.data_ptr(), base16.data_ptr(), sel_off.data_ptr(),
-                     sel_scale.data_ptr()), (d,), q.shape[0], n,
-                    pool_width(w), q.device)
+                     sel_scale.data_ptr()), (d8,), q.shape[0], n,
+                    pool_width(w), q.device, tile_q=BF16_TILE_Q)
     fused_raw_pool.launches += 1
     return out
 
@@ -752,8 +789,6 @@ def fused_adc_pool(q: torch.Tensor, codes_t: torch.Tensor, cbt: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     s, n, sd, k = _check_adc_args(q, codes_t, cbt, masked_norms)
     _check_bf16_dim(s * sd)
-    if (s * sd) % 2 != 0:
-        raise ValueError(f"row width {s * sd} must be even (bf16 words)")
     if codes_t.dtype != torch.uint8 or codes_t.stride(1) != 1:
         raise ValueError("codes_t must be uint8 with unit column stride")
     _check_same_device(q, cbt=cbt, masked_norms=masked_norms)
@@ -761,14 +796,15 @@ def fused_adc_pool(q: torch.Tensor, codes_t: torch.Tensor, cbt: torch.Tensor,
         raise ValueError(f"codes_t on {codes_t.device}, queries on {q.device}")
     if cbt.dtype != torch.float32 or masked_norms.dtype != torch.float32:
         raise TypeError("cbt/masked_norms must be float32")
-    q16 = q.to(torch.bfloat16).contiguous()
+    # the queries in rows of whole 16-byte vectors (TMA), zeros past S*sd
+    q16 = _pad_cols(q.to(torch.bfloat16), s * sd + (-s * sd) % 8).contiguous()
     # the [S, K, sd] bf16 table: one codebook entry is sd consecutive values
     cbk = cbt.view(s, sd, k).permute(0, 2, 1).to(torch.bfloat16).contiguous()
     out = _run_pool("vdb_fused_adc_pool",
                     (q16.data_ptr(), codes_t.data_ptr(),
                      max(codes_t.stride(0), n), cbk.data_ptr(),
                      masked_norms.data_ptr()), (s, sd, k), q.shape[0], n,
-                    pool_width(w), q.device)
+                    pool_width(w), q.device, tile_q=BF16_TILE_Q)
     fused_adc_pool.launches += 1
     return out
 
