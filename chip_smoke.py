@@ -6,18 +6,25 @@ Phases, each printing its own lines (every timing line carries the card's
 name and power limit):
 
   1. device  — CUDA present, TF32 off for f32 matmuls;
-  2. build   — the CUDA kernels compiled from vector_db_torch/csrc;
+  2. build   — the CUDA kernels compiled from vector_db_torch/csrc, with
+               every ptxas line on registers, spills, a "Performance"
+               advisory or a C75xx wgmma advisory;
   3. kernels — each kernel against its plain PyTorch version on the card at
                the main path's shapes, both timed (CUDA events, warm-up,
                best of 3); bit-equal required of the integer and gather
                kernels, and of the bf16 pools agreement within the f32
                summation-order bound (ops/kernels.check_float_pool):
-               a. fused_int8_pool at Q=1024, N=1,001,472, d=512, w=2048;
+               a. fused_int8_pool at Q in {1, 13, 1024}, w in {64, 2048},
+                  N in {4000, 1,001,472}, d=512; timed at Q=1024 and Q=1,
+                  at forced pass-split counts beside ops/kernels.pool_splits'
+                  plan and at forced ring depths beside S8_POOL_STAGES;
                b. pq_decode_recon_t at S=64, sd=8, K=256, N=524,288;
                c. fused_packed_pool at Q=1024, N=1,001,472, d=512, w=2048
-                  (and an N that w does not divide must raise);
+                  (and an N that w does not divide must raise); timed at
+                  Q=1024 and Q=1;
                d. fused_int8g_pool at Q in {1, 13, 1024}, w in {64, 2048},
-                  N=1,001,472 with dead slots (bit-equal);
+                  N=1,001,472 with dead slots (bit-equal); timed at Q=1024
+                  and Q=1;
                e. fused_raw_pool at the shapes of d, and at the ragged
                   shapes Q in {1, 13, 129, 1024} x d in {32, 96, 512, 592}
                   with N = 5003 (not a multiple of the pool width); timed
@@ -41,6 +48,11 @@ name and power limit):
                   it: its entry reports the path's 0 launches with
                   "no_index_caller": true, and one self-test call's count
                   is printed on a line of its own;
+               i. rows of any width: the six pools at d in {768, 1536}
+                  (the s8 pools also at 516, rows that are not whole
+                  16-byte vectors: the cp.async producer; the bf16 pools
+                  past 640 dims: the streamed query tile) on small stores,
+                  bit-equal or within the bound, each timed at Q=1024;
   4. 100k    — the flagship through VectorDatabase: 512-d x 100,000 rows,
                HnswPqConfig(num_subspaces=64, training_samples=20000),
                add_batch through the WAL, auto -> scan_exact, recall@10
@@ -49,9 +61,10 @@ name and power limit):
   5. 1M      — the same config at 512-d x 1,000,000 rows by bulk_load of the
                device tensor, auto -> scan_pallas_int8 (fused_int8_pool must
                launch), then on the same database scan_pallas
-               (fused_raw_pool; its index time and a profiled search), scan_pallas_int8 with
+               (fused_raw_pool), scan_pallas_int8 with
                int8_epilogue="global" (fused_int8g_pool) and scan_bf16 (no
-               pool kernel), each recall@10 >= 0.95, and CRUD in the two new
+               pool kernel), each recall@10 >= 0.95, the index time and a
+               profiled search of each pool mode, and CRUD in the two new
                kernel modes;
   6. 10M     — the compressed tier (raw_store=False, refine_residual=True,
                adc_pool="approx", adc_select_r=512) through VectorDatabase:
@@ -60,8 +73,8 @@ name and power limit):
                auto -> adc_fast (pq_decode_recon_t must launch), recall@10
                >= 0.94; scan_pallas_int8 (fused_packed_pool must launch),
                recall@10 >= 0.96; adc_fast with adc_pool="fused"
-               (fused_adc_pool must launch; its index time and a profiled
-               search), recall@10 >= 0.94; CRUD at 10M live;
+               (fused_adc_pool must launch), recall@10 >= 0.94; the index
+               time and a profiled search of both; CRUD at 10M live;
   7. 100k memory-bound — the raw store with search_mode="adc_fast",
                adc_pool="approx", adc_select_r=128, refine_store="bf16" on
                512-d x 100,000 spectral rows by bulk_load
@@ -135,6 +148,12 @@ CFG_IVF_RAW = dict(search_mode="scan_ivf", nprobe=64, num_subspaces=64,
 IVF_SHAPE = dict(nlist=513, cap=2688, p_cap=512, d=512)  # the 1M grid
 SCAN_SHAPES_Q = (13, 1024)
 SCAN_SHAPES_N = (4000, 100_000)
+#: phase 3i: the widths past the old limits, and the stores they run on
+WIDE_D = (516, 768, 1536)
+WIDE_N = 65_536
+WIDE_Q = (13, 1024)
+SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)
+STAGE_SWEEP = (3, 4, 6, 8, 9)
 #: the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -240,10 +259,38 @@ def phase_build():
     t0 = time.perf_counter()
     lib = build_kernels()
     say(f"phase 2 build: {lib.path}")
+    fn = ""
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Performance" in line:
-            say(f"phase 2 build: ptxas {line.strip()}")
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+        if any(k in line for k in ("registers", "spill", "Performance",
+                                   "C75")):
+            say(f"phase 2 build: ptxas [{kernel_name(fn)}] {line.strip()}")
     timing("phase 2 build seconds (nvcc + load)", time.perf_counter() - t0, "s")
+
+
+def kernel_name(mangled):
+    """A mangled kernel name cut to what tells the kernels apart: the
+    kernel's name and, for the wgmma tile loop, its producer and epilogue
+    (e.g. pool_kernel<TmaRows,Scaled>)."""
+    import re
+
+    ids, i = [], 0
+    while i < len(mangled):  # the <length><identifier> parts
+        if mangled[i].isdigit():
+            j = i
+            while j < len(mangled) and mangled[j].isdigit():
+                j += 1
+            ids.append(mangled[j:j + int(mangled[i:j])])
+            i = j + int(mangled[i:j])
+        else:
+            i += 1
+    name = next((x for x in ids if x.endswith("_kernel")), mangled[:60])
+    args = [x for x in ids if x in ("TmaRows", "CopyRows", "Scaled", "Global",
+                                    "RawRows")]
+    args += [f"AdcDecode<{u}>" for u in re.findall(r"AdcDecodeILi(\d+)E",
+                                                   mangled)]
+    return f"{name}<{','.join(args)}>" if args else name
 
 
 def phase_kernel():
@@ -252,15 +299,16 @@ def phase_kernel():
     from vector_db_torch.ops import kernels as kn
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
-    big = 1_000_064  # the 1M store's capacity (rounded to 128)
+    big = -(-N_KERNEL // 128) * 128  # the 1M store's capacity
     corpus = torch.randn(big, DIM, device=DEVICE, generator=g)
     valid = torch.rand(big, device=DEVICE, generator=g) > 0.05  # dead rows
     norms = (corpus * corpus).sum(1)
+    full = _build_scan8_shadow(corpus, norms, valid, "l2",
+                               SHADOW_PAD_ROWS)[:4]  # 1,001,472 rows
     shadows = {
         4000: _build_scan8_shadow(corpus[:4000], norms[:4000], valid[:4000],
                                   "l2", 1)[:4],
-        1_001_472: _build_scan8_shadow(corpus, norms, valid, "l2",
-                                       SHADOW_PAD_ROWS)[:4],
+        full[0].shape[0]: full,
     }
     del corpus, norms, valid
     queries = torch.randn(NQ, DIM, device=DEVICE, generator=g)
@@ -270,34 +318,68 @@ def phase_kernel():
         qc = queries - cvec[None, :]
         for qn in KERNEL_SHAPES_Q:
             for w in KERNEL_SHAPES_W:
-                kv, ks = kn.fused_int8_pool(qc[:qn], base8, off, sc, w)
-                pv, ps = kn.fused_int8_pool_plain(qc[:qn], base8, off, sc, w)
-                torch.cuda.synchronize()
-                fin = torch.isfinite(pv)
-                err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
-                same = torch.equal(kv, pv) and torch.equal(ks, ps)
-                say(f"phase 3 kernel: Q={qn} N={n} d={DIM} w={w} "
-                    f"pool={tuple(kv.shape)} bit_equal={same} "
-                    f"max_abs_err={err} live_slots={int((ks >= 0).sum())}")
-                if not same:
-                    raise RuntimeError("fused_int8_pool disagrees with its plain "
-                                       f"version at Q={qn} N={n} w={w}")
-                worst = max(worst, err)
-    base8, off, sc, cvec = shadows[1_001_472]
+                worst = max(worst, hold_s8_pool(
+                    f"phase 3 kernel: Q={qn} N={n} d={DIM} w={w}",
+                    kn.fused_int8_pool(qc[:qn], base8, off, sc, w),
+                    kn.fused_int8_pool_plain(qc[:qn], base8, off, sc, w)))
+    base8, off, sc, cvec = full
+    n = base8.shape[0]
     qc = queries - cvec[None, :]
     ms, plain_ms = timed_pair(
-        "phase 3 fused_int8_pool", "Q=1024 N=1001472 d=512 w=2048",
+        "phase 3 fused_int8_pool", f"Q={NQ} N={n} d={DIM} w=2048",
         lambda: kn.fused_int8_pool(qc, base8, off, sc, 2048),
         lambda: kn.fused_int8_pool_plain(qc, base8, off, sc, 2048))
-    n = base8.shape[0]
+    q1_ms = q1_time("phase 3 fused_int8_pool", f"N={n} d={DIM} w=2048",
+                    lambda: kn.fused_int8_pool(qc[:1], base8, off, sc, 2048))
+    split_sweep("phase 3 fused_int8_pool", (1024, 129, 1), SPLIT_SWEEP,
+                lambda qn: kn.fused_int8_pool(qc[:qn], base8, off, sc, 2048))
+    stage_sweep("phase 3 fused_int8_pool",
+                lambda: kn.fused_int8_pool(qc, base8, off, sc, 2048))
     b = bound("phase 3 fused_int8_pool", n * DIM + 8 * n + 4 * NQ * DIM
               + 8 * NQ * 2048, 2 * NQ * n * DIM, "int8")
     q8 = torch.randint(-127, 128, (NQ, DIM), device=DEVICE, dtype=torch.int8)
-    product_only("phase 3 torch._int_mm [1024, 512] x [512, 1001472]",
+    product_only(f"phase 3 torch._int_mm [{NQ}, {DIM}] x [{DIM}, {n}]",
                  lambda: torch._int_mm(q8, base8.T))
-    del shadows, base8, off, sc, q8
+    del shadows, full, base8, off, sc, q8
     torch.cuda.empty_cache()
-    return kernel_entry("fused_int8_pool", worst, ms, plain_ms, b)
+    return kernel_entry("fused_int8_pool", worst, ms, plain_ms, b,
+                        q1_ms=q1_ms)
+
+
+def per_call_ms(run, calls):
+    """CUDA-event time of one call: ``calls`` calls in a row over their
+    count (best of 3 windows).  At small Q one call alone would time the
+    host launching the wrapper's small kernels onto an idle card."""
+    def many():
+        for _ in range(calls):
+            run()
+    return cuda_ms(many) / calls
+
+
+def q1_time(label, shape, run, calls=20):
+    """A kernel's time at Q=1 (:func:`per_call_ms`), printed."""
+    ms = per_call_ms(run, calls)
+    timing(f"{label} kernel Q=1 {shape} (best of 3 windows of {calls} "
+           "calls)", ms, "ms")
+    return ms
+
+
+def stage_sweep(label, run):
+    """Kernel time of an s8 pool at forced ring depths beside the default
+    (ops/kernels.S8_POOL_STAGES; the plan caps a depth at what fits),
+    printed: the measurement behind that default."""
+    from vector_db_torch.ops import kernels as kn
+
+    default = kn.S8_POOL_STAGES
+    try:
+        times = {"default": cuda_ms(run)}
+        for st in STAGE_SWEEP:
+            kn.S8_POOL_STAGES = st
+            times[st] = cuda_ms(run)
+    finally:
+        kn.S8_POOL_STAGES = default
+    timing(f"{label} Q={NQ} ms by ring stages (best of 3)", json.dumps(times),
+           "")
 
 
 def bound(label, nbytes, ops, kind):
@@ -399,19 +481,10 @@ def phase_packed():
         qc = queries - cvec[None, :]
         for qn in KERNEL_SHAPES_Q:
             for w in PACKED_SHAPES_W:
-                kv, ks = kn.fused_packed_pool(qc[:qn], packed, off, sc, w)
-                pv, ps = kn.fused_packed_pool_plain(qc[:qn], packed, off, sc,
-                                                    w)
-                torch.cuda.synchronize()
-                same = torch.equal(kv, pv) and torch.equal(ks, ps)
-                err = max_abs_err(kv, pv)
-                say(f"phase 3c packed: Q={qn} N={n} d={DIM} w={w} "
-                    f"pool={tuple(kv.shape)} bit_equal={same} "
-                    f"max_abs_err={err} live_slots={int((ks >= 0).sum())}")
-                if not same:
-                    raise RuntimeError("fused_packed_pool disagrees with its "
-                                       f"plain version at Q={qn} N={n} w={w}")
-                worst = max(worst, err)
+                worst = max(worst, hold_s8_pool(
+                    f"phase 3c packed: Q={qn} N={n} d={DIM} w={w}",
+                    kn.fused_packed_pool(qc[:qn], packed, off, sc, w),
+                    kn.fused_packed_pool_plain(qc[:qn], packed, off, sc, w)))
     packed, off, sc, cvec = stores[PACKED_SHAPES_N[0]]
     cut = PACKED_SHAPES_N[0] - 128
     try:
@@ -428,11 +501,15 @@ def phase_packed():
         lambda: kn.fused_packed_pool(qc, packed, off, sc, 2048),
         lambda: kn.fused_packed_pool_plain(qc, packed, off, sc, 2048))
     n = packed.shape[0]
+    q1_ms = q1_time("phase 3c fused_packed_pool", f"N={n} d={DIM} w=2048",
+                    lambda: kn.fused_packed_pool(qc[:1], packed, off, sc,
+                                                 2048))
     b = bound("phase 3c fused_packed_pool", n * DIM + 8 * n + 4 * NQ * DIM
               + 8 * NQ * 2048, 2 * NQ * n * DIM, "int8")
     del stores, packed, off, sc
     torch.cuda.empty_cache()
-    return kernel_entry("fused_packed_pool", worst, ms, plain_ms, b)
+    return kernel_entry("fused_packed_pool", worst, ms, plain_ms, b,
+                        q1_ms=q1_ms)
 
 
 def timed_pair(label, shape, kernel, plain):
@@ -473,28 +550,23 @@ def phase_int8g():
     worst = 0.0
     for qn in KERNEL_SHAPES_Q:
         for w in KERNEL_SHAPES_W:
-            kv, ks = kn.fused_int8g_pool(qc[:qn], base8, off, sv, sgn, w)
-            pv, ps = kn.fused_int8g_pool_plain(qc[:qn], base8, off, sv, sgn,
-                                               w)
-            torch.cuda.synchronize()
-            same = torch.equal(kv, pv) and torch.equal(ks, ps)
-            err = max_abs_err(kv, pv)
-            say(f"phase 3d int8g: Q={qn} N={n} d={DIM} w={w} "
-                f"pool={tuple(kv.shape)} bit_equal={same} max_abs_err={err} "
-                f"live_slots={int((ks >= 0).sum())}")
-            if not same:
-                raise RuntimeError("fused_int8g_pool disagrees with its plain "
-                                   f"version at Q={qn} w={w}")
-            worst = max(worst, err)
+            worst = max(worst, hold_s8_pool(
+                f"phase 3d int8g: Q={qn} N={n} d={DIM} w={w}",
+                kn.fused_int8g_pool(qc[:qn], base8, off, sv, sgn, w),
+                kn.fused_int8g_pool_plain(qc[:qn], base8, off, sv, sgn, w)))
     ms, plain_ms = timed_pair(
         "phase 3d fused_int8g_pool", f"Q={NQ} N={n} d={DIM} w=2048",
         lambda: kn.fused_int8g_pool(qc, base8, off, sv, sgn, 2048),
         lambda: kn.fused_int8g_pool_plain(qc, base8, off, sv, sgn, 2048))
+    q1_ms = q1_time("phase 3d fused_int8g_pool", f"N={n} d={DIM} w=2048",
+                    lambda: kn.fused_int8g_pool(qc[:1], base8, off, sv, sgn,
+                                                2048))
     b = bound("phase 3d fused_int8g_pool", n * DIM + 4 * n + 4 * NQ * DIM
               + 8 * NQ * 2048, 2 * NQ * n * DIM, "int8")
     del base8, off
     torch.cuda.empty_cache()
-    return kernel_entry("fused_int8g_pool", worst, ms, plain_ms, b)
+    return kernel_entry("fused_int8g_pool", worst, ms, plain_ms, b,
+                        q1_ms=q1_ms)
 
 
 def hold_float_pool(label, got, want, terms, w):
@@ -542,9 +614,8 @@ def phase_raw():
         "phase 3e fused_raw_pool", f"Q={NQ} N={n} d={DIM} w=2048",
         lambda: kn.fused_raw_pool(qc, base16, off, sc, 2048),
         lambda: kn.fused_raw_pool_plain(qc, base16, off, sc, 2048))
-    q1_ms = cuda_ms(lambda: kn.fused_raw_pool(qc[:1], base16, off, sc, 2048))
-    timing(f"phase 3e fused_raw_pool kernel Q=1 N={n} d={DIM} w=2048 "
-           "(best of 3)", q1_ms, "ms")
+    q1_ms = q1_time("phase 3e fused_raw_pool", f"N={n} d={DIM} w=2048",
+                    lambda: kn.fused_raw_pool(qc[:1], base16, off, sc, 2048))
     split_sweep("phase 3e fused_raw_pool", (1024, 129, 1), (1, 2, 4, 8, 16),
                 lambda qn: kn.fused_raw_pool(qc[:qn], base16, off, sc, 2048))
     b = bound("phase 3e fused_raw_pool", 2 * n * DIM + 8 * n + 4 * NQ * DIM
@@ -561,20 +632,23 @@ def phase_raw():
 
 def split_sweep(label, qns, splits, run):
     """Kernel time at forced pass-split counts beside the plan's own
-    (ops/kernels.pool_splits), printed: the measurement behind the bf16
-    pools' split plan."""
+    (ops/kernels.pool_splits), printed: the measurement behind the pools'
+    split plan.  Below Q=1024 in windows of 10 calls (:func:`per_call_ms`);
+    at Q=1024 one call a window, since ten calls in a row of the bf16 pool
+    ran up to 11% slower on an H100 at 700 W as the run went on."""
     from vector_db_torch.ops import kernels as kn
 
     plan = kn.pool_splits
     try:
         for qn in qns:
-            times = {"plan": cuda_ms(lambda: run(qn))}
+            calls = 1 if qn >= NQ else 10
+            times = {"plan": per_call_ms(lambda: run(qn), calls)}
             for sp in splits:
                 kn.pool_splits = lambda *a, sp=sp: sp
-                times[sp] = cuda_ms(lambda: run(qn))
+                times[sp] = per_call_ms(lambda: run(qn), calls)
             kn.pool_splits = plan
-            timing(f"{label} Q={qn} ms by pass splits (best of 3)",
-                   json.dumps(times), "")
+            timing(f"{label} Q={qn} ms by pass splits (best of 3 windows "
+                   f"of {calls} calls)", json.dumps(times), "")
     finally:
         kn.pool_splits = plan
 
@@ -643,11 +717,10 @@ def phase_adc():
         f"Q={NQ} S={s} sd={sd} K=256 N={ADC_SHAPES_N[-1]} w={w}",
         lambda: kn.fused_adc_pool(queries, codes, cbt, norms, w),
         lambda: kn.fused_adc_pool_plain(queries, codes, cbt, norms, w))
-    q1_ms = cuda_ms(lambda: kn.fused_adc_pool(queries[:1], codes, cbt, norms,
-                                              w))
     n = ADC_SHAPES_N[-1]
-    timing(f"phase 3f fused_adc_pool kernel Q=1 S={s} sd={sd} K=256 N={n} "
-           f"w={w} (best of 3)", q1_ms, "ms")
+    q1_ms = q1_time("phase 3f fused_adc_pool", f"S={s} sd={sd} K=256 N={n} "
+                    f"w={w}", lambda: kn.fused_adc_pool(queries[:1], codes,
+                                                        cbt, norms, w))
     split_sweep("phase 3f fused_adc_pool", (1024, 1), (1, 2, 4),
                 lambda qn: kn.fused_adc_pool(queries[:qn], codes, cbt, norms,
                                              w))
@@ -854,6 +927,7 @@ def phase_1m():
     timing("phase 5 1M build (bulk_load + train + encode)",
            time.perf_counter() - t0, "s")
     mode, rec, _ = serve(db, "5 1M", queries, gt)
+    index_time("5 1M auto scan_pallas_int8", db.index, queries)
     counts = read_launches("5 1M", must_launch=("fused_int8_pool",),
                            must_not=("fused_int8g_pool", "fused_raw_pool"))
     if mode != "scan_pallas_int8":
@@ -873,7 +947,7 @@ def phase_1m():
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         _, rec, _ = serve(db, label, queries, gt)
-        if mode == "scan_pallas":
+        if must:  # a pool kernel's mode
             index_time(label, db.index, queries)
         add(read_launches(label, must_launch=must, must_not=must_not))
         timing(f"phase {label} peak device memory",
@@ -962,7 +1036,7 @@ def phase_10m():
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         resolved, rec, ids = serve(db, label, queries, gt)
-        if pool == "fused":
+        if mode != "auto":
             index_time(label, db.index, queries)
         add(read_launches(label, must_launch=(kernel,),
                           must_not=(other, "fused_int8_pool")))
@@ -1151,6 +1225,127 @@ def phase_scan_topk():
     entry = kernel_entry("fused_scan_topk", worst, ms, plain_ms, b)
     entry["no_index_caller"] = True
     return entry
+
+
+def hold_s8_pool(label, got, want):
+    """Bit-equality of an s8 pool kernel with its plain version; prints its
+    line, raises when they differ."""
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    say(f"{label} pool={tuple(got[0].shape)} bit_equal={same} "
+        f"max_abs_err={max_abs_err(got[0], want[0])} "
+        f"live_slots={int((got[1] >= 0).sum())}")
+    if not same:
+        raise RuntimeError(f"{label}: the kernel disagrees with its plain "
+                           "version")
+    return max_abs_err(got[0], want[0])
+
+
+def phase_wide():
+    """3i: the six pools at rows of any width (WIDE_D) on stores of WIDE_N
+    rows, against their plain versions, each timed at Q=1024; returns the
+    largest error of each."""
+    from vector_db_torch.index.hnsw_pq import (_build_scan8_shadow,
+                                               _build_scan8g_shadow,
+                                               _build_scan16_shadow)
+    from vector_db_torch.ops import kernels as kn
+
+    g = torch.Generator(device=DEVICE).manual_seed(37)
+    worst = {name: 0.0 for name in POOL_KERNELS}
+    n, w = WIDE_N, 2048
+    for d in WIDE_D:
+        rows = torch.randn(n, d, device=DEVICE, generator=g)
+        valid = torch.rand(n, device=DEVICE, generator=g) > 0.05
+        norms = (rows * rows).sum(1)
+        queries = torch.randn(NQ, d, device=DEVICE, generator=g)
+        b8, off, sc, cvec = _build_scan8_shadow(rows, norms, valid, "l2",
+                                                1)[:4]
+        g8, goff, sv, sgn, gvec, _ = _build_scan8g_shadow(rows, norms, valid,
+                                                          "l2", 1)
+        pools = {  # name -> (kernel, plain, their call on a batch)
+            "fused_int8_pool": (kn.fused_int8_pool, kn.fused_int8_pool_plain,
+                                lambda f, q: f(q - cvec, b8, off, sc, w)),
+            "fused_packed_pool": (
+                kn.fused_packed_pool, kn.fused_packed_pool_plain,
+                lambda f, q: f(q - cvec, b8.view(torch.int32), off, sc, w)),
+            "fused_int8g_pool": (
+                kn.fused_int8g_pool, kn.fused_int8g_pool_plain,
+                lambda f, q: f(q - gvec, g8, goff, sv, sgn, w)),
+        }
+        for name, (kernel, plain, call) in pools.items():
+            for qn in WIDE_Q:
+                q = queries[:qn]
+                worst[name] = max(worst[name], hold_s8_pool(
+                    f"phase 3i wide {name}: Q={qn} N={n} d={d} w={w}",
+                    call(kernel, q), call(plain, q)))
+            wide_time(name, d, lambda: call(kernel, queries))
+        del b8, g8
+        if d % 16:  # the bf16 pools at 768 and 1536 dims
+            continue
+        b16, roff, rsc, rvec, _ = _build_scan16_shadow(rows, norms, valid,
+                                                       "l2", 1)
+        for qn in WIDE_Q:
+            q = queries[:qn] - rvec
+            worst["fused_raw_pool"] = max(worst["fused_raw_pool"],
+                                          hold_float_pool(
+                f"phase 3i wide fused_raw_pool: Q={qn} N={n} d={d} w={w}",
+                kn.fused_raw_pool(q, b16, roff, rsc, w),
+                kn.fused_raw_pool_plain(q, b16, roff, rsc, w),
+                lambda sl, q=q: kn.raw_pool_terms(q, b16, roff, rsc, sl), w))
+        wide_time("fused_raw_pool", d, lambda: kn.fused_raw_pool(
+            queries - rvec, b16, roff, rsc, w))
+        del b16
+        s, sd = d // 8, 8
+        codes = torch.randint(0, 256, (s, n), device=DEVICE, generator=g,
+                              dtype=torch.uint8)
+        cbt = torch.randn(s * sd, 256, device=DEVICE, generator=g) * 0.3
+        mn = kn.pq_decode_recon_t_plain(codes, cbt).float().square().sum(0)
+        mn[~valid] = float("inf")
+        for qn in WIDE_Q:
+            q = queries[:qn]
+            worst["fused_adc_pool"] = max(worst["fused_adc_pool"],
+                                          hold_float_pool(
+                f"phase 3i wide fused_adc_pool: Q={qn} S={s} sd={sd} N={n} "
+                f"w={w}", kn.fused_adc_pool(q, codes, cbt, mn, w),
+                kn.fused_adc_pool_plain(q, codes, cbt, mn, w),
+                lambda sl, q=q: kn.adc_pool_terms(q, codes, cbt, mn, sl), w))
+        wide_time("fused_adc_pool", d, lambda: kn.fused_adc_pool(
+            queries, codes, cbt, mn, w))
+        del codes, rows
+    for d in WIDE_D:
+        nlist, cap, p_cap = 64, 1024, 128
+        counts = torch.randint(1, p_cap + 1, (nlist,), device=DEVICE,
+                               generator=g)
+        counts[::5] = 0
+        args = ivf_case(g, nlist, cap, p_cap, d, counts)
+        kv, kp = kn.fused_ivf_pool(*args, nlist, cap, p_cap, 4)
+        pv, pp = kn.fused_ivf_pool_plain(*args, nlist, cap, p_cap, 4)
+        torch.cuda.synchronize()
+        rows = read_rows(args[0], p_cap)
+        fin = torch.isfinite(pv[rows])
+        same = (torch.equal(kv[rows], pv[rows])
+                and torch.equal(kp[rows][fin], pp[rows][fin]))
+        err = max_abs_err(kv[rows], pv[rows])
+        say(f"phase 3i wide fused_ivf_pool: nlist={nlist} cap={cap} "
+            f"p_cap={p_cap} d={d} winners=4 rows_read={rows.numel()} "
+            f"bit_equal={same} max_abs_err={err}")
+        if not same:
+            raise RuntimeError(f"fused_ivf_pool disagrees with its plain "
+                               f"version at d={d}")
+        worst["fused_ivf_pool"] = max(worst["fused_ivf_pool"], err)
+        ms = per_call_ms(lambda: kn.fused_ivf_pool(*args, nlist, cap, p_cap,
+                                                   4), 10)
+        timing(f"phase 3i wide fused_ivf_pool kernel nlist={nlist} cap={cap} "
+               f"p_cap={p_cap} d={d} (best of 3 windows of 10 calls)", ms,
+               "ms")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def wide_time(name, d, run, calls=10):
+    timing(f"phase 3i wide {name} kernel Q={NQ} N={WIDE_N} d={d} w=2048 "
+           f"(best of 3 windows of {calls} calls)", per_call_ms(run, calls),
+           "ms")
 
 
 def index_time(label, index, queries):
@@ -1355,6 +1550,8 @@ def main():
                "fused_adc_pool": phase_adc(),
                "fused_ivf_pool": phase_ivf_kernel(),
                "fused_scan_topk": phase_scan_topk()}
+    for name, err in phase_wide().items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
     # the main path: each phase sets every launch count to 0 just before
     # its paths and reads them just after
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),

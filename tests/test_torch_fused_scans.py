@@ -175,10 +175,24 @@ def test_raw_pool_rounds_queries_to_bf16():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def test_bf16_rows_wider_than_the_tiles_raise_on_the_card_path():
-    with pytest.raises(ValueError, match="shared memory"):
-        tk._check_bf16_dim(tk.MAX_BF16_POOL_DIM + 8)
-    tk._check_bf16_dim(tk.MAX_BF16_POOL_DIM)
+def test_raw_plain_matches_reference_kernel_past_the_resident_tile():
+    """B6 at d = 768: past the 640 dims whose query tile the card's wgmma
+    loop keeps resident (it streams the tile there), the plain version
+    still agrees with the reference."""
+    d = 768
+    base, norms, valid, r = _store(3000, d, 0.1, seed=65)
+    base16, off, sc, cvec, _ = ref_hp._build_scan16_shadow(
+        jnp.asarray(base), jnp.asarray(norms), jnp.asarray(valid), "l2", 1)
+    assert tk.wgmma_plan(2 * d, tk.BF16_POOL_STAGES)[1]  # streamed
+    qc = _queries(r, 9, d, cvec, "l2")
+    jv, js = ref_pk.fused_raw_pool(jnp.asarray(qc), base16, off, sc, 512,
+                                   interpret=True)
+    t16 = _t(np.asarray(base16.astype(jnp.float32))).to(torch.bfloat16)
+    got = tk.fused_raw_pool(_t(qc), t16, _t(off), _t(sc), 512)
+    res = tk.check_float_pool(
+        got, (_t(jv), _t(js)),
+        lambda s: tk.raw_pool_terms(_t(qc), t16, _t(off), _t(sc), s), 512)
+    assert res["ok"], res
 
 
 # ------------------------------------------------------ fused_adc_pool (B5)
@@ -209,6 +223,26 @@ def test_adc_plain_matches_reference_kernel(qn, n, w, k, s, sd):
         lambda sl: tk.adc_pool_terms(_t(q), _t(codes), _t(cbt), _t(norms),
                                      sl),
         tk.pool_width(w))
+    assert res["ok"], res
+
+
+def test_adc_plain_matches_reference_kernel_past_the_resident_tile():
+    """B5 at d = 768 (S = 96, sd = 8), as B6 above."""
+    s, sd, k, n = 96, 8, 256, 3000
+    r = np.random.default_rng(66)
+    codes = r.integers(0, k, (s, n), dtype=np.uint8)
+    cbt = (r.standard_normal((s * sd, k)) * 0.5).astype(np.float32)
+    norms = np.where(r.uniform(size=n) > 0.1, r.uniform(1, 30, n),
+                     np.inf).astype(np.float32)
+    q = r.standard_normal((7, s * sd)).astype(np.float32)
+    jv, js = ref_pk.fused_adc_pool(jnp.asarray(q), jnp.asarray(codes),
+                                   jnp.asarray(cbt), jnp.asarray(norms), 512,
+                                   interpret=True)
+    got = tk.fused_adc_pool(_t(q), _t(codes), _t(cbt), _t(norms), 512)
+    res = tk.check_float_pool(
+        got, (_t(jv), _t(js)),
+        lambda sl: tk.adc_pool_terms(_t(q), _t(codes), _t(cbt), _t(norms),
+                                     sl), 512)
     assert res["ok"], res
 
 

@@ -5,7 +5,8 @@
 main path's shapes and the ragged ones) within the f32 summation-order
 bound of ``ops/kernels.check_float_pool``; B8 ``fused_ivf_pool`` bit-equal on
 the rows the merge reads, B1 ``fused_scan_topk`` within the bound of
-``ops/kernels.check_scan_topk``.  Every test is marked ``cuda``
+``ops/kernels.check_scan_topk``; all six pools at rows of any width
+(516, 768, 1024, 1536 dims).  Every test is marked ``cuda``
 and skips without a card.  This file imports no JAX, so it runs on a machine
 with a card and no JAX:
 
@@ -177,9 +178,9 @@ def test_scan_topk_within_bound_of_plain_on_card():
 @pytest.mark.parametrize("d", [32, 96, 512, 592, 640])
 def test_raw_pool_ragged_shapes_within_bound_on_card(d):
     """B6 on the wgmma tile loop: queries past one 128-row tile, d not a
-    multiple of the 64-dim k-chunk (592, and 640, the widest: a three-stage
-    ring), N not a multiple of the pool width, and a width the shadow did
-    not pad."""
+    multiple of the 64-dim k-chunk (592, and 640, the widest resident query
+    tile: a three-stage ring), N not a multiple of the pool width, and a
+    width the shadow did not pad."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -244,3 +245,70 @@ def test_adc_pool_ragged_shapes_within_bound_on_card(s, sd):
                     q, codes, cbt, mn, sl),
                 tk.pool_width(w))
             assert res["ok"], (start, qn, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [516, 768, 1024, 1536])
+def test_pools_take_rows_of_any_width_on_card(d):
+    """All six pools at widths past the old limits: 516 (s8 rows that are
+    not whole 16-byte vectors: the cp.async producer), 768 and 1024 (bf16
+    rows past the resident query tile: the streamed layout), 1536 (past
+    2^24 in the s8 cross term).  The s8 pools bit-equal, the bf16 pools
+    within the summation-order bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(8 + d)
+    dev, qn, n, w = "cuda", 129, 4096, 512
+    q = torch.randn(qn, d, device=dev, generator=g)
+    b8 = torch.randint(-127, 128, (n, d), device=dev, generator=g,
+                       dtype=torch.int8)
+    off = torch.rand(n, device=dev, generator=g)
+    off[::7] = float("inf")
+    sc = -torch.rand(n, device=dev, generator=g)
+    for kernel, plain, rows in (
+            (tk.fused_int8_pool, tk.fused_int8_pool_plain, b8),
+            (tk.fused_packed_pool, tk.fused_packed_pool_plain,
+             b8.view(torch.int32))):
+        got, want = kernel(q, rows, off, sc, w), plain(q, rows, off, sc, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    base = torch.randn(n, d, device=dev, generator=g) + 1.0
+    valid = torch.rand(n, device=dev, generator=g) > 0.1
+    norms = (base * base).sum(1)
+    g8, goff, sv, sgn, cvec, _ = hp._build_scan8g_shadow(base, norms, valid,
+                                                         "l2", 1)
+    got = tk.fused_int8g_pool(q - cvec, g8, goff, sv, sgn, w)
+    want = tk.fused_int8g_pool_plain(q - cvec, g8, goff, sv, sgn, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    b16, roff, rsc, cvec, _ = hp._build_scan16_shadow(base, norms, valid,
+                                                      "l2", 1)
+    qc = q - cvec
+    res = tk.check_float_pool(
+        tk.fused_raw_pool(qc, b16, roff, rsc, w),
+        tk.fused_raw_pool_plain(qc, b16, roff, rsc, w),
+        lambda s: tk.raw_pool_terms(qc, b16, roff, rsc, s), w)
+    assert res["ok"], res
+    s, sd = d // 4, 4
+    codes = torch.randint(0, 256, (s, n), device=dev, generator=g,
+                          dtype=torch.uint8)
+    cbt = torch.randn(s * sd, 256, device=dev, generator=g) * 0.3
+    mn = tk.pq_decode_recon_t_plain(codes, cbt).float().square().sum(0)
+    res = tk.check_float_pool(
+        tk.fused_adc_pool(q, codes, cbt, mn, w),
+        tk.fused_adc_pool_plain(q, codes, cbt, mn, w),
+        lambda sl: tk.adc_pool_terms(q, codes, cbt, mn, sl), w)
+    assert res["ok"], res
+    nlist, cap, p_cap = 5, 256, 64
+    qsel = b8[:nlist * p_cap].view(torch.int32)
+    cm = b8[:nlist * cap].view(torch.int32)
+    counts = torch.tensor([64, 0, 3, 40, 17], device=dev, dtype=torch.int32)
+    kv, kp = tk.fused_ivf_pool(counts, qsel, cm, off[:nlist * cap],
+                               sc[:nlist * cap], nlist, cap, p_cap, 2)
+    pv, pp = tk.fused_ivf_pool_plain(counts, qsel, cm, off[:nlist * cap],
+                                     sc[:nlist * cap], nlist, cap, p_cap, 2)
+    torch.cuda.synchronize()
+    rows = torch.cat([c * p_cap + torch.arange(int(counts[c]), device=dev)
+                      for c in range(nlist)])
+    assert torch.equal(kv[rows], pv[rows])
+    fin = torch.isfinite(pv[rows])
+    assert torch.equal(kp[rows][fin], pp[rows][fin])

@@ -1,11 +1,10 @@
 """The host side of the pool kernels (``vector_db_torch/ops/kernels.py``)
 that runs before any launch: the pass-split plan of ``_run_pool`` for the
-s8 tile loop (64-query tiles) and the bf16 wgmma tile loop (128-query
-tiles), and the bf16 row-width limit derived from the wgmma loop's
-shared-memory layout.  CPU only; nothing here needs a card.
+wgmma tile loop (128-query tiles; the bf16 and the s8 pools alike), the
+ring depth and query-tile layout (resident or streamed) derived from that
+loop's shared-memory arithmetic, and that rows of any width reach the
+kernel library.  CPU only; nothing here needs a card.
 """
-
-from types import SimpleNamespace
 
 import pytest
 
@@ -14,87 +13,160 @@ torch = pytest.importorskip("torch")
 from vector_db_torch.ops import kernels as tk  # noqa: E402
 
 H100_SMS = 132
-B6_N = 1_001_472   # the 1M store's bf16 shadow rows (scan_pallas)
+B6_N = 1_001_472   # the 1M store's shadow rows (scan_pallas, scan_pallas_int8)
 B5_N = 524_288     # one adc_fast chunk (adc_pool="fused")
 
 
-@pytest.mark.parametrize("qn,n,w,tile_q,want", [
+@pytest.mark.parametrize("qn,n,w,want", [
     # B6 at its main shape: 16 x 8 = 128 tiles fill >= 90% of the SMs
-    (1024, B6_N, 2048, tk.BF16_TILE_Q, 1),
-    # few or part-filled tiles: ~2 waves of pass splits
-    (129, B6_N, 2048, tk.BF16_TILE_Q, 8),
-    (13, B6_N, 2048, tk.BF16_TILE_Q, 16),
-    (1, B6_N, 2048, tk.BF16_TILE_Q, 16),
+    (1024, B6_N, 2048, 1),
+    # two query tiles, the second part-filled: ~2 waves of pass splits
+    (129, B6_N, 2048, 8),
+    # one query tile: one wave of alike blocks
+    (13, B6_N, 2048, 8),
+    (1, B6_N, 2048, 8),
     # B5 over one chunk: 128 column tiles already fill the card
-    (1024, B5_N, 16384, tk.BF16_TILE_Q, 1),
-    (13, B5_N, 16384, tk.BF16_TILE_Q, 1),
-    (1, B5_N, 16384, tk.BF16_TILE_Q, 1),
-    # the s8 pools keep their plan (~4 blocks an SM)
-    (1024, B6_N, 2048, tk.S8_TILE_Q, 3),
-    (13, B6_N, 2048, tk.S8_TILE_Q, 33),
-    (1, B6_N, 2048, tk.S8_TILE_Q, 33),
+    (1024, B5_N, 16384, 1),
+    (13, B5_N, 16384, 1),
+    (1, B5_N, 16384, 1),
+    # the s8 pools (B2, B4, B7) at the 1M shape: the same 128-query tiles
+    (1024, B6_N, 4096, 1),
+    (13, B6_N, 512, 33),
+    (1, B6_N, 256, 66),
+    (200, B6_N, 512, 33),  # 2 x 4 tiles: ~2 waves
     # never more splits than passes, never fewer than one
-    (1, 4000, 2048, tk.BF16_TILE_Q, 2),
-    (1, 0, 2048, tk.BF16_TILE_Q, 1),
+    (1, 4000, 2048, 2),
 ])
-def test_pool_split_plan(qn, n, w, tile_q, want):
-    assert tk.pool_splits(qn, n, w, H100_SMS, tile_q) == want
+def test_pool_split_plan(qn, n, w, want):
+    assert tk.pool_splits(qn, n, w, H100_SMS) == want
+    assert tk.pool_splits(qn, 0, w, H100_SMS) == 1  # no pass: one split
 
 
 @pytest.mark.parametrize("qn", [1, 13, 129, 1024])
-@pytest.mark.parametrize("tile_q", [tk.S8_TILE_Q, tk.BF16_TILE_Q])
-def test_pool_splits_cover_every_pass(qn, tile_q):
+@pytest.mark.parametrize("sms", [H100_SMS, 114])  # H100 SXM, H100 PCIe
+def test_pool_splits_cover_every_pass(qn, sms):
     """Each split takes ceil(passes / splits) passes, so the splits cover
     every pass and none is empty past the last (the merge reads them in
     pass order)."""
     for n, w in [(B6_N, 2048), (B5_N, 16384), (5003, 384), (128, 128)]:
         passes = -(-n // w)
-        sp = tk.pool_splits(qn, n, w, H100_SMS, tile_q)
+        sp = tk.pool_splits(qn, n, w, sms)
         per = -(-passes // sp)
         assert 1 <= sp <= passes
         assert (sp - 1) * per < passes <= sp * per
 
 
-def test_bf16_width_limit_follows_the_wgmma_tile_layout():
-    """The widest bf16 row: the [128, d] query tile in 64-dim k-chunks of
-    16 KB plus three 16 KB ring stages (the fewest the decode's hand-over
-    needs), 2 KB of per-column values, 128 B of barriers and 1 KB of
-    alignment within one H100 block's 232,448 bytes (csrc/pool_wgmma.cuh);
-    it still takes every width the earlier kernel took (592)."""
-    def smem(d, stages):
-        return 1024 + (-(-d // 64) + stages) * 128 * 64 * 2 + 2048 + 128
-
-    limit = tk.MAX_BF16_POOL_DIM
-    assert limit == 640 and limit % 64 == 0 and limit >= 592
-    assert smem(limit, 3) <= 232448 < smem(limit + 1, 3)
-    tk._check_bf16_dim(592)
-    tk._check_bf16_dim(limit)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk._check_bf16_dim(limit + 1)
+def _smem(row_bytes, stages, streamed):
+    """One block of csrc/pool_wgmma.cuh, counted here independently: 1 KB of
+    alignment, 16 KB k-chunks of [128 rows x 128 bytes] (the query tile's
+    ceil(row_bytes / 128), or one query slab a stage when streamed, beside
+    each stage's corpus chunk), 2 KB of per-column values, 256 B of
+    barriers."""
+    q_chunks = stages if streamed else -(-row_bytes // 128)
+    return 1024 + (q_chunks + stages) * 128 * 128 + 2048 + 256
 
 
-def _fake(shape, dtype):
-    """A stand-in for a CUDA tensor: only the attributes the wrappers read
-    before they build or launch anything."""
-    return SimpleNamespace(shape=tuple(shape), ndim=len(shape), dtype=dtype,
-                           device=torch.device("cuda"))
+@pytest.mark.parametrize("d,elem,max_stages,want", [
+    # bf16 (2 bytes a dim), a four-stage ring
+    (512, 2, tk.BF16_POOL_STAGES, (4, False)),
+    (576, 2, tk.BF16_POOL_STAGES, (4, False)),
+    (640, 2, tk.BF16_POOL_STAGES, (3, False)),   # the widest resident
+    (704, 2, tk.BF16_POOL_STAGES, (4, True)),
+    (768, 2, tk.BF16_POOL_STAGES, (4, True)),
+    (1536, 2, tk.BF16_POOL_STAGES, (4, True)),
+    # s8 (1 byte a dim): half the query tile, room for a deeper ring
+    (512, 1, 9, (9, False)),
+    (516, 1, 9, (8, False)),
+    (1280, 1, 9, (3, False)),                    # the widest resident
+    (1408, 1, 9, (6, True)),
+    (1536, 1, 9, (6, True)),
+    (4096, 1, 9, (6, True)),
+])
+def test_wgmma_plan_follows_the_shared_memory_layout(d, elem, max_stages,
+                                                     want):
+    """The query tile stays resident while it and three stages fit one
+    H100 block's 232,448 bytes, with as many stages as fit up to the
+    ring's depth; past that every stage streams its query slab, and any
+    width fits."""
+    stages, streamed = tk.wgmma_plan(d * elem, max_stages)
+    assert (stages, streamed) == want
+    assert 3 <= stages <= max_stages
+    assert _smem(d * elem, stages, streamed) <= 232448
+    fits_resident = _smem(d * elem, 3, False) <= 232448
+    assert streamed == (not fits_resident)
+    if not streamed and stages < max_stages:  # one more stage would not fit
+        assert _smem(d * elem, stages + 1, False) > 232448
 
 
-def test_too_wide_rows_raise_before_any_build_or_launch(monkeypatch):
-    def no_build():
-        raise AssertionError("the kernel library was reached")
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so a wrapper takes its card
+    path (the results of its operations report it too)."""
 
-    monkeypatch.setattr(tk.LIBRARY, "get", no_build)
-    d = tk.MAX_BF16_POOL_DIM + 8
-    n = 4096
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.fused_raw_pool(_fake((4, d), torch.float32),
-                          _fake((n, d), torch.bfloat16),
-                          _fake((n,), torch.float32),
-                          _fake((n,), torch.float32), 2048)
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+class _Reached(Exception):
+    pass
+
+
+def _card(x):
+    return x.as_subclass(_OnCard)
+
+
+def _wide_calls(d):
+    """One call of each pool at rows of d dims, on card-reporting tensors."""
+    g = torch.Generator().manual_seed(d)
+    n, qn = 4096, 4
+    q = _card(torch.randn(qn, d, generator=g))
+    f32 = lambda m: _card(torch.rand(m, generator=g))  # noqa: E731
+    b8 = _card(torch.randint(-127, 128, (n, d), generator=g,
+                             dtype=torch.int8))
     s, sd, k = d // 8, 8, 256
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.fused_adc_pool(_fake((4, s * sd), torch.float32),
-                          _fake((s, n), torch.uint8),
-                          _fake((s * sd, k), torch.float32),
-                          _fake((n,), torch.float32), 2048)
+    p_cap, cap, nlist = 64, 256, 4
+    return {
+        "fused_int8_pool": lambda: tk.fused_int8_pool(q, b8, f32(n), f32(n),
+                                                      2048),
+        "fused_packed_pool": lambda: tk.fused_packed_pool(
+            q, b8.view(torch.int32), f32(n), f32(n), 2048),
+        "fused_int8g_pool": lambda: tk.fused_int8g_pool(
+            q, b8, f32(n), torch.tensor(0.01), 2.0, 2048),
+        "fused_raw_pool": lambda: tk.fused_raw_pool(
+            q, b8.to(torch.bfloat16), f32(n), f32(n), 2048),
+        "fused_adc_pool": lambda: tk.fused_adc_pool(
+            q, _card(torch.randint(0, k, (s, n), generator=g,
+                                   dtype=torch.uint8)),
+            _card(torch.randn(s * sd, k, generator=g)), f32(n), 2048),
+        "fused_ivf_pool": lambda: tk.fused_ivf_pool(
+            _card(torch.full((nlist,), 3, dtype=torch.int32)),
+            b8[:nlist * p_cap].view(torch.int32),
+            b8[:nlist * cap].view(torch.int32), f32(nlist * cap),
+            f32(nlist * cap), nlist, cap, p_cap, 2),
+    }
+
+
+@pytest.mark.parametrize("pool", ["fused_int8_pool", "fused_packed_pool",
+                                  "fused_int8g_pool", "fused_raw_pool",
+                                  "fused_adc_pool", "fused_ivf_pool"])
+@pytest.mark.parametrize("d", [1536, 1544])
+def test_wide_rows_reach_the_kernel_library(monkeypatch, pool, d):
+    """No pool refuses a row width the reference takes: on the card path a
+    call with rows of 1536 (or 1544: not whole 128-byte chunks) dims gets
+    past every check to the kernel library (here a stand-in that stops
+    the call)."""
+    def reached():
+        raise _Reached
+
+    monkeypatch.setattr(tk.LIBRARY, "get", reached)
+    with pytest.raises(_Reached):
+        _wide_calls(d)[pool]()
+
+
+def test_rows_past_the_int32_range_raise():
+    """The one width limit left: the s8 cross term must fit int32."""
+    d = tk.MAX_INT8_DIM
+    assert 127 ** 2 * d < 2 ** 31 <= 127 ** 2 * (d + 1)
+    tk._check_s32_range(d)
+    with pytest.raises(ValueError, match="int32"):
+        tk._check_s32_range(d + 1)

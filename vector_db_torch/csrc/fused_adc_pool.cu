@@ -1,6 +1,6 @@
 // Fused PQ decode + bf16 scan + strided-bucket min pool, for NVIDIA Hopper:
-// the producer of the bf16 tile loop (pool_wgmma.cuh) that decodes codes
-// into the ring.
+// the bf16 instance of the wgmma tile loop (pool_wgmma.cuh) with a producer
+// that decodes codes into the ring.
 //
 // Replaces the TPU kernel `fused_adc_pool` of
 // vector_db_tpu/ops/pallas_kernels.py (:284, pallas_call at :338; body
@@ -33,7 +33,10 @@
 // fence.proxy.async.shared::cta (the copies are generic-proxy writes that
 // wgmma, an async-proxy reader, would not otherwise see).  Dims past d and
 // slots past N are written as zeros (and those slots score +inf through
-// their norms).  Any K <= 256 indexes the table directly; entries of 16, 8, 4
+// their norms).  Rows past 640 dims stream the query tile through the ring
+// (pool_wgmma.cuh's streamed layout: one TMA of the stage's query slab by
+// warp 0's lane 0 beside the decode, counted on the stage's full barrier).
+// Any K <= 256 indexes the table directly; entries of 16, 8, 4
 // or 2 bytes (the largest unit that divides the entry and the table's
 // alignment) are template instances.  The epilogue rounds each operation
 // (__fmul_rn, __fsub_rn).
@@ -48,6 +51,8 @@
 #include "pool_wgmma.cuh"
 
 namespace {
+
+constexpr int kTK = wg::Bf16Mma::kDims;  // dims of one k-chunk
 
 // Copy kUnit bytes global -> shared (cp.async; 2 bytes by a plain load).
 template <int kUnit>
@@ -82,6 +87,8 @@ __device__ __forceinline__ void zero_unit(uint32_t dst) {
 
 template <int kUnit>
 struct AdcDecode {
+  using Mma = wg::Bf16Mma;
+  using Val = float;
   static constexpr int kFullArrivals = 4;     // one per producer warp
   static constexpr int kPer = 32 / kUnit;     // units a thread decodes a stage
   static constexpr bool kPrefetch = kUnit >= 8;  // codes of the next stage
@@ -92,7 +99,11 @@ struct AdcDecode {
   int d, sd, K;
   bool codes4;  // code rows 4-byte aligned: one load for four columns
 
-  __device__ __forceinline__ static float score(float acc, float o, float) {
+  __device__ __forceinline__ static float init() { return INFINITY; }
+  __device__ __forceinline__ static bool live(float v) { return isfinite(v); }
+  __device__ __forceinline__ float row_value(int, int) const { return 0.f; }
+  __device__ __forceinline__ static float score(float acc, float o, float,
+                                               float) {
     return __fsub_rn(o, __fmul_rn(2.f, acc));
   }
   __device__ __forceinline__ void col_values(long long slot, int N,
@@ -106,7 +117,7 @@ struct AdcDecode {
   __device__ __forceinline__ uint32_t code_word(long long row0, int kc, int N,
                                                 int cg, int m) const {
     const long long col0 = row0 + 4 * cg;
-    const int dim0 = wg::kTK * kc + m * (kUnit / 2);
+    const int dim0 = kTK * kc + m * (kUnit / 2);
     if (dim0 >= d || col0 >= N) return 0;
     const uint8_t* src = codes + (size_t)(dim0 / sd) * ld + col0;
     if (codes4 && col0 + 4 <= N)
@@ -125,7 +136,7 @@ struct AdcDecode {
                                              long long row0, int kc, int N,
                                              int cg, int m) const {
     const int ob = m * kUnit;
-    const int dim0 = wg::kTK * kc + ob / 2;
+    const int dim0 = kTK * kc + ob / 2;
     const int s = dim0 / sd;
     const __nv_bfloat16* entry = cbk + (size_t)s * K * sd + (dim0 - s * sd);
 #pragma unroll
@@ -187,8 +198,8 @@ struct AdcDecode {
     for (int it = 0; it < total; ++it) {
       if (warp == 0 && kc == 0) wg::col_load(*this, row0, N, lane, v0, v1);
       wg::wait(r.empty + 8 * s, ph ^ 1);
-      decode_stage(r.stage + s * wg::kChunkBytes, cur, row0, kc, N, lane,
-                   warp);
+      if (warp == 0 && lane == 0) wg::stream_query<kTK>(r, s, kc);
+      decode_stage(wg::slab(r, s), cur, row0, kc, N, lane, warp);
       wg::cp_async_commit();
       int nkc = kc + 1;
       long long nrow0 = row0;
@@ -201,7 +212,7 @@ struct AdcDecode {
       }
       if (it > 0) {
         wg::cp_async_wait<1>();
-        hand_over(r, (it - 1) % r.stages, lane);
+        wg::hand_over(r, (it - 1) % r.stages, lane);
       }
       if (warp == 0 && kc == r.kc_n - 1) wg::col_store(r, pl, lane, v0, v1);
       if (++s == r.stages) {
@@ -217,16 +228,7 @@ struct AdcDecode {
       row0 = nrow0;
     }
     wg::cp_async_wait<0>();
-    hand_over(r, (total - 1) % r.stages, lane);
-  }
-
-  // A stage's copies are complete in this thread: make them visible to the
-  // async proxy, then one arrival per warp.
-  __device__ __forceinline__ static void hand_over(const wg::Ring& r, int s,
-                                                   int lane) {
-    wg::fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) wg::arrive(r.full + 8 * s);
+    wg::hand_over(r, (total - 1) % r.stages, lane);
   }
 };
 
@@ -234,7 +236,8 @@ template <int kUnit>
 int launch_unit(const void* q16, const uint8_t* codes, long long ld,
                 const void* cbk, const void* norms, void* part_vals,
                 void* part_slots, void* vals, void* slots, int q, int n,
-                int S, int sd, int K, int w, int splits, void* stream) {
+                int S, int sd, int K, int w, int splits, int stages,
+                int streamed, void* stream) {
   AdcDecode<kUnit> op;
   op.codes = codes;
   op.ld = ld;
@@ -244,8 +247,9 @@ int launch_unit(const void* q16, const uint8_t* codes, long long ld,
   op.sd = sd;
   op.K = K;
   op.codes4 = reinterpret_cast<uintptr_t>(codes) % 4 == 0 && ld % 4 == 0;
-  return wg::launch(q16, nullptr, op, part_vals, part_slots, vals, slots, q,
-                    n, (S * sd + 7) & ~7, w, splits, stream);
+  const int d8 = (S * sd + 7) & ~7;
+  return wg::launch(q16, d8, nullptr, op, part_vals, part_slots, vals, slots,
+                    q, n, d8, w, splits, stages, streamed, stream);
 }
 
 }  // namespace
@@ -255,14 +259,17 @@ extern "C" {
 // Launch on `stream`.  q16 [q, d8] bf16 contiguous (d8 = S*sd rounded up to
 // 8, the extra columns zero, 16-byte aligned); codes: S rows of n uint8
 // codes < K <= 256, row stride ld >= n bytes; cbk [S, K, sd] bf16
-// contiguous; norms [n] f32; w % 128 == 0.  With splits == 1 the kernel
-// writes vals/slots [q, w] directly; otherwise part_vals/part_slots
-// [splits, q, w], merged into vals/slots.  Returns 0, a cudaError_t, or
-// wg::kTensorMapError + a CUresult.
+// contiguous; norms [n] f32; w % 128 == 0; `stages` ring stages and the
+// resident (streamed == 0) or streamed query tile, as ops/kernels.wgmma_plan
+// chooses them.  With splits == 1 the kernel writes vals/slots [q, w]
+// directly; otherwise part_vals/part_slots [splits, q, w], merged into
+// vals/slots.  Returns 0, a cudaError_t, or wg::kTensorMapError + a
+// CUresult.
 int vdb_fused_adc_pool(const void* q16, const void* codes, long long ld,
                        const void* cbk, const void* norms, void* part_vals,
                        void* part_slots, void* vals, void* slots, int q, int n,
-                       int S, int sd, int K, int w, int splits, void* stream) {
+                       int S, int sd, int K, int w, int splits, int stages,
+                       int streamed, void* stream) {
   if (S <= 0 || sd <= 0 || K <= 0 || K > 256 || ld < n)
     return (int)cudaErrorInvalidValue;
   const uint8_t* c = static_cast<const uint8_t*>(codes);
@@ -277,16 +284,20 @@ int vdb_fused_adc_pool(const void* q16, const void* codes, long long ld,
   switch (unit) {
     case 16:
       return launch_unit<16>(q16, c, ld, cbk, norms, part_vals, part_slots,
-                             vals, slots, q, n, S, sd, K, w, splits, stream);
+                             vals, slots, q, n, S, sd, K, w, splits,
+                            stages, streamed, stream);
     case 8:
       return launch_unit<8>(q16, c, ld, cbk, norms, part_vals, part_slots,
-                            vals, slots, q, n, S, sd, K, w, splits, stream);
+                            vals, slots, q, n, S, sd, K, w, splits,
+                            stages, streamed, stream);
     case 4:
       return launch_unit<4>(q16, c, ld, cbk, norms, part_vals, part_slots,
-                            vals, slots, q, n, S, sd, K, w, splits, stream);
+                            vals, slots, q, n, S, sd, K, w, splits,
+                            stages, streamed, stream);
     default:
       return launch_unit<2>(q16, c, ld, cbk, norms, part_vals, part_slots,
-                            vals, slots, q, n, S, sd, K, w, splits, stream);
+                            vals, slots, q, n, S, sd, K, w, splits,
+                            stages, streamed, stream);
   }
 }
 

@@ -1,7 +1,7 @@
 // Fused s8 scan + strided-bucket min pool over a corpus matrix, for NVIDIA
-// Hopper: three TPU kernels of vector_db_tpu/ops/pallas_kernels.py through one
-// tile loop (pool_tile.cuh) with two epilogues.  (The bf16 pool B6 is
-// fused_raw_pool.cu, on the wgmma tile loop of pool_wgmma.cuh.)
+// Hopper: three TPU kernels of vector_db_tpu/ops/pallas_kernels.py on the s8
+// instance of the wgmma tile loop (pool_wgmma.cuh), with two epilogues and
+// two producers.
 //
 //   entry                   TPU kernel (pallas_call)   operands, epilogue
 //   vdb_fused_int8_pool     fused_int8_pool :585 (:631)  s8 x s8 -> s32,
@@ -15,110 +15,214 @@
 // per-slot columns off [N] (and sc [N]):
 //
 //   * per-row s8 (B2, B4): score = off[n] + (float(q8 . v8_n) * sc[n]) * sq[q],
-//     sq the per-query scale; +inf/-1 where empty.
+//     sq the per-query scale (kept in the consumer's registers); +inf/-1
+//     where empty.
 //   * global s8 (B7): score = off_i[n] - (q8 . v8_n), all int32, init
-//     INT32_MAX; slots past N score 2^29 (a dead slot).  The wrapper scales the
+//     INT32_MAX; slots past N score 2^29 (a dead slot).  The per-column
+//     buffer carries off_i as the bits of a float.  The wrapper scales the
 //     [Q, W] result back to f32 and masks scores >= 2^28, as the reference
 //     does outside its kernel (:826-828).
 //
-// The f32 epilogue rounds each operation separately (__fmul_rn / __fadd_rn)
-// in the reference's order, so nvcc cannot contract it into an FMA.  The s8
-// cross terms are exact (|q8 . v8| <= 127^2 * d < 2^24 for d <= 1040), so B2,
-// B4 and B7 are bit-equal to their plain PyTorch versions (ops/kernels.py).
+// The cross terms are exact s32 sums of wgmma m64n128k32 products at any
+// width below the s32 range (127^2 d < 2^31), converted to f32 once
+// (__int2float_rn) as the reference does (cross.astype(jnp.float32)); the
+// f32 epilogue rounds each operation separately (__fmul_rn / __fadd_rn) in
+// the reference's order, so nvcc cannot contract it into an FMA.  So B2, B4
+// and B7 are bit-equal to their plain PyTorch versions (ops/kernels.py).
+//
+// The producer is chosen by shape: rows of whole, 16-byte aligned vectors
+// (d % 16 == 0) come by TMA from a uint8 tensor map; other rows (d % 4 ==
+// 0: the int8 shadows pad rows only to 4 bytes, and B4 reads the compressed
+// store's own rows, which cannot be re-padded; TMA's global stride must be
+// a multiple of 16 bytes) by 4-byte cp.async copies from all four producer
+// warps, handed over with fence.proxy.async as B5's decode does.
 //
 // What bounds them on an H100: at the main path's shape (Q = 1024 queries,
-// N ~ 1M slots, d = 512) the 5.4e11 multiply-adds, on the tensor cores
-// through mma.sync; the corpus itself is 0.5 GB.
+// N ~ 1M slots, d = 512) the 5.4e11 s8 multiply-adds (0.53 ms of the int8
+// tensor cores); the 0.5 GB corpus crosses L2 -> SM once per 128-query tile
+// (8 times at Q = 1024).
 //
 // On the TPU, B4 unpacks its int32 words by shifts into a lane-permuted order;
 // on this card the little-endian words are the int8 rows in true dim order,
 // so B4 is B2's kernel over the same bytes.
 
-#include "pool_tile.cuh"
+#include "pool_wgmma.cuh"
 
 namespace {
 
-using pool::kTN;
-
 // B2, B4: f32 score = off + (float(cross) * sc) * sq.
-struct ScaledS8 : pool::MatrixRows {
-  using Acc = int;
+struct Scaled {
+  using Mma = wg::S8Mma;
   using Val = float;
-  using Col = float;
   const float* off;
   const float* sc;
   const float* sq;
-  __device__ static float init() { return INFINITY; }
-  __device__ void prepare(int32_t*, int, int, int) const {}
-  __device__ float row_value(int qr, int Q) const {
-    return qr < Q ? sq[qr] : 0.f;
+  __device__ __forceinline__ static float init() { return INFINITY; }
+  __device__ __forceinline__ static bool live(float v) { return isfinite(v); }
+  __device__ __forceinline__ float row_value(int row, int Q) const {
+    return row < Q ? __ldg(sq + row) : 0.f;
   }
-  __device__ void stage_cols(float* c0, float* c1, int i, long long slot,
-                             int N) const {
-    c0[i] = slot < N ? off[slot] : INFINITY;
-    c1[i] = slot < N ? sc[slot] : 0.f;
+  __device__ __forceinline__ void col_values(long long slot, int N,
+                                             float& v0, float& v1) const {
+    v0 = slot < N ? __ldg(off + slot) : INFINITY;
+    v1 = slot < N ? __ldg(sc + slot) : 0.f;
   }
-  __device__ static float score(int acc, float o, float c, float r) {
+  __device__ __forceinline__ static float score(int32_t acc, float o,
+                                               float c, float r) {
     return __fadd_rn(o, __fmul_rn(__fmul_rn(__int2float_rn(acc), c), r));
-  }
-  __device__ static int32_t final_slot(float v, int32_t s) {
-    return isfinite(v) ? s : -1;
   }
 };
 
 // B7: int32 score = off_i - cross (the wrapper scales it back to f32).
-struct GlobalS8 : pool::MatrixRows {
-  using Acc = int;
-  using Val = int;
-  using Col = int;
+struct Global {
+  using Mma = wg::S8Mma;
+  using Val = int32_t;
   const int32_t* off_i;
-  __device__ static int init() { return 0x7fffffff; }
-  __device__ void prepare(int32_t*, int, int, int) const {}
-  __device__ float row_value(int, int) const { return 0.f; }
-  __device__ void stage_cols(int* c0, float* c1, int i, long long slot,
-                             int N) const {
-    c0[i] = slot < N ? off_i[slot] : (1 << 29);  // past N: a dead slot
-    c1[i] = 0.f;
+  __device__ __forceinline__ static int32_t init() { return 0x7fffffff; }
+  __device__ __forceinline__ static bool live(int32_t v) {
+    return v != 0x7fffffff;
   }
-  __device__ static int score(int acc, int o, float, float) { return o - acc; }
-  __device__ static int32_t final_slot(int, int32_t s) { return s; }
+  __device__ __forceinline__ float row_value(int, int) const { return 0.f; }
+  __device__ __forceinline__ void col_values(long long slot, int N,
+                                             float& v0, float& v1) const {
+    // past N: a dead slot
+    v0 = __int_as_float(slot < N ? __ldg(off_i + slot) : (1 << 29));
+    v1 = 0.f;
+  }
+  __device__ __forceinline__ static int32_t score(int32_t acc, float o,
+                                                 float, float) {
+    return __float_as_int(o) - acc;
+  }
 };
 
-bool aligned16(const void* a, const void* b, int dw) {
-  return dw % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+// Rows of whole, 16-byte aligned vectors: one TMA per stage.
+template <class Epi>
+struct TmaRows : Epi {
+  static constexpr int kFullArrivals = 1;  // the TMA thread's expect_tx
+  __device__ __forceinline__ void produce(const wg::Ring& r,
+                                          const CUtensorMap* rmap, int N,
+                                          int W, int c0, int p_begin,
+                                          int p_end) const {
+    wg::produce_tma(*this, r, rmap, N, W, c0, p_begin, p_end);
+  }
+};
+
+// Copy 4 bytes global -> shared, or write 4 zero bytes when bytes == 0.
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-int launch_scaled(const void* q8, const void* sq, const void* base8,
-                  const void* off, const void* sc, void* part_vals,
-                  void* part_slots, void* vals, void* slots, int q, int n,
-                  int d, int w, int splits, void* stream) {
-  if (d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
-  ScaledS8 op;
-  op.base = static_cast<const int32_t*>(base8);
-  op.off = static_cast<const float*>(off);
-  op.sc = static_cast<const float*>(sc);
-  op.sq = static_cast<const float*>(sq);
-  return pool::launch(q8, op, part_vals, part_slots, vals, slots, q, n, d / 4,
-                      w, splits, aligned16(q8, base8, d / 4), stream);
+// Rows of d bytes (d % 4 == 0, 4-byte aligned): all four producer warps
+// copy each stage by 4-byte cp.async, and a stage is handed over once the
+// next one's copies started (two stages of copies in flight a thread).
+template <class Epi>
+struct CopyRows : Epi {
+  static constexpr int kFullArrivals = 4;  // one per producer warp
+  const uint8_t* rows;
+  int d;
+
+  // k-chunk kc of slots row0 .. row0 + 127 into the slab: warp u copies
+  // rows u, u + 4, ..., lane l the row's bytes 4l .. 4l + 3 of the chunk,
+  // at r*128 + ((l/4) ^ (r%8))*16 + (l%4)*4, the 128-byte swizzle of the
+  // wgmma descriptors; zeros past d and past N.
+  __device__ __forceinline__ void copy_chunk(uint32_t slab, long long row0,
+                                             int kc, int N, int warp,
+                                             int lane) const {
+    const int byte = wg::kRowBytes * kc + 4 * lane;
+    const uint32_t col = (lane & 3) << 2;
+#pragma unroll 4
+    for (int r = warp; r < wg::kTN; r += 4) {
+      const bool ok = byte < d && row0 + r < N;
+      const uint8_t* src = ok ? rows + (size_t)(row0 + r) * d + byte : rows;
+      copy4(slab + r * wg::kRowBytes + ((((lane >> 2) ^ (r & 7)) << 4) | col),
+            src, ok ? 4 : 0);
+    }
+  }
+
+  __device__ __forceinline__ void produce(const wg::Ring& r,
+                                          const CUtensorMap*, int N, int W,
+                                          int c0, int p_begin,
+                                          int p_end) const {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int total = (p_end - p_begin) * r.kc_n;
+    if (total <= 0) return;
+    float v0[4], v1[4];
+    int kc = 0, pl = 0, s = 0;
+    uint32_t ph = 0;
+    long long row0 = (long long)p_begin * W + c0;
+    for (int it = 0; it < total; ++it) {
+      if (warp == 0 && kc == 0) wg::col_load(*this, row0, N, lane, v0, v1);
+      wg::wait(r.empty + 8 * s, ph ^ 1);
+      if (warp == 0 && lane == 0) wg::stream_query<wg::S8Mma::kDims>(r, s, kc);
+      copy_chunk(wg::slab(r, s), row0, kc, N, warp, lane);
+      wg::cp_async_commit();
+      if (it > 0) {
+        wg::cp_async_wait<1>();
+        wg::hand_over(r, (it - 1) % r.stages, lane);
+      }
+      if (warp == 0 && kc == r.kc_n - 1) wg::col_store(r, pl, lane, v0, v1);
+      if (++s == r.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+      if (++kc == r.kc_n) {
+        kc = 0;
+        row0 += W;
+        ++pl;
+      }
+    }
+    wg::cp_async_wait<0>();
+    wg::hand_over(r, (total - 1) % r.stages, lane);
+  }
+};
+
+// The producer for these rows, then the tile loop.  q8 [q, d16] (d16 = d
+// rounded up to 16, zeros past d, 16-byte aligned) is read by TMA.
+template <class Epi>
+int launch_s8(const Epi& epi, const void* q8, const void* rows,
+              void* part_vals, void* part_slots, void* vals, void* slots,
+              int q, int n, int d, int w, int splits, int stages,
+              int streamed, void* stream) {
+  if (d <= 0 || d % 4 != 0 || reinterpret_cast<uintptr_t>(rows) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int q_cols = (d + 15) & ~15;
+  if (d % 16 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0) {
+    const TmaRows<Epi> op{epi};
+    return wg::launch(q8, q_cols, rows, op, part_vals, part_slots, vals,
+                      slots, q, n, d, w, splits, stages, streamed, stream);
+  }
+  const CopyRows<Epi> op{epi, static_cast<const uint8_t*>(rows), d};
+  return wg::launch(q8, q_cols, nullptr, op, part_vals, part_slots, vals,
+                    slots, q, n, d, w, splits, stages, streamed, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// All pointers are device pointers; w % 128 == 0; the launch goes on
-// `stream`.  With splits == 1 the kernel writes vals/slots [q, w] directly;
-// otherwise part_vals/part_slots [splits, q, w], merged into vals/slots.
-// Each returns cudaGetLastError().
+// All pointers are device pointers; q8 [q, d16] int8 (d rounded up to 16,
+// zeros past d, 16-byte aligned); w % 128 == 0; `stages` ring stages and
+// the resident (streamed == 0) or streamed query tile, as
+// ops/kernels.wgmma_plan chooses them; the launch goes on `stream`.  With
+// splits == 1 the kernel writes vals/slots [q, w] directly; otherwise
+// part_vals/part_slots [splits, q, w], merged into vals/slots.  Each
+// returns 0, a cudaError_t, or wg::kTensorMapError + a CUresult.
 
-// B2: q8 [q, d] int8, sq [q] f32, base8 [n, d] int8, off/sc [n] f32; d % 4 == 0.
+// B2: sq [q] f32, base8 [n, d] int8, off/sc [n] f32; d % 4 == 0.
 int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
                         const void* off, const void* sc, void* part_vals,
                         void* part_slots, void* vals, void* slots, int q,
-                        int n, int d, int w, int splits, void* stream) {
-  return launch_scaled(q8, sq, base8, off, sc, part_vals, part_slots, vals,
-                       slots, q, n, d, w, splits, stream);
+                        int n, int d, int w, int splits, int stages,
+                        int streamed, void* stream) {
+  const Scaled epi{static_cast<const float*>(off),
+                   static_cast<const float*>(sc),
+                   static_cast<const float*>(sq)};
+  return launch_s8(epi, q8, base8, part_vals, part_slots, vals, slots, q, n,
+                   d, w, splits, stages, streamed, stream);
 }
 
 // B4: the same kernel over the compressed store's own rows, int32 words
@@ -128,24 +232,23 @@ int vdb_fused_int8_pool(const void* q8, const void* sq, const void* base8,
 int vdb_fused_packed_pool(const void* q8, const void* sq, const void* packed,
                           const void* off, const void* sc, void* part_vals,
                           void* part_slots, void* vals, void* slots, int q,
-                          int n, int d, int w, int splits, void* stream) {
+                          int n, int d, int w, int splits, int stages,
+                          int streamed, void* stream) {
   if (w > 0 && n % w != 0) return (int)cudaErrorInvalidValue;
-  return launch_scaled(q8, sq, packed, off, sc, part_vals, part_slots, vals,
-                       slots, q, n, d, w, splits, stream);
+  return vdb_fused_int8_pool(q8, sq, packed, off, sc, part_vals, part_slots,
+                             vals, slots, q, n, d, w, splits, stages,
+                             streamed, stream);
 }
 
-// B7: q8 [q, d] int8 (one batch scale, applied by the caller), base8 [n, d]
-// int8 (one corpus scale), off_i [n] int32; vals are int32 scores.
+// B7: q8 one batch scale (applied by the caller), base8 [n, d] int8 (one
+// corpus scale), off_i [n] int32; vals are int32 scores.
 int vdb_fused_int8g_pool(const void* q8, const void* base8, const void* off_i,
                          void* part_vals, void* part_slots, void* vals,
                          void* slots, int q, int n, int d, int w, int splits,
-                         void* stream) {
-  if (d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
-  GlobalS8 op;
-  op.base = static_cast<const int32_t*>(base8);
-  op.off_i = static_cast<const int32_t*>(off_i);
-  return pool::launch(q8, op, part_vals, part_slots, vals, slots, q, n, d / 4,
-                      w, splits, aligned16(q8, base8, d / 4), stream);
+                         int stages, int streamed, void* stream) {
+  const Global epi{static_cast<const int32_t*>(off_i)};
+  return launch_s8(epi, q8, base8, part_vals, part_slots, vals, slots, q, n,
+                   d, w, splits, stages, streamed, stream);
 }
 
 }  // extern "C"

@@ -17,15 +17,18 @@
 //
 // row = cid*p_cap + p.  Output rows of unprobed clusters and rows at or past a
 // cluster's prober count are not written (the caller gathers only the rows of
-// its (query, probe) pairs).  The s8 cross term is exact (|x| <= 127^2 d <
-// 2^24 for d <= 1040), so the kernel is bit-equal to its plain PyTorch version
+// its (query, probe) pairs).  The s8 cross term is an exact s32 sum at any
+// width below the s32 range (127^2 d < 2^31), converted to f32 once as the
+// reference does, so the kernel is bit-equal to its plain PyTorch version
 // (ops/kernels.fused_ivf_pool_plain).
 //
-// Layout: one block scores a 64-prober x 128-column tile (one bucket) over the
-// full row with the s8 m16n8k32 mma.sync fragments of pool_tile.cuh (8 warps,
-// 32 x 32 each), writes the f32 scores to shared memory over the staged rows,
-// and each warp then picks the winners of 8 prober rows with a (value, lane)
-// warp reduction.  The grid is flat over (cluster, bucket, prober tile), the
+// Layout: one block scores a 64-prober x 128-column tile (one bucket) with
+// the s8 m16n8k32 mma.sync fragments of pool_tile.cuh (8 warps, 32 x 32
+// each), staging both tiles k-chunk by k-chunk (kChunkWords words = 512
+// dims at a time, so any width fits) while the s32 accumulators stay in
+// registers; then it writes the f32 scores to shared memory over the staged
+// chunks, and each warp picks the winners of 8 prober rows with a (value,
+// lane) warp reduction.  The grid is flat over (cluster, bucket, prober tile), the
 // prober tile fastest, so the blocks that read one cluster tile run together
 // and find it in L2.  The TPU kernel walks a sorted worklist of probed
 // clusters (scalar prefetch); here each block reads its cluster's prober count
@@ -54,19 +57,29 @@ using pool::kWN;
 constexpr int kPW = 128;       // pool width of a (cluster, prober) row
 constexpr int kSD = kTN + 1;   // shared score row stride (odd: no conflicts)
 constexpr int kWarps = kThreads / 32;
+constexpr int kChunkWords = 128;  // words of one staged k-chunk: 512 dims
 
 __device__ __forceinline__ bool key_less(float v1, int c1, float v2, int c2) {
   return v1 < v2 || (v1 == v2 && c1 < c2);
 }
 
-// Words of one block's shared region: the two staged tiles, reused for the
-// [kTQ][kSD] f32 scores once the products are done.
+// Shared words of one staged row: a k-chunk's words, whole k steps, padded.
+__host__ __device__ inline int chunk_stride(int dw) {
+  const int cw = dw < kChunkWords ? dw : kChunkWords;
+  return ((cw + 7) & ~7) + kPadWords;
+}
+
+// Words of one block's shared region: the two staged k-chunks, reused for
+// the [kTQ][kSD] f32 scores once the products are done.
 __host__ __device__ inline int region_words(int dw) {
-  const int stride = ((dw + 7) & ~7) + kPadWords;
-  const int tiles = (kTQ + kTN) * stride;
+  const int tiles = (kTQ + kTN) * chunk_stride(dw);
   return tiles > kTQ * kSD ? tiles : kTQ * kSD;
 }
 
+// kChunked: rows wider than one k-chunk; otherwise the chunk loop is one
+// compile-time pass (a runtime loop of one pass made the narrow rows 5-9%
+// slower on an H100).
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 ivf_pool_kernel(const int32_t* __restrict__ counts,  // [nlist]
                 const int32_t* __restrict__ qsel,    // [nlist*p_cap, dw]
@@ -89,8 +102,7 @@ ivf_pool_kernel(const int32_t* __restrict__ counts,  // [nlist]
   if (r0 >= live) return;  // an unprobed cluster, or a tile past its probers
   const int rows = min(kTQ, live - r0);
 
-  const int dw8 = (dw + 7) & ~7;
-  const int stride = dw8 + kPadWords;
+  const int stride = chunk_stride(dw);
   int32_t* s_q = smem;
   int32_t* s_b = smem + kTQ * stride;
   float* s_d = reinterpret_cast<float*>(smem);  // after the products
@@ -107,22 +119,6 @@ ivf_pool_kernel(const int32_t* __restrict__ counts,  // [nlist]
   const long long qrow0 = (long long)cid * p_cap + r0;
   const long long col0 = (long long)cid * cap + (long long)b * kTN;
 
-  // prober rows past the count stage as zeros (their scores are never read)
-  pool::stage_rows(s_q, kTQ, dw, dw8, stride, vec16,
-                   [&](int r) -> const int32_t* {
-                     return r < rows ? qsel + (size_t)(qrow0 + r) * dw
-                                     : nullptr;
-                   });
-  pool::stage_rows(s_b, kTN, dw, dw8, stride, vec16,
-                   [&](int r) -> const int32_t* {
-                     return cm + (size_t)(col0 + r) * dw;
-                   });
-  if (tid < kTN) {
-    s_off[tid] = off[col0 + tid];
-    s_sc[tid] = sc[col0 + tid];
-  }
-  __syncthreads();
-
   int acc[kMT][kNT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -131,26 +127,52 @@ ivf_pool_kernel(const int32_t* __restrict__ counts,  // [nlist]
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
 
-  for (int kw = 0; kw < dw8; kw += 8) {  // one k step = 8 words = 32 dims
-    int a[kMT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const int32_t* r = s_q + (wm0 + 16 * mt + g) * stride + kw + t;
-      a[mt][0] = r[0];
-      a[mt][1] = r[8 * stride];
-      a[mt][2] = r[4];
-      a[mt][3] = r[8 * stride + 4];
+  const int chunks = kChunked ? (dw + kChunkWords - 1) / kChunkWords : 1;
+#pragma unroll 1
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int k0 = kc * kChunkWords;
+    const int cw = kChunked ? min(kChunkWords, dw - k0) : dw;  // its words
+    const int cw8 = (cw + 7) & ~7;
+    // prober rows past the count stage as zeros (their scores are never read)
+    pool::stage_rows(s_q, kTQ, cw, cw8, stride, vec16,
+                     [&](int r) -> const int32_t* {
+                       return r < rows ? qsel + (size_t)(qrow0 + r) * dw + k0
+                                       : nullptr;
+                     });
+    pool::stage_rows(s_b, kTN, cw, cw8, stride, vec16,
+                     [&](int r) -> const int32_t* {
+                       return cm + (size_t)(col0 + r) * dw + k0;
+                     });
+    if (k0 == 0 && tid < kTN) {
+      s_off[tid] = off[col0 + tid];
+      s_sc[tid] = sc[col0 + tid];
     }
+    __syncthreads();
+
+    for (int kw = 0; kw < cw8; kw += 8) {  // one k step = 8 words = 32 dims
+      int a[kMT][4];
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int32_t* r = s_b + (wn0 + 8 * nt + g) * stride + kw + t;
-      const int b0 = r[0];
-      const int b1 = r[4];
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int32_t* r = s_q + (wm0 + 16 * mt + g) * stride + kw + t;
+        a[mt][0] = r[0];
+        a[mt][1] = r[8 * stride];
+        a[mt][2] = r[4];
+        a[mt][3] = r[8 * stride + 4];
+      }
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) pool::mma(acc[mt][nt], a[mt], b0, b1);
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int32_t* r = s_b + (wn0 + 8 * nt + g) * stride + kw + t;
+        const int b0 = r[0];
+        const int b1 = r[4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          pool::mma(acc[mt][nt], a[mt], b0, b1);
+      }
     }
+    // every warp is done with the chunk, which the next chunk or s_d
+    // overwrites
+    __syncthreads();
   }
-  __syncthreads();  // every warp is done with the tiles s_d overwrites
 
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -224,19 +246,20 @@ int vdb_fused_ivf_pool(const void* counts, const void* qsel, const void* cm,
       winners < 1 || winners * (cap / kTN) > kPW)
     return (int)cudaErrorInvalidValue;
   const int smem = (region_words(dw) + 2 * kTN) * 4;
-  if (smem > pool::kMaxSmem) return (int)cudaErrorInvalidValue;
   const long long blocks =
       (long long)nlist * (cap / kTN) * ((p_cap + kTQ - 1) / kTQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const auto kernel = dw > kChunkWords ? &ivf_pool_kernel<true>
+                                       : &ivf_pool_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&ivf_pool_kernel),
+      reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const bool vec16 = dw % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(qsel) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(cm) % 16 == 0;
-  ivf_pool_kernel<<<(unsigned)blocks, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(counts), static_cast<const int32_t*>(qsel),
       static_cast<const int32_t*>(cm), static_cast<const float*>(off),
       static_cast<const float*>(sc), static_cast<float*>(vals),

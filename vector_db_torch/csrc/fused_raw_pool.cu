@@ -1,6 +1,6 @@
 // Fused bf16 scan + strided-bucket min pool over a bf16 corpus shadow, for
-// NVIDIA Hopper: the producer of the bf16 tile loop (pool_wgmma.cuh) that
-// feeds the ring by TMA.
+// NVIDIA Hopper: the bf16 instance of the wgmma tile loop (pool_wgmma.cuh)
+// with its TMA producer.
 //
 // Replaces the TPU kernel `fused_raw_pool` of
 // vector_db_tpu/ops/pallas_kernels.py (:460, pallas_call at :519; body
@@ -26,7 +26,8 @@
 // crosses L2 -> SM once per 128-query tile (8 times at Q = 1024).  Warp 0 of
 // the producer warpgroup starts one TMA per [128 x 64] stage (rows past N
 // arrive as zeros) and stages each pass's off/sc; its other three warps
-// exit at once.
+// exit at once.  Rows past 640 dims stream the query tile through the ring
+// (pool_wgmma.cuh's streamed layout: a second TMA a stage).
 
 #include <cstdio>
 
@@ -35,12 +36,17 @@
 namespace {
 
 struct RawRows {
+  using Mma = wg::Bf16Mma;
+  using Val = float;
   static constexpr int kFullArrivals = 1;  // the TMA thread's expect_tx
   const float* off;
   const float* sc;
 
-  __device__ __forceinline__ static float score(float acc, float o,
-                                               float c) {
+  __device__ __forceinline__ static float init() { return INFINITY; }
+  __device__ __forceinline__ static bool live(float v) { return isfinite(v); }
+  __device__ __forceinline__ float row_value(int, int) const { return 0.f; }
+  __device__ __forceinline__ static float score(float acc, float o, float c,
+                                               float) {
     return __fadd_rn(o, __fmul_rn(acc, c));
   }
   __device__ __forceinline__ void col_values(long long slot, int N,
@@ -48,33 +54,11 @@ struct RawRows {
     v0 = slot < N ? __ldg(off + slot) : INFINITY;
     v1 = slot < N ? __ldg(sc + slot) : 0.f;
   }
-
   __device__ __forceinline__ void produce(const wg::Ring& r,
                                           const CUtensorMap* rmap, int N,
                                           int W, int c0, int p_begin,
                                           int p_end) const {
-    const int lane = threadIdx.x & 31;
-    if ((threadIdx.x >> 5) != 0) return;
-    int s = 0;
-    uint32_t ph = 0;
-    for (int p = p_begin; p < p_end; ++p) {
-      const long long row0 = (long long)p * W + c0;
-      float v0[4], v1[4];
-      wg::col_load(*this, row0, N, lane, v0, v1);
-      for (int kc = 0; kc < r.kc_n; ++kc) {
-        wg::wait(r.empty + 8 * s, ph ^ 1);
-        if (lane == 0) {
-          wg::arrive_expect_tx(r.full + 8 * s, wg::kChunkBytes);
-          wg::tma_load(r.stage + s * wg::kChunkBytes, rmap, r.full + 8 * s,
-                       wg::kTK * kc, (int)row0);
-        }
-        if (kc == r.kc_n - 1) wg::col_store(r, p - p_begin, lane, v0, v1);
-        if (++s == r.stages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-    }
+    wg::produce_tma(*this, r, rmap, N, W, c0, p_begin, p_end);
   }
 };
 
@@ -83,19 +67,20 @@ struct RawRows {
 extern "C" {
 
 // Launch on `stream`.  q16 [q, d] and base16 [n, d] bf16 contiguous with
-// d % 8 == 0 and 16-byte aligned rows; off/sc [n] f32; w % 128 == 0.  With
-// splits == 1 the kernel writes vals/slots [q, w] directly; otherwise
-// part_vals/part_slots [splits, q, w], merged into vals/slots.  Returns 0,
-// a cudaError_t, or wg::kTensorMapError + a CUresult.
+// d % 8 == 0 and 16-byte aligned rows; off/sc [n] f32; w % 128 == 0;
+// `stages` ring stages and the resident (streamed == 0) or streamed query
+// tile, as ops/kernels.wgmma_plan chooses them.  With splits == 1 the
+// kernel writes vals/slots [q, w] directly; otherwise part_vals/part_slots
+// [splits, q, w], merged into vals/slots.  Returns 0, a cudaError_t, or
+// wg::kTensorMapError + a CUresult.
 int vdb_fused_raw_pool(const void* q16, const void* base16, const void* off,
                        const void* sc, void* part_vals, void* part_slots,
                        void* vals, void* slots, int q, int n, int d, int w,
-                       int splits, void* stream) {
-  RawRows op;
-  op.off = static_cast<const float*>(off);
-  op.sc = static_cast<const float*>(sc);
-  return wg::launch(q16, base16, op, part_vals, part_slots, vals, slots, q, n,
-                    d, w, splits, stream);
+                       int splits, int stages, int streamed, void* stream) {
+  const RawRows op{static_cast<const float*>(off),
+                   static_cast<const float*>(sc)};
+  return wg::launch(q16, d, base16, op, part_vals, part_slots, vals, slots, q,
+                    n, d, w, splits, stages, streamed, stream);
 }
 
 // The message of a return code of any entry point of the library.

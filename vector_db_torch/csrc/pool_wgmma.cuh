@@ -1,51 +1,68 @@
-// The bf16 tensor-core scan + strided-bucket min pool of the port, for
-// NVIDIA Hopper (sm_90a): the tile loop of B6 fused_raw_pool.cu and B5
-// fused_adc_pool.cu, which are its two producers.
+// The tensor-core scan + strided-bucket min pool of the port, for NVIDIA
+// Hopper (sm_90a): one warp-specialised wgmma tile loop that serves five
+// kernels through its element type and its producer:
 //
-// One kernel template, `bf16_pool_kernel<Op>`, computes for bf16 queries
-// q [Q, d8] and the N bf16 corpus rows that `Op` produces into shared memory:
+//   bf16 m64n128k16 -> f32   B6 fused_raw_pool.cu (rows by TMA),
+//                            B5 fused_adc_pool.cu (rows decoded from PQ codes);
+//   s8 m64n128k32 -> s32     B2, B4, B7 fused_int8_pool.cu (rows by TMA, or by
+//                            cp.async where they are not whole 16-byte vectors).
 //
-//   vals[q, c]  = min over passes j of Op::score(q . v_{c + j*W}, c0, c1)
-//                 (f32 sums; strict <: the earliest pass wins a tie),
-//   slots[q, c] = its slot; +inf / -1 where empty,
+// One kernel template, `pool_kernel<Op>`, computes for queries q [Q, d] and
+// the N corpus rows that `Op` produces into shared memory:
+//
+//   vals[q, c]  = min over passes j of Op::score(q . v_{c + j*W}, c0, c1, r_q)
+//                 (strict <: the earliest pass wins a tie),
+//   slots[q, c] = its slot; Op::init() / -1 where empty,
 //
 // c0, c1 the two per-slot values Op::col_values gives (B6: off, sc; B5: the
-// masked norm).  This is the TPU kernels' `_pool_accumulate`
-// (pallas_kernels.py:375-397): the TPU grid's sequential pass axis is a
-// loop inside each block, because Hopper runs blocks in parallel and in no
-// order.
+// masked norm; B2/B4: off, sc; B7: off_i as the bits of a float) and r_q
+// the per-query value Op::row_value gives (B2/B4: the query scale sq).  The
+// products are exact (bf16 x bf16 in f32, s8 x s8 in s32); the bf16 sums
+// are f32 in the tensor cores' order, the s8 sums exact s32.  This is the
+// TPU kernels' `_pool_accumulate` (pallas_kernels.py:375-397) and
+// `_pool_accumulate_i32` (:674-694): the TPU grid's sequential pass axis is
+// a loop inside each block, because Hopper runs blocks in parallel and in
+// no order.
 //
 // The block (384 threads) is warp-specialised:
 //   * warpgroup 0, the producer (setmaxnreg down to kProducerRegs), loads
-//     the block's 128 x d8 query tile once by TMA and then fills a ring of
-//     `stages` corpus k-chunks, each [128 columns x 64 dims] bf16 (16 KB),
-//     with full/empty mbarriers: B6 by TMA from a tensor map over its rows,
-//     B5 by decoding PQ codes (cp.async gathers, then
-//     fence.proxy.async.shared::cta, so wgmma sees the generic writes);
-//     its warp 0 also stages each pass's 128 per-column values in a double
-//     buffer of its own;
+//     the block's 128-query tile once by TMA and then fills a ring of
+//     `stages` corpus k-chunks, each [128 columns x 128 bytes] (64 bf16 or
+//     128 int8 dims, 16 KB), with full/empty mbarriers; its warp 0 also
+//     stages each pass's 128 per-column values in a double buffer;
 //   * warpgroups 1 and 2, the consumers (setmaxnreg up to kConsumerRegs),
-//     own 64 query rows each and run wgmma.mma_async m64n128k16 (bf16 ->
-//     f32) over the k-chunks of a pass, releasing each stage after its
+//     own 64 query rows each and run wgmma.mma_async over the k-chunks of a
+//     pass, four 32-byte k-steps a chunk, releasing each stage after its
 //     wgmma.wait_group; after a pass's last k-chunk they apply the pool
 //     compare to the accumulators in registers while the producer already
 //     fills the next pass's stages.  Each thread keeps 64 accumulators and
 //     the running (value, pass) minimum of its 64 entries; the slot,
-//     p*W + column, is rebuilt at the end.
+//     p*W + column, is rebuilt at the end.  In the s8 pools, where the
+//     ring holds a whole pass, the two consumers take turns at the tensor
+//     cores, a pass each, so one's epilogue overlaps the other's products.
 // Every tile is in the 128-byte swizzled layout that both TMA and the wgmma
-// descriptors use (16-byte granule c of row r at granule c ^ (r % 8)); the
-// ragged edges are zeros: TMA fills rows past Q or N and dims past d8, the
-// decode writes zeros past d and past N, and a slot past N scores +inf
-// through its per-column values, so it never wins.  When the query x
-// column tiles alone cannot fill the card, the passes are split over
-// gridDim.z into partial pools that pool::merge_splits_kernel merges in pass
-// order, which keeps the earliest-pass tie rule.
+// descriptors use (16-byte granule c of row r at granule c ^ (r % 8)); both
+// operands are K-major, as the s8 wgmma requires; the ragged edges are
+// zeros: TMA fills rows past Q or N and bytes past the row, the other
+// producers write zeros there, and a slot past N never wins through its
+// per-column values.  When the query x column tiles alone cannot fill the
+// card, the passes are split over gridDim.z into partial pools that
+// pool::merge_splits_kernel merges in pass order, which keeps the
+// earliest-pass tie rule.
 //
-// Shared memory: the query tile (ceil(d8 / 64) k-chunks of 16 KB), 3-4 ring
-// stages of 16 KB, 2 KB of per-column values, the barriers, and 1 KB to
-// align the tiles to the 1024-byte swizzle atom.  At d = 512 that is 128 +
-// 64 KB; rows wider than 640 dims leave room for fewer than three stages and
-// are refused (ops/kernels.MAX_BF16_POOL_DIM mirrors this layout).
+// Shared memory (232,448 bytes a block), in one of two layouts chosen by
+// the caller (ops/kernels.wgmma_plan mirrors this arithmetic):
+//   * resident: the whole query tile (ceil(row bytes / 128) k-chunks of 16
+//     KB) stays for the block's life beside `stages` corpus stages of 16 KB:
+//     while the tile and at least kMinStages stages fit (bf16 rows up to 640
+//     dims, s8 rows up to 1280);
+//   * streamed: past that, each ring stage of 32 KB carries its k-chunk's
+//     query slab beside its corpus slab (the query slab by one TMA on the
+//     stage's full barrier) and the consumers' A descriptor points into the
+//     stage, so any row width fits; the query slabs are then read again for
+//     every pass.
+// Besides: 2 KB of per-column values, the barriers, and 1 KB to align the
+// tiles to the 1024-byte swizzle atom.
 
 #pragma once
 
@@ -55,22 +72,24 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "pool_tile.cuh"  // pool::merge_splits_kernel, pool::kMaxSmem
 
 namespace wg {
 
 constexpr int kTQ = 128;        // query rows per block: two consumers x m64
 constexpr int kTN = 128;        // pool columns per block (the wgmma n)
-constexpr int kTK = 64;         // dims per k-chunk: one 128-byte swizzle row
+constexpr int kRowBytes = 128;  // bytes per k-chunk row: one swizzle row
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
-constexpr int kChunkBytes = kTN * kTK * 2;  // one stage or query k-chunk
-constexpr int kMaxStages = 4;
-// B5's decode hands a stage over once the next one's copies started and
-// the consumers release a stage once the next one's products started: with
-// two stages each would wait for the other
+constexpr int kChunkBytes = kTN * kRowBytes;  // one k-chunk of 128 rows
+constexpr int kMaxStages = 12;
+// B5's decode and the cp.async producer hand a stage over once the next
+// one's copies started and the consumers release a stage once the next
+// one's products started: with two stages each would wait for the other
 constexpr int kMinStages = 3;
 constexpr int kColBytes = 2 * 2 * kTN * 4;  // [2 buffers][c0, c1][128] f32
-constexpr int kBarBytes = 128;              // the mbarriers
+constexpr int kBarBytes = 256;              // the mbarriers
 constexpr int kAlign = 1024;                // the 128-byte swizzle atom
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;          // 128 * 56 + 256 * 224 <= 65536
@@ -101,6 +120,13 @@ __device__ __forceinline__ void arrive_expect_tx(uint32_t bar,
       : "memory");
 }
 
+// Raise the barrier's expected transaction bytes without an arrival.
+__device__ __forceinline__ void expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
 // Wait until the phase of parity `parity` of the barrier has completed (a
 // fresh barrier counts its phase of parity 1 as completed).  No exit path
 // (a __trap watchdog) may sit in this loop: ptxas then ignores setmaxnreg
@@ -121,8 +147,8 @@ __device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// 2-D TMA load of one [128 rows x 64 bf16] box at (x = dim, y = row) into
-// shared memory, completing `bytes` on the barrier.
+// 2-D TMA load of one [128 rows x 128 bytes] box at (x = element, y = row)
+// into shared memory, completing its bytes on the barrier.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int x, int y) {
   asm volatile(
@@ -130,6 +156,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
       : "memory");
+}
+
+// Named barrier `id` over `n` threads: wait for it, or only arrive.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -158,7 +193,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // The wgmma shared-memory descriptor of a K-major tile in the 128-byte
 // swizzled layout: start address >> 4, leading offset 16 B (unused when
 // swizzled), stride 1024 B between 8-row groups, layout 1 = SWIZZLE_128B.
-// A k16 step inside the 128-byte row adds 32 bytes to the start address.
+// A 32-byte k-step inside the 128-byte row adds 32 to the start address.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);
@@ -184,58 +219,121 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (+)= A * B for A [64 x 16] and B [16 x 128] bf16 from shared memory
-// (both K-major), f32 accumulators; scale_d == 0 overwrites D.  Thread l of
-// warp w holds D[16 w + l/4 + 8 h][8 j + 2 (l % 4) + e] in d[4 j + 2 h + e].
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+
+// The two element types.  D (+)= A * B for A [64 x k] and B [k x 128] from
+// shared memory (both K-major; one 32-byte k-step: k16 bf16 or k32 s8);
+// scale_d == 0 overwrites D.  Thread l of warp w holds D[16 w + l/4 + 8 h]
+// [8 j + 2 (l % 4) + e] in d[4 j + 2 h + e], for either type.
+#define WG_D64(c)                                                           \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),   \
+  c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),       \
+  c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),     \
+  c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),     \
+  c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]),     \
+  c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]),     \
+  c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]),     \
+  c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),     \
+  c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define WG_REGS64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                                \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                                \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                                \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                                \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, "
+#define WG_F(x) "+f"(x)
+#define WG_R(x) "+r"(x)
+
+struct Bf16Mma {
+  using Acc = float;
+  static constexpr int kDims = 64;  // dims of one k-chunk row
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int kElemBytes = 2;
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : WG_D64(WG_F)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+struct S8Mma {
+  using Acc = int32_t;
+  static constexpr int kDims = 128;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int kElemBytes = 1;
+  __device__ __forceinline__ static void mma(int32_t (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_REGS64
+        "%64, %65, p;\n"
+        "}\n"
+        : WG_D64(WG_R)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+#undef WG_D64
+#undef WG_REGS64
+#undef WG_F
+#undef WG_R
 
 // ------------------------------------------------------------ the block
 // Shared-space addresses of one block's tiles and barriers.
 struct Ring {
-  uint32_t q;         // [kc_n][128 rows][128 B] the query tile
-  uint32_t stage;     // [stages][128 columns][128 B] the corpus ring
+  uint32_t q;         // [kc_n][128 rows][128 B] the resident query tile
+  uint32_t stage;     // [stages][stage_bytes] the ring
   uint32_t full;      // [kMaxStages] mbarriers: a stage was filled
   uint32_t empty;     // [kMaxStages] mbarriers: a stage was consumed
   uint32_t colfull;   // [2] the per-column values of a pass were staged
   uint32_t colempty;  // [2] ... and read
-  uint32_t qbar;      // the query tile arrived
+  uint32_t qbar;      // the resident query tile arrived
   float* cols;        // [2][2][128] the per-column values (generic pointer)
-  int stages, kc_n;
+  const CUtensorMap* qmap;  // the queries (streamed mode reads them per stage)
+  int stages, kc_n, q0;
+  uint32_t stage_bytes;  // kChunkBytes, or twice that when streamed
+  bool streamed;
 };
+
+// The corpus slab of stage s; in streamed mode its query slab follows it.
+__device__ __forceinline__ uint32_t slab(const Ring& r, int s) {
+  return r.stage + s * r.stage_bytes;
+}
+
+// Streamed mode, one producer thread: the query slab of k-chunk kc into
+// stage s by TMA, counted on the stage's full barrier (expected first).
+template <int kDims>
+__device__ __forceinline__ void stream_query(const Ring& r, int s, int kc) {
+  if (!r.streamed) return;
+  expect_tx(r.full + 8 * s, kChunkBytes);
+  tma_load(slab(r, s) + kChunkBytes, r.qmap, r.full + 8 * s, kDims * kc,
+           r.q0);
+}
+
+// A stage's generic-proxy copies (cp.async) are complete in this thread:
+// make them visible to the async proxy (wgmma), then one arrival per warp.
+__device__ __forceinline__ void hand_over(const Ring& r, int s, int lane) {
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) arrive(r.full + 8 * s);
+}
 
 // The per-column values of slots row0 + lane + 32 i (i < 4), loaded by the
 // producer's warp 0 at a pass's first k-chunk ...
@@ -265,33 +363,82 @@ __device__ __forceinline__ void col_store(const Ring& r, int pl, int lane,
   if (lane == 0) arrive(r.colfull + 8 * b);
 }
 
+// The TMA producer (B6, and the s8 pools over rows of whole 16-byte
+// vectors): warp 0 starts one TMA per stage (two when streamed) and stages
+// each pass's per-column values; the other three warps exit at once.
+template <class Op>
+__device__ __forceinline__ void produce_tma(const Op& op, const Ring& r,
+                                            const CUtensorMap* rmap, int N,
+                                            int W, int c0, int p_begin,
+                                            int p_end) {
+  constexpr int kDims = Op::Mma::kDims;
+  const int lane = threadIdx.x & 31;
+  if ((threadIdx.x >> 5) != 0) return;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int p = p_begin; p < p_end; ++p) {
+    const long long row0 = (long long)p * W + c0;
+    float v0[4], v1[4];
+    col_load(op, row0, N, lane, v0, v1);
+    for (int kc = 0; kc < r.kc_n; ++kc) {
+      wait(r.empty + 8 * s, ph ^ 1);
+      if (lane == 0) {
+        const uint32_t full = r.full + 8 * s;
+        arrive_expect_tx(full, r.stage_bytes);
+        tma_load(slab(r, s), rmap, full, kDims * kc, (int)row0);
+        if (r.streamed)
+          tma_load(slab(r, s) + kChunkBytes, r.qmap, full, kDims * kc, r.q0);
+      }
+      if (kc == r.kc_n - 1) col_store(r, p - p_begin, lane, v0, v1);
+      if (++s == r.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(int32_t* p, int32_t a, int32_t b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
+
 template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
-bf16_pool_kernel(const __grid_constant__ CUtensorMap qmap,  // q [Q, d8]
-                 const __grid_constant__ CUtensorMap rmap,  // Op's rows
-                 const Op op,
-                 float* __restrict__ vals,     // [splits, Q, W]
-                 int32_t* __restrict__ slots,  // [splits, Q, W]
-                 int Q, int N, int W, int kc_n, int stages, int passes,
-                 int passes_per_split) {
+pool_kernel(const __grid_constant__ CUtensorMap qmap,  // the queries
+            const __grid_constant__ CUtensorMap rmap,  // Op's rows, if by TMA
+            const Op op,
+            typename Op::Val* __restrict__ vals,  // [splits, Q, W]
+            int32_t* __restrict__ slots,          // [splits, Q, W]
+            int Q, int N, int W, int kc_n, int stages, int streamed,
+            int passes, int passes_per_split) {
+  using Mma = typename Op::Mma;
+  using Acc = typename Mma::Acc;
+  using Val = typename Op::Val;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + kAlign - 1) & ~(kAlign - 1);
   Ring r;
+  r.streamed = streamed != 0;
+  r.stage_bytes = r.streamed ? 2 * kChunkBytes : kChunkBytes;
   r.q = base;
-  r.stage = r.q + kc_n * kChunkBytes;
-  const uint32_t cols = r.stage + stages * kChunkBytes;
+  r.stage = r.q + (r.streamed ? 0 : kc_n * kChunkBytes);
+  const uint32_t cols = r.stage + stages * r.stage_bytes;
   r.cols = reinterpret_cast<float*>(smem_raw + (cols - raw));
   r.full = cols + kColBytes;
   r.empty = r.full + 8 * kMaxStages;
   r.colfull = r.empty + 8 * kMaxStages;
   r.colempty = r.colfull + 16;
   r.qbar = r.colempty + 16;
+  r.qmap = &qmap;
   r.stages = stages;
   r.kc_n = kc_n;
 
   const int c0 = blockIdx.x * kTN;
-  const int q0 = blockIdx.y * kTQ;
+  r.q0 = blockIdx.y * kTQ;
   const int split = blockIdx.z;
   const int p_begin = split * passes_per_split;
   const int p_end = min(passes, p_begin + passes_per_split);
@@ -317,9 +464,12 @@ bf16_pool_kernel(const __grid_constant__ CUtensorMap qmap,  // q [Q, d8]
     // ---- producer warpgroup
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      arrive_expect_tx(r.qbar, kc_n * kChunkBytes);
-      for (int kc = 0; kc < kc_n; ++kc)
-        tma_load(r.q + kc * kChunkBytes, &qmap, r.qbar, kTK * kc, q0);
+      // streamed: an arrival without bytes, so the consumers' wait passes
+      arrive_expect_tx(r.qbar, r.streamed ? 0 : kc_n * kChunkBytes);
+      if (!r.streamed)
+        for (int kc = 0; kc < kc_n; ++kc)
+          tma_load(r.q + kc * kChunkBytes, &qmap, r.qbar, Mma::kDims * kc,
+                   r.q0);
     }
     op.produce(r, &rmap, N, W, c0, p_begin, p_end);
   } else {
@@ -330,85 +480,118 @@ bf16_pool_kernel(const __grid_constant__ CUtensorMap qmap,  // q [Q, d8]
     const int lane = ct & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int row_base = q0 + 64 * cw + 16 * (ct >> 5) + g;
+    const int row_base = r.q0 + 64 * cw + 16 * (ct >> 5) + g;
     // a warpgroup whose 64 rows all lie past Q only keeps the protocol (the
     // flag shuffled from lane 0, provably uniform like the role)
-    const bool active = __shfl_sync(0xffffffffu, q0 + 64 * cw < Q, 0);
-    const uint32_t qa = r.q + cw * (kChunkBytes / 2);
+    const bool active = __shfl_sync(0xffffffffu, r.q0 + 64 * cw < Q, 0);
+    // the warpgroup's 64 rows in a query k-chunk
+    const uint32_t a_off = cw * (kChunkBytes / 2);
     auto release = [&](uint32_t bar) {  // one arrival per warp
       __syncwarp();
       if (lane == 0) arrive(bar);
     };
-    float acc[64];
-    float best_v[64];
+    float rq[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rq[h] = op.row_value(row_base + 8 * h, Q);
+    Acc acc[64];
+    Val best_v[64];
     int best_p[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      acc[i] = 0.f;
-      best_v[i] = INFINITY;
+      acc[i] = 0;
+      best_v[i] = Op::init();
       best_p[i] = 0;
     }
     wait(r.qbar, 0);
-    int s = 0;
-    uint32_t ph = 0;
-    for (int p = p_begin; p < p_end; ++p) {
-      // one wgmma group stays in flight: stage k is released once stage
-      // k+1's products started, the pass's last stage after all finish
-      int prev = -1;
-      for (int kc = 0; kc < kc_n; ++kc) {
-        wait(r.full + 8 * s, ph);
-        if (active) {
-          const uint32_t a = qa + kc * kChunkBytes;
-          const uint32_t b = r.stage + s * kChunkBytes;
-          fence_acc(acc);
-          wgmma_fence();
+    // The passes, with the products (kMma) or, for an inactive warpgroup,
+    // only the protocol: two instances and no runtime branch around the
+    // wgmmas, so no path joins another while a wgmma group is in flight
+    // (ptxas would wait for the group there: advisory C7517).
+    // The s8 pools, where the ring holds a whole pass and one stage more:
+    // the two warpgroups take turns at the tensor cores, a pass each, so
+    // one's epilogue overlaps the other's products (6% at the main path's
+    // shape, chip_smoke.py's stage sweep on an H100): warpgroup cw waits
+    // for its turn (named barrier 1 + cw over both warpgroups' 256
+    // threads) before a pass's products and hands the turn over after
+    // them; warpgroup 0 takes the first.  With a shallower ring warpgroup 0
+    // could not finish a pass before warpgroup 1 freed its first stages
+    // (the producers hand a stage over up to one chunk late), so the two go
+    // in step; so do the bf16 pools, whose four stages hold a pass only
+    // below 256 dims (and whose consumers would spill with the turns).
+    const bool turns =
+        std::is_same<Mma, S8Mma>::value && stages >= kc_n + 1;
+    auto passes = [&](auto mma_tag) {
+      constexpr bool kMma = decltype(mma_tag)::value;
+      int s = 0;
+      uint32_t ph = 0;
+      for (int p = p_begin; p < p_end; ++p) {
+        if (turns && (cw == 1 || p > p_begin)) named_sync(1 + cw, 2 * kTQ);
+        // one wgmma group stays in flight: stage k is released once stage
+        // k+1's products started, the pass's last stage after all finish
+        int prev = -1;
+        for (int kc = 0; kc < kc_n; ++kc) {
+          wait(r.full + 8 * s, ph);
+          if constexpr (kMma) {
+            const uint32_t b = slab(r, s);
+            const uint32_t a =
+                (r.streamed ? b + kChunkBytes : r.q + kc * kChunkBytes) +
+                a_off;
+            fence_acc(acc);
+            wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kTK / 16; ++kk)
-            wgmma_m64n128k16(acc, sw128_desc(a + 32 * kk),
-                             sw128_desc(b + 32 * kk), (kc | kk) != 0);
-          wgmma_commit();
-          wgmma_wait<1>();
+            for (int kk = 0; kk < kRowBytes / 32; ++kk)
+              Mma::mma(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
+                       (kc | kk) != 0);
+            wgmma_commit();
+            wgmma_wait<1>();
+            fence_acc(acc);
+          }
+          if (prev >= 0) release(r.empty + 8 * prev);
+          prev = s;
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+        if constexpr (kMma) {
+          wgmma_wait<0>();
           fence_acc(acc);
         }
         if (prev >= 0) release(r.empty + 8 * prev);
-        prev = s;
-        if (++s == stages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-      if (active) {
-        wgmma_wait<0>();
-        fence_acc(acc);
-      }
-      if (prev >= 0) release(r.empty + 8 * prev);
-      const int pl = p - p_begin;
-      const int b = pl & 1;
-      wait(r.colfull + 8 * b, (pl >> 1) & 1);
-      if (active) {
-        const float* cv = r.cols + 2 * kTN * b;
+        if (turns && (cw == 0 || p + 1 < p_end))
+          named_arrive(2 - cw, 2 * kTQ);
+        const int pl = p - p_begin;
+        const int b = pl & 1;
+        wait(r.colfull + 8 * b, (pl >> 1) & 1);
+        if constexpr (kMma) {
+          const float* cv = r.cols + 2 * kTN * b;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+          for (int j = 0; j < 16; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + 2 * t + e;
-            const float o = cv[col];
-            const float c = cv[kTN + col];
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t + e;
+              const float o = cv[col];
+              const float c = cv[kTN + col];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int i = 4 * j + 2 * h + e;
-              const float score = Op::score(acc[i], o, c);
-              if (score < best_v[i]) {
-                best_v[i] = score;
-                best_p[i] = p;
+              for (int h = 0; h < 2; ++h) {
+                const int i = 4 * j + 2 * h + e;
+                const Val score = Op::score(acc[i], o, c, rq[h]);
+                if (score < best_v[i]) {
+                  best_v[i] = score;
+                  best_p[i] = p;
+                }
               }
             }
           }
         }
+        __syncwarp();
+        if (lane == 0) arrive(r.colempty + 8 * b);
       }
-      __syncwarp();
-      if (lane == 0) arrive(r.colempty + 8 * b);
-    }
+    };
+    if (active)
+      passes(std::true_type{});
+    else
+      passes(std::false_type{});
     if (active) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -419,14 +602,13 @@ bf16_pool_kernel(const __grid_constant__ CUtensorMap qmap,  // q [Q, d8]
           const int col = c0 + 8 * j + 2 * t;
           const int i = 4 * j + 2 * h;
           const size_t o = ((size_t)split * Q + row) * W + col;
-          int2 sl;
-          sl.x = isfinite(best_v[i])
-                     ? (int)((long long)best_p[i] * W + col) : -1;
-          sl.y = isfinite(best_v[i + 1])
-                     ? (int)((long long)best_p[i + 1] * W + col + 1) : -1;
-          *reinterpret_cast<float2*>(vals + o) =
-              make_float2(best_v[i], best_v[i + 1]);
-          *reinterpret_cast<int2*>(slots + o) = sl;
+          const int s0 = Op::live(best_v[i])
+                             ? (int)((long long)best_p[i] * W + col) : -1;
+          const int s1 = Op::live(best_v[i + 1])
+                             ? (int)((long long)best_p[i + 1] * W + col + 1)
+                             : -1;
+          store2(vals + o, best_v[i], best_v[i + 1]);
+          store2(slots + o, s0, s1);
         }
       }
     }
@@ -435,16 +617,19 @@ bf16_pool_kernel(const __grid_constant__ CUtensorMap qmap,  // q [Q, d8]
 
 // ------------------------------------------------------------ host side
 // Shared memory of one block for kc_n query k-chunks and `stages` stages.
-inline int smem_bytes(int kc_n, int stages) {
-  return kAlign + (kc_n + stages) * kChunkBytes + kColBytes + kBarBytes;
+inline int smem_bytes(int kc_n, int stages, bool streamed) {
+  const int chunks = streamed ? 2 * stages : kc_n + stages;
+  return kAlign + chunks * kChunkBytes + kColBytes + kBarBytes;
 }
 
-// A 2-D tensor map over bf16 rows [rows, cols] (cols % 8 == 0, base 16-byte
-// aligned): [128 x 64] boxes, 128-byte swizzle, zeros out of bounds.  The
-// driver's cuTensorMapEncodeTiled is reached through the runtime's
+// A 2-D tensor map over rows [rows, cols] of Mma's element type (row bytes
+// a multiple of 16, base 16-byte aligned): [128 rows x 128 bytes] boxes,
+// 128-byte swizzle, zeros out of bounds.  The driver's
+// cuTensorMapEncodeTiled is reached through the runtime's
 // cudaGetDriverEntryPoint, so the library links only the runtime.
-inline int encode_rows(CUtensorMap* map, const void* base, long long rows,
-                       long long cols) {
+template <class Mma>
+int encode_rows(CUtensorMap* map, const void* base, long long rows,
+                long long cols) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -466,68 +651,70 @@ inline int encode_rows(CUtensorMap* map, const void* base, long long rows,
       return kTensorMapError;
     encode = reinterpret_cast<Encode>(fn);
   }
-  if (rows <= 0 || cols <= 0 || cols % 8 != 0 ||
+  const long long row_bytes = cols * Mma::kElemBytes;
+  if (rows <= 0 || cols <= 0 || row_bytes % 16 != 0 ||
       reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {kTK, kTQ};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {Mma::kDims, kTQ};
   const cuuint32_t step[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, Mma::kMapType, 2, const_cast<void*>(base), dims, strides, box,
+      step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kTensorMapError + (int)res;
 }
 
-// Host side of both entry points: the tensor maps (queries q16 [qn, d8]
-// and, when `rows` is given, the corpus rows [n, d8]), the pool kernel,
-// then the split merge.  With splits == 1 the kernel writes vals/slots
-// [qn, w] directly; otherwise part_vals/part_slots [splits, qn, w], which
-// the merge kernel reduces into vals/slots.  Returns 0, a cudaError_t, or
-// kTensorMapError + the driver's CUresult.
+// Host side of every entry point: the tensor maps (queries q [qn, q_cols]
+// and, when `rows` is given, the corpus rows [n, d]), the pool kernel over
+// d dims in the caller's layout (`stages` ring stages, resident or
+// streamed query tile), then the split merge.  With splits == 1 the kernel
+// writes vals/slots [qn, w] directly; otherwise part_vals/part_slots
+// [splits, qn, w], which the merge kernel reduces into vals/slots.  Returns
+// 0, a cudaError_t, or kTensorMapError + the driver's CUresult.
 template <class Op>
-int launch(const void* q16, const void* rows, const Op& op, void* part_vals,
-           void* part_slots, void* vals, void* slots, int qn, int n, int d8,
-           int w, int splits, void* stream) {
-  if (qn <= 0 || w <= 0 || d8 <= 0 || d8 % 8 != 0 || n < 0 || w % kTN != 0 ||
-      splits < 1)
+int launch(const void* q, int q_cols, const void* rows, const Op& op,
+           void* part_vals, void* part_slots, void* vals, void* slots, int qn,
+           int n, int d, int w, int splits, int stages, int streamed,
+           void* stream) {
+  using Mma = typename Op::Mma;
+  using Val = typename Op::Val;
+  if (qn <= 0 || w <= 0 || d <= 0 || n < 0 || w % kTN != 0 || splits < 1 ||
+      stages < kMinStages || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  const int kc_n = (d8 + kTK - 1) / kTK;
-  int stages = kMaxStages;
-  while (stages >= kMinStages && smem_bytes(kc_n, stages) > pool::kMaxSmem)
-    --stages;
-  if (stages < kMinStages) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(kc_n, stages);
+  const int kc_n = (d + Mma::kDims - 1) / Mma::kDims;
+  const int smem = smem_bytes(kc_n, stages, streamed != 0);
+  if (smem > pool::kMaxSmem) return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, rmap;
-  int rc = encode_rows(&qmap, q16, qn, d8);
+  int rc = encode_rows<Mma>(&qmap, q, qn, q_cols);
   if (rc != 0) return rc;
   rmap = qmap;  // a placeholder for producers that read no rows by TMA
   if (rows != nullptr && n > 0) {
-    rc = encode_rows(&rmap, rows, n, d8);
+    rc = encode_rows<Mma>(&rmap, rows, n, d);
     if (rc != 0) return rc;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&bf16_pool_kernel<Op>),
+      reinterpret_cast<const void*>(&pool_kernel<Op>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int passes = n > 0 ? (n + w - 1) / w : 0;
   const int pps = passes > 0 ? (passes + splits - 1) / splits : 0;
-  float* out_v = static_cast<float*>(splits == 1 ? vals : part_vals);
+  Val* out_v = static_cast<Val*>(splits == 1 ? vals : part_vals);
   int32_t* out_s = static_cast<int32_t*>(splits == 1 ? slots : part_slots);
   dim3 grid(w / kTN, (qn + kTQ - 1) / kTQ, splits);
-  bf16_pool_kernel<Op><<<grid, kThreads, smem, s>>>(
-      qmap, rmap, op, out_v, out_s, qn, n, w, kc_n, stages, passes, pps);
+  pool_kernel<Op><<<grid, kThreads, smem, s>>>(
+      qmap, rmap, op, out_v, out_s, qn, n, w, kc_n, stages, streamed, passes,
+      pps);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long qw = (long long)qn * w;
   const int threads = 256;
-  pool::merge_splits_kernel<float><<<(unsigned)((qw + threads - 1) / threads),
-                                     threads, 0, s>>>(
-      out_v, out_s, static_cast<float*>(vals), static_cast<int32_t*>(slots),
-      qw, splits);
+  pool::merge_splits_kernel<Val><<<(unsigned)((qw + threads - 1) / threads),
+                                   threads, 0, s>>>(
+      out_v, out_s, static_cast<Val*>(vals), static_cast<int32_t*>(slots), qw,
+      splits);
   return (int)cudaGetLastError();
 }
 

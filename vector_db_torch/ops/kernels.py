@@ -4,13 +4,12 @@
 Each function replaces the TPU kernel of the same name in
 ``vector_db_tpu/ops/pallas_kernels.py``:
 
-  * ``fused_int8_pool`` (:585), ``fused_packed_pool`` (:900) and
-    ``fused_int8g_pool`` (:726): one s8 tensor-core tile loop
-    (``vector_db_torch/csrc/pool_tile.cuh``) with three entry points in
-    ``vector_db_torch/csrc/fused_int8_pool.cu``;
-  * ``fused_raw_pool`` (:460) and ``fused_adc_pool`` (:284): one bf16
-    tile loop on ``wgmma`` with a producer warpgroup
-    (``vector_db_torch/csrc/pool_wgmma.cuh``), fed by TMA in
+  * five pools on one ``wgmma`` tile loop with a producer warpgroup
+    (``vector_db_torch/csrc/pool_wgmma.cuh``): ``fused_int8_pool`` (:585),
+    ``fused_packed_pool`` (:900) and ``fused_int8g_pool`` (:726) on its s8
+    instance, three entry points in ``vector_db_torch/csrc/fused_int8_pool.cu``
+    fed by TMA or cp.async; ``fused_raw_pool`` (:460) and
+    ``fused_adc_pool`` (:284) on its bf16 instance, fed by TMA in
     ``vector_db_torch/csrc/fused_raw_pool.cu`` and by the PQ decode in
     ``vector_db_torch/csrc/fused_adc_pool.cu``;
   * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``;
@@ -52,10 +51,11 @@ LANES = 128
 BLOCK_N = 512
 #: bytes of [Q, passes * w] scores one chunk of the plain version holds
 PLAIN_CHUNK_BYTES = 256 << 20
-#: the largest row width the kernel's shared-memory tiles hold on an H100,
-#: and the largest at which the int32 cross term stays below 2^24 (exact
-#: in f32): 127^2 * 1040 < 2^24
-MAX_INT8_POOL_DIM = 1040
+#: the widest slice of int8 dims whose f32 matmul is exact: every partial
+#: sum is an integer below 2^24 (127^2 * 1040 < 2^24)
+EXACT_F32_DIMS = 1040
+#: the widest int8 row whose int32 cross term cannot overflow (127^2 d < 2^31)
+MAX_INT8_DIM = (2**31 - 1) // 127**2
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -128,12 +128,13 @@ class _Library:
         self.build_log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(out))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # the pools end (..., w, splits, stages, streamed, stream)
         for pool in (lib.vdb_fused_int8_pool, lib.vdb_fused_packed_pool):
-            pool.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
-        lib.vdb_fused_int8g_pool.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-        lib.vdb_fused_raw_pool.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+            pool.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+        lib.vdb_fused_int8g_pool.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.vdb_fused_raw_pool.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
         lib.vdb_fused_adc_pool.argtypes = ([ptr, ptr, i64] + [ptr] * 6
-                                           + [i32] * 7 + [ptr])
+                                           + [i32] * 9 + [ptr])
         for entry in ("vdb_fused_int8_pool", "vdb_fused_packed_pool",
                       "vdb_fused_int8g_pool", "vdb_fused_raw_pool",
                       "vdb_fused_adc_pool"):
@@ -185,6 +186,27 @@ def _pad_cols(q8: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(q8, (0, d - q8.shape[1]))
 
 
+def _check_s32_range(d: int) -> None:
+    if d > MAX_INT8_DIM:
+        raise ValueError(f"row width {d} > {MAX_INT8_DIM}: the int32 cross "
+                         "term of int8 rows could overflow")
+
+
+def int8_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact integer product ``a @ b^T`` of rows of int8 values, a
+    [..., M, d] and b [..., N, d] (any dtype holding them), as int32 [...,
+    M, N]: f32 matmuls of slices of at most :data:`EXACT_F32_DIMS` dims,
+    each exact with TF32 off, summed in int32.  At d <= 1040 that is one
+    f32 matmul, as the plain versions always were."""
+    out = None
+    for k0 in range(0, max(1, a.shape[-1]), EXACT_F32_DIMS):
+        part = (a[..., k0:k0 + EXACT_F32_DIMS].to(torch.float32)
+                @ b[..., k0:k0 + EXACT_F32_DIMS].to(torch.float32)
+                .transpose(-1, -2)).to(torch.int32)
+        out = part if out is None else out + part
+    return out
+
+
 def _check_pool_args(q, base8, sel_off, sel_scale):
     n, d = base8.shape
     if q.ndim != 2 or q.shape[1] > d:
@@ -193,9 +215,7 @@ def _check_pool_args(q, base8, sel_off, sel_scale):
         raise TypeError(f"base8 must be int8, got {base8.dtype}")
     if sel_off.shape != (n,) or sel_scale.shape != (n,):
         raise ValueError("sel_off/sel_scale must be [N] like base8's rows")
-    if d > MAX_INT8_POOL_DIM:
-        raise ValueError(f"row width {d} > {MAX_INT8_POOL_DIM}: the int32 "
-                         "cross term would not be exact in f32")
+    _check_s32_range(d)
 
 
 def _pool_plain(score, n: int, qn: int, w: int, device, fill):
@@ -238,8 +258,8 @@ def fused_int8_pool_plain(q: torch.Tensor, base8: torch.Tensor,
                           w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_int8_pool`, on any device.
 
-    The cross term is an f32 matmul of the int8 values: every partial sum
-    is an integer below 2^24 (d <= 1040), so it is exact with TF32 off.
+    The cross term is exact at any width (:func:`int8_cross`) and turns
+    to f32 once, as the reference's ``cross.astype(jnp.float32)`` does.
     """
     _check_pool_args(q, base8, sel_off, sel_scale)
     n, d = base8.shape
@@ -247,7 +267,7 @@ def fused_int8_pool_plain(q: torch.Tensor, base8: torch.Tensor,
     qf = _pad_cols(q8, d).to(torch.float32)
 
     def score(r0, r1):
-        cross = qf @ base8[r0:r1].to(torch.float32).T
+        cross = int8_cross(qf, base8[r0:r1]).to(torch.float32)
         return sel_off[None, r0:r1] + (cross * sel_scale[None, r0:r1]) * sq[:, None]
     return _mask_empty(*_pool_plain(score, n, q.shape[0], pool_width(w),
                                     q.device, float("inf")))
@@ -259,9 +279,10 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
     """Fused s8 x s8 scan + strided-bucket min pool over an int8 shadow.
 
     q [Q, d] f32, pre-centered by the caller, quantized here per row to
-    int8; base8 [N, d8] int8 (d8 >= d, d8 % 4 == 0 on CUDA; the extra
-    columns are the shadow's zero padding); sel_off [N] f32 (+inf at dead
-    slots); sel_scale [N] f32.  The score of slot n is
+    int8; base8 [N, d8] int8 (d8 >= d, d8 % 4 == 0 on CUDA, any width
+    below the int32 range; the extra columns are the shadow's zero
+    padding); sel_off [N] f32 (+inf at dead slots); sel_scale [N] f32.
+    The score of slot n is
     ``off[n] + (q8 . v8_n) * sel_scale[n] * sq[q]``.  Returns an unranked
     pool: vals [Q, W] f32 and slots [Q, W] int32 (-1 where empty), where
     column c holds the best of slots c, c + W, c + 2W, ... and W is
@@ -295,45 +316,77 @@ def _check_same_device(q, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-#: query rows per block of the s8 pools (``csrc/pool_tile.cuh``) and of the
-#: bf16 pools (``csrc/pool_wgmma.cuh``: two consumer warpgroups x m64)
-S8_TILE_Q = 64
-BF16_TILE_Q = 128
+#: query rows per block of the pools on the wgmma tile loop
+#: (``csrc/pool_wgmma.cuh``: two consumer warpgroups x m64)
+POOL_TILE_Q = 128
+#: the shared memory of one block of that loop on an H100 (232,448 bytes),
+#: in k-chunks of [128 rows x 128 bytes] (64 bf16 or 128 int8 dims): the
+#: query tile (resident) or one query slab a stage (streamed), the ring
+#: stages, and a fixed part: 2 KB of per-column values, 256 B of barriers
+#: and 1 KB to align the tiles
+_WG_SMEM = 232448
+_WG_CHUNK = 128 * 128
+_WG_FIXED = 1024 + 2048 + 256
+#: the fewest ring stages the loop's hand-overs need (it has barriers for
+#: the 12 that fit beside the narrowest query tile)
+_WG_MIN_STAGES = 3
+#: the ring depth of the bf16 pools and of the s8 pools (the stage sweep
+#: of chip_smoke.py phase 3, on an H100)
+BF16_POOL_STAGES = 4
+S8_POOL_STAGES = 9
 
 
-def pool_splits(qn: int, n: int, w: int, sms: int, tile_q: int) -> int:
-    """How many blocks share the passes of one (query tile, 128-column)
-    tile, each taking at least one pass.  The s8 pools (two blocks an SM)
-    aim at ~4 blocks an SM.  The bf16 pools (one block an SM) take one wave
-    when their tiles fill >= 90% of the SMs, else ~2 waves, which also
-    evens out tiles whose query rows lie partly past Q (the pass-split
-    sweep of chip_smoke.py phases 3e/3f, on an H100)."""
+def wgmma_plan(row_bytes: int, max_stages: int) -> tuple[int, bool]:
+    """(stages, streamed) of the wgmma tile loop for rows of ``row_bytes``
+    bytes, the arithmetic of ``csrc/pool_wgmma.cuh``: the query tile stays
+    resident (ceil(row_bytes / 128) chunks) while it and at least three
+    stages fit, with up to ``max_stages`` stages; past that each 32 KB
+    stage streams its query slab beside its corpus slab, so any width
+    fits."""
+    kc_n = -(-row_bytes // 128)
+    room = (_WG_SMEM - _WG_FIXED) // _WG_CHUNK
+    if room - kc_n >= _WG_MIN_STAGES:
+        return min(max_stages, room - kc_n), False
+    return min(max_stages, room // 2), True
+
+
+def pool_splits(qn: int, n: int, w: int, sms: int) -> int:
+    """How many blocks share the passes of one (128-query, 128-column)
+    tile, each taking at least one pass.  The pools (one block an SM) take
+    one wave when their tiles fill >= 90% of the SMs or there is one query
+    tile (its blocks are alike), else ~2 waves, which evens out tiles whose
+    query rows lie partly past Q (the pass-split sweeps of chip_smoke.py
+    phases 3, 3e and 3f, on an H100)."""
     passes = -(-n // w) if n else 0
-    tiles = (w // LANES) * -(-qn // tile_q)
-    if tile_q == BF16_TILE_Q:
-        want = 1 if 10 * tiles >= 9 * sms else 2 * sms // tiles
+    tiles = (w // LANES) * -(-qn // POOL_TILE_Q)
+    if 10 * tiles >= 9 * sms:
+        want = 1
+    elif qn <= POOL_TILE_Q:
+        want = sms // tiles
     else:
-        want = -(-4 * sms // tiles)
+        want = 2 * sms // tiles
     want = max(1, min(passes, want))
     # as many splits as ceil(passes / want) passes each fill: none is empty
     return -(-passes // -(-passes // want)) if passes else 1
 
 
 def _run_pool(entry: str, head, mid, qn: int, n: int, w: int, device,
-              val_dtype=torch.float32, tile_q: int = S8_TILE_Q):
+              row_bytes: int, max_stages: int, val_dtype=torch.float32):
     """Launch a pool kernel through C entry ``entry`` as
     ``entry(*head, part_vals, part_slots, vals, slots, qn, n, *mid, w,
-    splits, stream)`` and return (vals, slots) [qn, w].  The passes are
-    split over blocks when the query x column tiles (``tile_q`` queries by
-    128 columns) alone leave the card's SMs idle (:func:`pool_splits`; the
+    splits, stages, streamed, stream)`` and return (vals, slots) [qn, w].
+    The ring and the query tile's layout follow :func:`wgmma_plan` for rows
+    of ``row_bytes``; the passes are split over blocks when the query x
+    column tiles alone leave the card's SMs idle (:func:`pool_splits`; the
     partial pools merge in pass order); raises if the launch fails."""
+    lib = LIBRARY.get()
     vals = torch.empty((qn, w), dtype=val_dtype, device=device)
     slots = torch.empty((qn, w), dtype=torch.int32, device=device)
     if qn == 0:
         return vals, slots
-    lib = LIBRARY.get()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = pool_splits(qn, n, w, sms, tile_q)
+    splits = pool_splits(qn, n, w, sms)
+    stages, streamed = wgmma_plan(row_bytes, max_stages)
     if splits > 1:
         part_v = torch.empty((splits, qn, w), dtype=val_dtype, device=device)
         part_s = torch.empty((splits, qn, w), dtype=torch.int32,
@@ -344,7 +397,8 @@ def _run_pool(entry: str, head, mid, qn: int, n: int, w: int, device,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, entry)(
             *head, part_v.data_ptr(), part_s.data_ptr(), vals.data_ptr(),
-            slots.data_ptr(), qn, n, *mid, w, splits, stream)
+            slots.data_ptr(), qn, n, *mid, w, splits, stages, int(streamed),
+            stream)
     _raise_on_error(lib, entry, rc)
     return vals, slots
 
@@ -352,16 +406,18 @@ def _run_pool(entry: str, head, mid, qn: int, n: int, w: int, device,
 def _launch_scaled_pool(entry: str, q, base, sel_off, sel_scale, w: int,
                         d: int):
     """B2/B4 through C entry ``entry`` over ``base``'s rows (int8 [N, d] or
-    int32 words [N, d/4]): quantize and pad the queries, then launch."""
+    int32 words [N, d/4]): quantize the queries and pad them to rows of
+    whole 16-byte vectors (TMA), then launch."""
     _check_same_device(q, base=base, sel_off=sel_off, sel_scale=sel_scale)
     if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
         raise TypeError("sel_off/sel_scale must be float32")
     q8, sq = _quantize_rows_int8(q.to(torch.float32))
-    q8 = _pad_cols(q8, d).contiguous()
+    q8 = _pad_cols(q8, d + (-d) % 16).contiguous()
     sq = sq.contiguous()
     return _run_pool(entry, (q8.data_ptr(), sq.data_ptr(), base.data_ptr(),
                              sel_off.data_ptr(), sel_scale.data_ptr()),
-                     (d,), q.shape[0], base.shape[0], w, q.device)
+                     (d,), q.shape[0], base.shape[0], w, q.device, d,
+                     S8_POOL_STAGES)
 
 
 def _raise_on_error(lib, entry: str, rc: int) -> None:
@@ -393,9 +449,7 @@ def _check_packed_args(q, packed, w: int) -> int:
     if q.ndim != 2 or q.shape[1] != 4 * dw:
         raise ValueError(f"queries {tuple(q.shape)} do not match packed rows "
                          f"of {4 * dw} dims")
-    if 4 * dw > MAX_INT8_POOL_DIM:
-        raise ValueError(f"row width {4 * dw} > {MAX_INT8_POOL_DIM}: the "
-                         "int32 cross term would not be exact in f32")
+    _check_s32_range(4 * dw)
     w = pool_width(w)
     if n % w:
         raise ValueError(
@@ -527,7 +581,7 @@ pq_decode_recon_t.launches = 0
 # ------------------------------------------------------- fused_int8g_pool
 #: a pool score at or above this is a dead or empty slot (the reference's
 #: ``_I32_REAL_MAX``): real scores are bounded by the off_i clip (2^26) plus
-#: max |cross| (127^2 * 1040 < 2^24); dead slots carry 2^29
+#: max |cross| (127^2 d, below 2^26 up to 4,160 dims); dead slots carry 2^29
 I32_REAL_MAX = 1 << 28
 _OFF_I_CLIP = float(1 << 26)
 _OFF_I_DEAD = float(1 << 29)
@@ -568,9 +622,7 @@ def _check_int8g_args(q, base8, sel_off):
         raise TypeError(f"base8 must be int8, got {base8.dtype}")
     if sel_off.shape != (n,):
         raise ValueError("sel_off must be [N] like base8's rows")
-    if d > MAX_INT8_POOL_DIM:
-        raise ValueError(f"row width {d} > {MAX_INT8_POOL_DIM}: the int32 "
-                         "cross term would not be exact in f32")
+    _check_s32_range(d)
 
 
 def fused_int8g_pool_plain(q: torch.Tensor, base8: torch.Tensor,
@@ -578,16 +630,15 @@ def fused_int8g_pool_plain(q: torch.Tensor, base8: torch.Tensor,
                            sgn: float, w: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_int8g_pool`, on any device: the
-    cross term is an exact f32 matmul of the int8 values (partial sums are
-    integers below 2^24), the scores ``off_i - cross`` and the pool int32."""
+    cross term is exact at any width (:func:`int8_cross`), the scores
+    ``off_i - cross`` and the pool int32."""
     _check_int8g_args(q, base8, sel_off)
     n, d = base8.shape
     q8, off_i, c = _int8g_condition(q, sel_off, sv, sgn, d)
     qf = q8.to(torch.float32)
 
     def score(r0, r1):
-        cross = qf @ base8[r0:r1].to(torch.float32).T
-        return off_i[None, r0:r1] - cross.to(torch.int32)
+        return off_i[None, r0:r1] - int8_cross(qf, base8[r0:r1])
     vals_i, slots = _pool_plain(score, n, q.shape[0], pool_width(w),
                                 q.device, _I32_INIT)
     return _int8g_finish(vals_i, slots, c, n)
@@ -624,12 +675,13 @@ def fused_int8g_pool(q: torch.Tensor, base8: torch.Tensor,
         raise ValueError("base8 rows must be whole 4-byte words (d % 4 == 0)")
     _check_same_device(q, base8=base8, sel_off=sel_off)
     q8, off_i, c = _int8g_condition(q, sel_off, sv, sgn, d)
-    q8 = q8.contiguous()
+    q8 = _pad_cols(q8, d + (-d) % 16).contiguous()  # whole 16-byte rows
     w = pool_width(w)
     vals_i, slots = _run_pool(
         "vdb_fused_int8g_pool",
         (q8.data_ptr(), base8.data_ptr(), off_i.data_ptr()), (d,),
-        q.shape[0], n, w, q.device, val_dtype=torch.int32)
+        q.shape[0], n, w, q.device, d, S8_POOL_STAGES,
+        val_dtype=torch.int32)
     fused_int8g_pool.launches += 1
     return _int8g_finish(vals_i, slots, c, n)
 
@@ -638,26 +690,6 @@ fused_int8g_pool.launches = 0
 
 
 # ---------------------------------------------------------- fused_raw_pool
-#: the shared memory of one block of the bf16 pools (``csrc/pool_wgmma.cuh``)
-#: on an H100: the resident [128, d] query tile in 64-dim k-chunks of 16 KB,
-#: at least three 16 KB ring stages, 2 KB of per-column values, 128 B of
-#: barriers and 1 KB to align the tiles, within the 232,448 bytes one block
-#: may use
-_WG_SMEM = 232448
-_WG_CHUNK = BF16_TILE_Q * 64 * 2
-_WG_FIXED = 1024 + 2048 + 128
-_WG_MIN_STAGES = 3
-#: the widest bf16 row those tiles hold: 640 dims
-MAX_BF16_POOL_DIM = 64 * ((_WG_SMEM - _WG_FIXED) // _WG_CHUNK - _WG_MIN_STAGES)
-
-
-def _check_bf16_dim(d: int) -> None:
-    if d > MAX_BF16_POOL_DIM:
-        raise ValueError(f"row width {d} > {MAX_BF16_POOL_DIM}: the query "
-                         "tile and three ring stages of it do not fit one "
-                         "block's shared memory")
-
-
 def _check_raw_args(q, base16, sel_off, sel_scale):
     n, d = base16.shape
     if q.ndim != 2 or q.shape[1] > d:
@@ -709,7 +741,6 @@ def fused_raw_pool(q: torch.Tensor, base16: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     _check_raw_args(q, base16, sel_off, sel_scale)
     n, d = base16.shape
-    _check_bf16_dim(d)
     _check_same_device(q, base16=base16, sel_off=sel_off,
                        sel_scale=sel_scale)
     if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
@@ -725,7 +756,7 @@ def fused_raw_pool(q: torch.Tensor, base16: torch.Tensor,
     out = _run_pool("vdb_fused_raw_pool",
                     (q16.data_ptr(), base16.data_ptr(), sel_off.data_ptr(),
                      sel_scale.data_ptr()), (d8,), q.shape[0], n,
-                    pool_width(w), q.device, tile_q=BF16_TILE_Q)
+                    pool_width(w), q.device, 2 * d8, BF16_POOL_STAGES)
     fused_raw_pool.launches += 1
     return out
 
@@ -788,7 +819,6 @@ def fused_adc_pool(q: torch.Tensor, codes_t: torch.Tensor, cbt: torch.Tensor,
     if codes_t.device.type != "cuda" or q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     s, n, sd, k = _check_adc_args(q, codes_t, cbt, masked_norms)
-    _check_bf16_dim(s * sd)
     if codes_t.dtype != torch.uint8 or codes_t.stride(1) != 1:
         raise ValueError("codes_t must be uint8 with unit column stride")
     _check_same_device(q, cbt=cbt, masked_norms=masked_norms)
@@ -797,14 +827,15 @@ def fused_adc_pool(q: torch.Tensor, codes_t: torch.Tensor, cbt: torch.Tensor,
     if cbt.dtype != torch.float32 or masked_norms.dtype != torch.float32:
         raise TypeError("cbt/masked_norms must be float32")
     # the queries in rows of whole 16-byte vectors (TMA), zeros past S*sd
-    q16 = _pad_cols(q.to(torch.bfloat16), s * sd + (-s * sd) % 8).contiguous()
+    d8 = s * sd + (-s * sd) % 8
+    q16 = _pad_cols(q.to(torch.bfloat16), d8).contiguous()
     # the [S, K, sd] bf16 table: one codebook entry is sd consecutive values
     cbk = cbt.view(s, sd, k).permute(0, 2, 1).to(torch.bfloat16).contiguous()
     out = _run_pool("vdb_fused_adc_pool",
                     (q16.data_ptr(), codes_t.data_ptr(),
                      max(codes_t.stride(0), n), cbk.data_ptr(),
                      masked_norms.data_ptr()), (s, sd, k), q.shape[0], n,
-                    pool_width(w), q.device, tile_q=BF16_TILE_Q)
+                    pool_width(w), q.device, 2 * d8, BF16_POOL_STAGES)
     fused_adc_pool.launches += 1
     return out
 
@@ -930,9 +961,7 @@ def _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist: int,
     if cap % LANES or winners < 1 or winners * (cap // LANES) > IVF_PW:
         raise ValueError(f"cap={cap} must be a multiple of {LANES} with "
                          f"winners * cap / {LANES} <= {IVF_PW}")
-    if 4 * dw > MAX_INT8_POOL_DIM:
-        raise ValueError(f"row width {4 * dw} > {MAX_INT8_POOL_DIM}: the "
-                         "int32 cross term would not be exact in f32")
+    _check_s32_range(4 * dw)
     return dw
 
 
@@ -943,8 +972,8 @@ def fused_ivf_pool_plain(counts: torch.Tensor, qsel: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_ivf_pool`, on any device: for
     each probed cluster (a host list of the clusters with counts > 0) the
-    f32 product of the unpacked int8 rows (exact: integer partial sums below
-    2^24), ``off + cross * sc``, and the winners by repeated ``argmin``
+    exact product of the unpacked int8 rows (:func:`int8_cross`) turned to
+    f32 once, ``off + cross * sc``, and the winners by repeated ``argmin``
     (first index on ties) with the winner masked to +inf.  Every row of a
     probed cluster is written, those past its count too."""
     dw = _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist, cap,
@@ -963,10 +992,10 @@ def fused_ivf_pool_plain(counts: torch.Tensor, qsel: torch.Tensor,
         cid = probed[s:s + per]
         b = cid.numel()
         q = unpack_words_int8(qsel.view(nlist, p_cap, dw)[cid].reshape(
-            -1, dw)).to(torch.float32).view(b, p_cap, 4 * dw)
+            -1, dw)).view(b, p_cap, 4 * dw)
         v = unpack_words_int8(cm.view(nlist, cap, dw)[cid].reshape(
-            -1, dw)).to(torch.float32).view(b, cap, 4 * dw)
-        cross = torch.bmm(q, v.transpose(1, 2))                 # [b, P, cap]
+            -1, dw)).view(b, cap, 4 * dw)
+        cross = int8_cross(q, v).to(torch.float32)              # [b, P, cap]
         cur = (sel_off.view(nlist, cap)[cid][:, None, :]
                + cross * sel_scale.view(nlist, cap)[cid][:, None, :])
         cur = cur.view(b, p_cap, bpb, LANES)
@@ -1027,11 +1056,11 @@ def fused_ivf_pool(counts: torch.Tensor, qsel: torch.Tensor, cm: torch.Tensor,
         raise TypeError("counts must be int32")
     if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
         raise TypeError("sel_off/sel_scale must be float32")
+    lib = LIBRARY.get()
     vals = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.float32,
                        device=cm.device)
     pos = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.int32,
                       device=cm.device)
-    lib = LIBRARY.get()
     with torch.cuda.device(cm.device):
         stream = torch.cuda.current_stream(cm.device).cuda_stream
         rc = lib.vdb_fused_ivf_pool(
