@@ -39,8 +39,17 @@ name and power limit):
                g. fused_ivf_pool at the 1M scan_ivf shape (nlist=513,
                   cap=2688, p_cap=512, d=512, winners 4, 2, 1) with dead
                   positions, unprobed clusters and part-filled prober tiles,
-                  and at Q=1's shape (p_cap=32, 64 probed clusters):
-                  bit-equal on the rows the merge reads;
+                  at Q=1's shape (p_cap=32, 64 probed clusters), at p_cap
+                  32 and 64 with prober counts that end mid-tile, at one
+                  bucket a cluster (cap=128) and a full pool row (cap=4096,
+                  winners 4) and at the 10M grid's shape (nlist=4864,
+                  p_cap=64, ~6.7 GB of rows built on the card): bit-equal on
+                  the rows the merge reads, with and without the caller's
+                  probe count, and the rows no merge reads (at or past a
+                  cluster's count, of unprobed clusters) keep the sentinel
+                  they were filled with; timed at Q=1024 and at Q=1's shape
+                  (at forced ring depths and bucket splits beside the
+                  plan's) and at the 10M grid;
                h. fused_scan_topk at Q in {13, 1024}, N in {4000, 100,000},
                   d=512, k=10, winners in {1, 2}, rows masked by a +inf norm
                   (within the bound of ops/kernels.check_scan_topk); it has
@@ -88,7 +97,17 @@ name and power limit):
                kernel, recall@10 >= 0.93, a profiled index search, and CRUD
                (300 adds found from the exact overlay, a removed id gone, the
                overlay budget crossed -> relayout); b. the raw store by
-               bulk_load, recall@10 >= 0.93.
+               bulk_load, recall@10 >= 0.93; c. the compressed + residual
+               store at 9,961,472 rows (phase 6's corpus, streamed again with
+               the coarse quantizer trained in the stream; phase 6's ground
+               truth), nlist auto, at nprobe 64 (db QPS, Q=1 latency, index
+               time, profiled searches at Q=1024 and Q=1), 128 and 256:
+               fused_ivf_pool must launch and no other pool kernel, and
+               recall@10 must rise with nprobe (no reference figure exists
+               at this size, so it has no floor of its own); then the coarse
+               quantizer trained again on a sample of the whole store (the
+               stream trains it on its first chunk), for the recall that
+               costs.
 
 Every path of phases 4-8 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
@@ -267,6 +286,40 @@ def phase_build():
                                    "C75")):
             say(f"phase 2 build: ptxas [{kernel_name(fn)}] {line.strip()}")
     timing("phase 2 build seconds (nvcc + load)", time.perf_counter() - t0, "s")
+    sass_mix(lib.path, "ivf_pool_kernel")
+
+
+def sass_mix(lib_path, kernel):
+    """The instruction mix of a kernel's SASS (cuobjdump, where the toolkit
+    has it): instructions by pipe class, printed.  The compare/select/
+    integer class runs at half the FP32 rate on an H100."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        say(f"phase 2 build: sass [{kernel}] not measured (no cuobjdump)")
+        return
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    import re
+
+    for part in out.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        if kernel not in name:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)", part)
+        mix = {"total": len(ops)}
+        for cls, names in (
+                ("compare_select_int", (
+                    "FSETP", "FSEL", "SEL", "ISETP", "LOP3", "SHF", "IADD3",
+                    "FMNMX", "IMNMX", "I2FP", "I2F", "PLOP3", "LEA", "VIADD")),
+                ("fp32_fma_imad", ("FADD", "FMUL", "FFMA", "IMAD")),
+                ("shuffle", ("SHFL",)),
+                ("load_store", ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDC",
+                                "ULDC"))):
+            mix[cls] = sum(o in names for o in ops)
+        say(f"phase 2 build: sass [{kernel_name(name)}] {json.dumps(mix)}")
 
 
 def kernel_name(mangled):
@@ -356,6 +409,28 @@ def per_call_ms(run, calls):
     return cuda_ms(many) / calls
 
 
+def ahead_ms(run, calls=20, reps=3):
+    """The card's time for one call when the host runs ahead of it: each
+    window's first event is queued behind a long matmul, so the ``calls``
+    calls are enqueued while the card is still busy and run back to back
+    (best of ``reps`` windows over their count).  For a kernel so short
+    that :func:`per_call_ms` times the host's launches instead."""
+    big = torch.randn(8192, 8192, device=DEVICE)
+    run()
+    best = float("inf")
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.mm(big, big)
+        e0.record()
+        for _ in range(calls):
+            run()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / calls)
+    return best
+
+
 def q1_time(label, shape, run, calls=20):
     """A kernel's time at Q=1 (:func:`per_call_ms`), printed."""
     ms = per_call_ms(run, calls)
@@ -364,20 +439,21 @@ def q1_time(label, shape, run, calls=20):
     return ms
 
 
-def stage_sweep(label, run):
+def stage_sweep(label, run, knob="S8_POOL_STAGES"):
     """Kernel time of an s8 pool at forced ring depths beside the default
-    (ops/kernels.S8_POOL_STAGES; the plan caps a depth at what fits),
-    printed: the measurement behind that default."""
+    (ops/kernels.S8_POOL_STAGES, or IVF_POOL_STAGES for the cluster scan;
+    the plan caps a depth at what fits), printed: the measurement behind
+    that default."""
     from vector_db_torch.ops import kernels as kn
 
-    default = kn.S8_POOL_STAGES
+    default = getattr(kn, knob)
     try:
         times = {"default": cuda_ms(run)}
         for st in STAGE_SWEEP:
-            kn.S8_POOL_STAGES = st
+            setattr(kn, knob, st)
             times[st] = cuda_ms(run)
     finally:
-        kn.S8_POOL_STAGES = default
+        setattr(kn, knob, default)
     timing(f"{label} Q={NQ} ms by ring stages (best of 3)", json.dumps(times),
            "")
 
@@ -963,11 +1039,12 @@ def phase_1m():
     return counts
 
 
-def stream_spectral(queries, work, n_chunks):
+def stream_spectral(queries, work, n_chunks, known_gt=None):
     """A spectral corpus as bulk_load_stream chunks: chunk c is randn from a
     CUDA generator seeded 42 + c times the spectrum, ids c*131072 + i.
     Exact top-10 ground truth is merged per chunk on the way (so the f32
-    corpus never exists whole); ``work`` accumulates the seconds spent on
+    corpus never exists whole), unless ``known_gt`` of an earlier stream of
+    the same chunks is handed in; ``work`` accumulates the seconds spent on
     generation and ground truth."""
     from vector_db_torch.ops.distance import blocked_knn
     from vector_db_torch.ops.topk import merge_topk
@@ -981,12 +1058,17 @@ def stream_spectral(queries, work, n_chunks):
         t0 = time.perf_counter()
         g = torch.Generator(device=DEVICE).manual_seed(42 + c)
         chunk = torch.randn(N_10M_CHUNK, DIM, device=DEVICE, generator=g) * scale
-        d, i = blocked_knn(queries, chunk, ones, K, block_n=N_10M_CHUNK)
-        gt_d, gt_i = merge_topk(gt_d, gt_i, d, i + c * N_10M_CHUNK, K)
+        if known_gt is None:
+            d, i = blocked_knn(queries, chunk, ones, K, block_n=N_10M_CHUNK)
+            gt_d, gt_i = merge_topk(gt_d, gt_i, d, i + c * N_10M_CHUNK, K)
         torch.cuda.synchronize()
         work["seconds"] += time.perf_counter() - t0
         yield np.arange(c * N_10M_CHUNK, (c + 1) * N_10M_CHUNK), chunk
-    work["gt"] = gt_i.cpu().tolist()
+    work["gt"] = gt_i.cpu().tolist() if known_gt is None else known_gt
+
+
+#: phase 6's exact ground truth, which phase 8c reads (the same stream)
+GT_10M = {"gt": None}
 
 
 def phase_10m():
@@ -1005,7 +1087,7 @@ def phase_10m():
     rows = db.bulk_load_stream(stream_spectral(queries, work, N_10M_CHUNKS))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    gt = work["gt"]
+    gt = GT_10M["gt"] = work["gt"]
     timing(f"phase 6 10M ingest (bulk_load_stream of {rows} rows: train + "
            "pack + residual + encode; generation and ground truth excluded)",
            total - work["seconds"], "s")
@@ -1122,10 +1204,68 @@ def ivf_case(g, nlist, cap, p_cap, d, counts):
     return counts.clamp(max=p_cap).to(torch.int32), qsel, cm, off, sc
 
 
-def phase_ivf_kernel():
-    """3g: fused_ivf_pool (B8) vs plain at the 1M scan_ivf grid, bit-equal
-    on the rows the merge reads; returns the kernels-line entry."""
+def hold_ivf(label, args, nlist, cap, p_cap, winners, canary=False):
+    """fused_ivf_pool (B8) against its plain version, bit-equal on the rows
+    a merge reads (read_rows), launched with and without the caller's
+    count of probes; with ``canary`` into outputs filled with a sentinel,
+    which every other row (rows at or past a cluster's count, the rows of
+    unprobed clusters) must still hold.  Prints its line, raises on a
+    difference, returns the largest error."""
     from vector_db_torch.ops import kernels as kn
+
+    counts = args[0]
+    d = 4 * args[2].shape[1]
+    pv, pp = kn.fused_ivf_pool_plain(*args, nlist, cap, p_cap, winners)
+    rows = read_rows(counts, p_cap)
+    fin = torch.isfinite(pv[rows])
+    same, kept, err = True, True, 0.0
+    for probes in (None, int(counts.sum())):
+        out = None
+        if canary:
+            out = (torch.full_like(pv, -12345.0), torch.full_like(pp, -777))
+        kv, kp = kn.fused_ivf_pool(*args, nlist, cap, p_cap, winners,
+                                   probes=probes, out=out)
+        torch.cuda.synchronize()
+        same &= (torch.equal(kv[rows], pv[rows])
+                 and torch.equal(kp[rows][fin], pp[rows][fin]))
+        err = max(err, max_abs_err(kv[rows], pv[rows]))
+        if canary:
+            other = torch.ones(kv.shape[0], dtype=torch.bool, device=DEVICE)
+            other[rows] = False
+            kept &= bool((kv[other] == -12345.0).all()
+                         and (kp[other] == -777).all())
+    say(f"{label}: nlist={nlist} cap={cap} p_cap={p_cap} d={d} "
+        f"winners={winners} probed={int((counts > 0).sum())} "
+        f"rows_read={rows.numel()} bit_equal={same} max_abs_err={err}"
+        + (f" canary_rows={int(other.sum())} untouched={kept}" if canary
+           else ""))
+    if not same:
+        raise RuntimeError("fused_ivf_pool disagrees with its plain version "
+                           f"at cap={cap} p_cap={p_cap} winners={winners}")
+    if not kept:
+        raise RuntimeError("fused_ivf_pool wrote a row at or past a "
+                           f"cluster's count at cap={cap} p_cap={p_cap}")
+    return err
+
+
+def ivf_bound(label, counts, cap, p_cap, d):
+    """The bound of one fused_ivf_pool call: the probed clusters' rows and
+    per-position values and the live prober rows read once, the live pool
+    rows written once; the s8 products of live rows only."""
+    probed = int((counts > 0).sum())
+    live = int(counts.clamp(max=p_cap).sum())
+    return bound(label, probed * cap * (d + 8) + live * d + 4 * counts.numel()
+                 + live * 128 * 8, 2 * live * cap * d, "int8")
+
+
+def phase_ivf_kernel():
+    """3g: fused_ivf_pool (B8) vs plain, bit-equal on the rows the merge
+    reads, at the 1M scan_ivf grid, at prober tiles that end mid-tile (with
+    canary rows), at one-bucket and full-pool-row clusters and at the 10M
+    grid's shape; timed at the 1M grid for Q=1024 and Q=1 and at the 10M
+    grid; returns the kernels-line entry."""
+    from vector_db_torch.ops import kernels as kn
+    from vector_db_torch.ops.ivf_scan import auto_ivf_geometry
 
     g = torch.Generator(device=DEVICE).manual_seed(19)
     nlist, cap, p_cap, d = (IVF_SHAPE[k] for k in ("nlist", "cap", "p_cap",
@@ -1136,41 +1276,100 @@ def phase_ivf_kernel():
     counts[:4] = p_cap
     one = torch.zeros(nlist, device=DEVICE, dtype=torch.int32)
     one[torch.randperm(nlist, device=DEVICE, generator=g)[:64]] = 1
-    cases = [(p_cap, 4, counts), (p_cap, 2, counts), (p_cap, 1, counts),
-             (32, 4, one)]
     worst = 0.0
-    main = None
-    for pc, winners, cnt in cases:
+    main = q1 = None
+    for pc, winners, cnt in ((p_cap, 4, counts), (p_cap, 2, counts),
+                             (p_cap, 1, counts), (32, 4, one)):
         args = ivf_case(g, nlist, cap, pc, d, cnt)
-        kv, kp = kn.fused_ivf_pool(*args, nlist, cap, pc, winners)
-        pv, pp = kn.fused_ivf_pool_plain(*args, nlist, cap, pc, winners)
-        torch.cuda.synchronize()
-        rows = read_rows(args[0], pc)
-        fin = torch.isfinite(pv[rows])
-        same = (torch.equal(kv[rows], pv[rows])
-                and torch.equal(kp[rows][fin], pp[rows][fin]))
-        err = max_abs_err(kv[rows], pv[rows])
-        say(f"phase 3g ivf: nlist={nlist} cap={cap} p_cap={pc} d={d} "
-            f"winners={winners} probed={int((args[0] > 0).sum())} "
-            f"rows_read={rows.numel()} bit_equal={same} max_abs_err={err}")
-        if not same:
-            raise RuntimeError("fused_ivf_pool disagrees with its plain "
-                               f"version at p_cap={pc} winners={winners}")
-        worst = max(worst, err)
+        worst = max(worst, hold_ivf("phase 3g ivf", args, nlist, cap, pc,
+                                    winners))
         if main is None:
             main = args
+        q1 = args
+    # prober tiles that end mid-tile (a 128-row box runs into the next
+    # cluster's probers at p_cap 32 and 64), with canary rows
+    for pc in (32, 64):
+        cnt = torch.randint(0, pc + 1, (nlist,), device=DEVICE, generator=g)
+        cnt[::7] = 0
+        cnt[1::7] = pc
+        worst = max(worst, hold_ivf(
+            "phase 3g ivf ragged", ivf_case(g, nlist, cap, pc, d, cnt), nlist,
+            cap, pc, 4, canary=True))
+    # one bucket a cluster; a full pool row (winners * cap / 128 = 128)
+    for nl, cp, pc in ((64, 128, 64), (16, 4096, 160)):
+        cnt = torch.randint(0, pc + 1, (nl,), device=DEVICE, generator=g)
+        worst = max(worst, hold_ivf(
+            "phase 3g ivf edge", ivf_case(g, nl, cp, pc, d, cnt), nl, cp, pc,
+            4, canary=True))
     ms, plain_ms = timed_pair(
         "phase 3g fused_ivf_pool",
         f"nlist={nlist} cap={cap} p_cap={p_cap} d={d} winners=4",
-        lambda: kn.fused_ivf_pool(*main, nlist, cap, p_cap, 4),
+        lambda: kn.fused_ivf_pool(*main, nlist, cap, p_cap, 4,
+                                  probes=NQ * 64),
         lambda: kn.fused_ivf_pool_plain(*main, nlist, cap, p_cap, 4))
-    probed = int((counts > 0).sum())
-    live = int(counts.clamp(max=p_cap).sum())
-    b = bound("phase 3g fused_ivf_pool", probed * cap * (d + 8) + live * d
-              + 4 * nlist + live * 128 * 8, 2 * live * cap * d, "int8")
-    del main, cases
+    b = ivf_bound("phase 3g fused_ivf_pool", counts, cap, p_cap, d)
+    timing("phase 3g fused_ivf_pool ms by winners (best of 3)", json.dumps(
+        {w: cuda_ms(lambda: kn.fused_ivf_pool(*main, nlist, cap, p_cap, w,
+                                              probes=NQ * 64))
+         for w in (1, 2, 4)}), "")
+    stage_sweep("phase 3g fused_ivf_pool",
+                lambda: kn.fused_ivf_pool(*main, nlist, cap, p_cap, 4,
+                                          probes=NQ * 64), "IVF_POOL_STAGES")
+    q1_ms = q1_time("phase 3g fused_ivf_pool",
+                    f"nlist={nlist} cap={cap} p_cap=32 d={d} winners=4, 64 "
+                    "clusters probed",
+                    lambda: kn.fused_ivf_pool(*q1, nlist, cap, 32, 4,
+                                              probes=64))
+    ivf_bound("phase 3g fused_ivf_pool Q=1", one, cap, 32, d)
+    ivf_split_sweep("phase 3g fused_ivf_pool Q=1", cap,
+                    lambda: kn.fused_ivf_pool(*q1, nlist, cap, 32, 4,
+                                              probes=64))
+    del main, q1, args
     torch.cuda.empty_cache()
-    return kernel_entry("fused_ivf_pool", worst, ms, plain_ms, b)
+    # the 10M grid: the geometry and the prober tile a 9,961,472-row store
+    # gets (ivf_search_shape: p_cap = pow2(4 Q nprobe / nlist) in [32, 512]),
+    # ~13 probers a cluster; ~6.7 GB of rows, built here and freed
+    nl, cp = auto_ivf_geometry(N_10M_CHUNK * N_10M_CHUNKS)
+    pc = min(512, max(32, 1 << (4 * NQ * 64 // nl - 1).bit_length()))
+    cnt = torch.poisson(torch.full((nl,), NQ * 64 / nl, device=DEVICE),
+                        generator=g).long()
+    big = ivf_case(g, nl, cp, pc, d, cnt)
+    worst = max(worst, hold_ivf("phase 3g ivf 10M grid", big, nl, cp, pc, 4))
+    timing(f"phase 3g fused_ivf_pool kernel nlist={nl} cap={cp} p_cap={pc} "
+           f"d={d} winners=4 (best of 3)",
+           cuda_ms(lambda: kn.fused_ivf_pool(*big, nl, cp, pc, 4,
+                                             probes=NQ * 64)), "ms")
+    ivf_bound("phase 3g fused_ivf_pool 10M grid", big[0], cp, pc, d)
+    del big
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_ivf_pool", worst, ms, plain_ms, b, q1_ms=q1_ms)
+
+
+def ivf_split_sweep(label, cap, run, splits=(1, 2, 3, 4, 7, 21)):
+    """Kernel time of the cluster scan at forced bucket splits beside
+    ops/kernels.ivf_pool_plan's own, printed: the measurement behind the
+    plan's split when few clusters are probed."""
+    from vector_db_torch.ops import kernels as kn
+
+    plan = kn.ivf_pool_plan
+    buckets = cap // 128
+
+    def forced(sp):
+        per = -(-buckets // sp)
+
+        def f(*a, **kw):
+            return plan(*a, **kw)._replace(splits=-(-buckets // per),
+                                           buckets_per_split=per)
+        return f
+    try:
+        times = {"plan": ahead_ms(run)}
+        for sp in splits:
+            kn.ivf_pool_plan = forced(sp)
+            times[sp] = ahead_ms(run)
+    finally:
+        kn.ivf_pool_plan = plan
+    timing(f"{label} ms by bucket splits (the host running ahead, best of 3 "
+           "windows of 20 calls)", json.dumps(times), "")
 
 
 def phase_scan_topk():
@@ -1318,21 +1517,9 @@ def phase_wide():
                                generator=g)
         counts[::5] = 0
         args = ivf_case(g, nlist, cap, p_cap, d, counts)
-        kv, kp = kn.fused_ivf_pool(*args, nlist, cap, p_cap, 4)
-        pv, pp = kn.fused_ivf_pool_plain(*args, nlist, cap, p_cap, 4)
-        torch.cuda.synchronize()
-        rows = read_rows(args[0], p_cap)
-        fin = torch.isfinite(pv[rows])
-        same = (torch.equal(kv[rows], pv[rows])
-                and torch.equal(kp[rows][fin], pp[rows][fin]))
-        err = max_abs_err(kv[rows], pv[rows])
-        say(f"phase 3i wide fused_ivf_pool: nlist={nlist} cap={cap} "
-            f"p_cap={p_cap} d={d} winners=4 rows_read={rows.numel()} "
-            f"bit_equal={same} max_abs_err={err}")
-        if not same:
-            raise RuntimeError(f"fused_ivf_pool disagrees with its plain "
-                               f"version at d={d}")
-        worst["fused_ivf_pool"] = max(worst["fused_ivf_pool"], err)
+        worst["fused_ivf_pool"] = max(worst["fused_ivf_pool"], hold_ivf(
+            "phase 3i wide fused_ivf_pool", args, nlist, cap, p_cap, 4,
+            canary=True))
         ms = per_call_ms(lambda: kn.fused_ivf_pool(*args, nlist, cap, p_cap,
                                                    4), 10)
         timing(f"phase 3i wide fused_ivf_pool kernel nlist={nlist} cap={cap} "
@@ -1391,6 +1578,24 @@ def profile_search(label, fn):
         say(f"phase {label} profile: {ms:.3f} ms in {count} x {key[:90]}")
 
 
+def time_coarse_fit(ix):
+    """Wrap the index's coarse k-means so its synchronised seconds add up
+    in the returned dict's "seconds"."""
+    coarse = {"seconds": 0.0}
+    fit = ix._coarse_kmeans
+
+    def timed_fit(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(*a, **kw)
+        torch.cuda.synchronize()
+        coarse["seconds"] += time.perf_counter() - t0
+        return out
+
+    ix._coarse_kmeans = timed_fit
+    return coarse
+
+
 def phase_ivf():
     """8: scan_ivf at 1M through VectorDatabase, compressed (a) and raw
     (b); returns the launch counts of its paths."""
@@ -1410,18 +1615,7 @@ def phase_ivf():
     torch.cuda.reset_peak_memory_stats()
     db = make_db(n + 1024, cfg=CFG_IVF)
     ix = db.index
-    coarse = {"seconds": 0.0}
-    fit = ix._coarse_kmeans
-
-    def timed_fit(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fit(*a, **kw)
-        torch.cuda.synchronize()
-        coarse["seconds"] += time.perf_counter() - t0
-        return out
-
-    ix._coarse_kmeans = timed_fit
+    coarse = time_coarse_fit(ix)
     t0 = time.perf_counter()
     rows = db.bulk_load_stream(stream_spectral(queries, work, N_IVF_CHUNKS))
     torch.cuda.synchronize()
@@ -1534,6 +1728,111 @@ def phase_ivf():
     return counts
 
 
+def phase_ivf_10m():
+    """8c: scan_ivf at 10M through VectorDatabase on the compressed +
+    residual store (its own bulk_load_stream of phase 6's corpus, with the
+    coarse quantizer trained in the stream), at nprobe 64, 128 and 256,
+    and again with the coarse quantizer retrained on a sample of the whole
+    store; returns the launch counts of its paths.  No reference figure
+    exists at this size, so recall has no floor of its own: it must rise
+    with nprobe."""
+    n = N_10M_CHUNK * N_10M_CHUNKS
+    torch.cuda.empty_cache()
+    queries = torch.randn(
+        NQ, DIM, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(7)) * spectrum()
+    work = {"seconds": 0.0}
+    counts = {name: 0 for name in KERNELS}
+
+    def add(c):
+        for name in counts:
+            counts[name] += c[name]
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    db = make_db(n + 1024, cfg=CFG_IVF)
+    ix = db.index
+    coarse = time_coarse_fit(ix)
+    t0 = time.perf_counter()
+    rows = db.bulk_load_stream(stream_spectral(queries, work, N_10M_CHUNKS,
+                                               known_gt=GT_10M["gt"]))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    gt = work["gt"]
+    timing(f"phase 8c ingest (bulk_load_stream of {rows} rows: train + "
+           "coarse quantizer + pack + residual + encode; generation "
+           "excluded)", total - work["seconds"], "s")
+    timing("phase 8c coarse quantizer training (inside the ingest)",
+           coarse["seconds"], "s")
+    t0 = time.perf_counter()
+    lay = ix._ivf_layout()
+    torch.cuda.synchronize()
+    timing("phase 8c layout build (choices + balanced placement + gather)",
+           time.perf_counter() - t0, "s")
+    nprobe, p_cap, pool = ix.ivf_search_shape(NQ, 16)
+    say(f"phase 8c: rows={db.size()} capacity={ix.store.capacity} "
+        f"nlist={lay.centroids.shape[0]} cap={lay.cap} nprobe={nprobe} "
+        f"p_cap={p_cap} (Q=1: {ix.ivf_search_shape(1, 16)[1]}) pool={pool} "
+        f"spilled={lay.spilled} grid_bytes={lay.cm_packed.numel() * 4}")
+    add(read_launches("8c ingest"))
+    recalls = {}
+    for probes in (64, 128, 256):
+        ix.config.nprobe = probes
+        label = f"8c scan_ivf 10M nprobe={probes}"
+        reset_launches()
+        if probes == 64:
+            _, rec, _ = serve(db, label, queries, gt)
+            index_time(label, ix, queries)
+            profile_search(f"{label} index.search_batch Q=1",
+                           lambda: ix.search_batch(queries[:1], K))
+        else:
+            rec = recall(result_ids(db.search_batch(queries, K)), gt)
+            say(f"phase {label}: p_cap={ix.ivf_search_shape(NQ, 16)[1]} "
+                f"recall@10={rec}")
+            timing(f"phase {label} index.search_batch time (Q={NQ}, k={K}, "
+                   "best of 3)",
+                   host_s(lambda: ix.search_batch(queries, K)) * 1e3, "ms")
+        recalls[probes] = rec
+        add(read_launches(label, must_launch=("fused_ivf_pool",),
+                          must_not=POOL_KERNELS[:-1] + NO_INDEX_CALLER))
+    timing("phase 8c peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+    say(f"phase 8c: recall@10 by nprobe {json.dumps(recalls)}")
+    if not recalls[64] <= recalls[128] <= recalls[256] \
+            or recalls[256] <= recalls[64]:
+        raise RuntimeError(f"8c scan_ivf recall@10 does not rise with "
+                           f"nprobe: {recalls}")
+    # what the streamed quantizer costs: the stream trains it on its first
+    # chunk; train() would take max(256 nlist, 262144) live rows, as here
+    nlist = ix.coarse_centroids.shape[0]
+    live = np.flatnonzero(ix.store.state.valid.cpu().numpy())
+    pick = np.sort(np.random.default_rng(ix.seed + 7).choice(
+        live, min(live.size, max(256 * nlist, 262144)), replace=False))
+    reset_launches()
+    t0 = time.perf_counter()
+    ix._set_coarse(ix._coarse_kmeans(ix.store.rows(pick), nlist))
+    lay = ix._ivf_layout()
+    torch.cuda.synchronize()
+    timing(f"phase 8c coarse quantizer retrained on {pick.size} sampled rows "
+           "+ layout", time.perf_counter() - t0, "s")
+    again = {}
+    for probes in (64, 256):
+        ix.config.nprobe = probes
+        again[probes] = recall(result_ids(db.search_batch(queries, K)), gt)
+    ix.config.nprobe = 64
+    timing(f"phase 8c retrained index.search_batch time (Q={NQ}, k={K}, "
+           "best of 3)", host_s(lambda: ix.search_batch(queries, K)) * 1e3,
+           "ms")
+    say(f"phase 8c retrained: spilled={lay.spilled} recall@10 by nprobe "
+        f"{json.dumps(again)}")
+    add(read_launches("8c retrained", must_launch=("fused_ivf_pool",),
+                      must_not=POOL_KERNELS[:-1] + NO_INDEX_CALLER))
+    db.close()
+    del db, ix, lay
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -1555,7 +1854,7 @@ def main():
     # the main path: each phase sets every launch count to 0 just before
     # its paths and reads them just after
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),
-                   phase_ivf()):
+                   phase_ivf(), phase_ivf_10m()):
         for name, c in counts.items():
             entries[name]["launches"] += c
     for name, entry in entries.items():

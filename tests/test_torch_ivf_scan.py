@@ -231,6 +231,34 @@ def _ivf_case(seed, nlist, cap, p_cap, d, winners, narrow=False):
 
 
 
+def _hold_ivf_to_reference(seed, nlist, cap, p_cap, d, winners, narrow,
+                           **wrapper_args):
+    """``fused_ivf_pool`` on CPU tensors (its plain version) against the
+    reference kernel in interpret mode on the rows a merge reads; returns
+    the port's (vals, pos) of those rows and the tensors the call gave."""
+    qsel, cm, off, sc, counts = _ivf_case(seed, nlist, cap, p_cap, d, winners,
+                                          narrow)
+    cids = np.flatnonzero(counts > 0).astype(np.int32)
+    jv, jp = ref_pk.fused_ivf_pool(jnp.asarray(cids), jnp.asarray(qsel),
+                                   jnp.asarray(cm), jnp.asarray(off),
+                                   jnp.asarray(sc), nlist, cap, p_cap,
+                                   winners, interpret=True)
+    got = tk.fused_ivf_pool(_t(counts), _t(qsel), _t(cm), _t(off), _t(sc),
+                            nlist, cap, p_cap, winners, **wrapper_args)
+    assert tuple(got[0].shape) == np.asarray(jv).shape == (nlist * p_cap, 128)
+    read = np.concatenate([c * p_cap + np.arange(counts[c]) for c in cids])
+    jv, jp = np.asarray(jv)[read], np.asarray(jp)[read]
+    tv, tp = got[0].numpy()[read], got[1].numpy()[read]
+    _assert_ulp_close(tv, jv)
+    fin = np.isfinite(jv)
+    np.testing.assert_array_equal(tp[fin], jp[fin])
+    used = winners * cap // 128
+    assert (tp[:, used:] == -1).all() and np.isinf(tv[:, used:]).all()
+    lane = tp[:, :used] - ((read // p_cap) * cap)[:, None]
+    assert ((0 <= lane) & (lane < cap))[fin[:, :used]].all()
+    return tv, tp, got
+
+
 @pytest.mark.parametrize("nlist,cap,p_cap,d,winners,narrow", [
     (5, 256, 8, 16, 2, False),
     (4, 384, 32, 32, 4, False),
@@ -240,27 +268,31 @@ def _ivf_case(seed, nlist, cap, p_cap, d, winners, narrow=False):
 ])
 def test_ivf_pool_plain_bit_equal_to_reference(nlist, cap, p_cap, d, winners,
                                                narrow):
-    qsel, cm, off, sc, counts = _ivf_case(nlist * cap + d, nlist, cap, p_cap,
-                                          d, winners, narrow)
-    cids = np.flatnonzero(counts > 0).astype(np.int32)
-    jv, jp = ref_pk.fused_ivf_pool(jnp.asarray(cids), jnp.asarray(qsel),
-                                   jnp.asarray(cm), jnp.asarray(off),
-                                   jnp.asarray(sc), nlist, cap, p_cap,
-                                   winners, interpret=True)
-    tv, tp = tk.fused_ivf_pool(_t(counts), _t(qsel), _t(cm), _t(off), _t(sc),
-                               nlist, cap, p_cap, winners)
-    assert tuple(tv.shape) == np.asarray(jv).shape == (nlist * p_cap, 128)
-    read = np.concatenate([c * p_cap + np.arange(counts[c]) for c in cids])
-    jv, jp = np.asarray(jv)[read], np.asarray(jp)[read]
-    tv, tp = tv.numpy()[read], tp.numpy()[read]
-    _assert_ulp_close(tv, jv)
-    fin = np.isfinite(jv)
-    np.testing.assert_array_equal(tp[fin], jp[fin])
-    used = winners * cap // 128
-    assert (tp[:, used:] == -1).all() and np.isinf(tv[:, used:]).all()
+    tv, _, _ = _hold_ivf_to_reference(nlist * cap + d, nlist, cap, p_cap, d,
+                                      winners, narrow)
     if narrow:  # tied winners within a bucket occur (lowest lane first)
         bpb = cap // 128
         assert (tv[:, :bpb] == tv[:, bpb:2 * bpb]).any()
+
+
+@pytest.mark.parametrize("nlist,cap,p_cap,d,winners,narrow", [
+    (5, 640, 32, 16, 4, False),   # p_cap 32, prober counts that end mid-tile
+    (5, 640, 32, 16, 4, True),    # ... with ties
+    (6, 128, 16, 16, 4, False),   # one bucket a cluster
+    (4, 128, 8, 8, 8, True),      # ... eight winners of it, ties
+    (3, 4096, 8, 8, 4, False),    # the pool row full: 4 x 32 buckets = 128
+])
+def test_ivf_pool_plain_bit_equal_to_reference_at_the_edges(
+        nlist, cap, p_cap, d, winners, narrow):
+    """The shapes at the kernel's edges: the smallest prober tile with
+    ragged counts, a single bucket, and a pool row with no unused column;
+    the caller's probe count and output buffers change nothing."""
+    out = (torch.full((nlist * p_cap, 128), -5.0),
+           torch.full((nlist * p_cap, 128), -7, dtype=torch.int32))
+    _, _, got = _hold_ivf_to_reference(
+        7 * nlist + cap + winners, nlist, cap, p_cap, d, winners, narrow,
+        probes=nlist * p_cap, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
 
 
 def test_ivf_pool_rejects_a_cap_the_pool_row_cannot_hold():

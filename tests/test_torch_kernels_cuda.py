@@ -4,9 +4,9 @@
 ``fused_raw_pool`` and B5 ``fused_adc_pool`` (the wgmma tile loop, at the
 main path's shapes and the ragged ones) within the f32 summation-order
 bound of ``ops/kernels.check_float_pool``; B8 ``fused_ivf_pool`` bit-equal on
-the rows the merge reads, B1 ``fused_scan_topk`` within the bound of
-``ops/kernels.check_scan_topk``; all six pools at rows of any width
-(516, 768, 1024, 1536 dims).  Every test is marked ``cuda``
+the rows the merge reads (and writing no other row), B1
+``fused_scan_topk`` within the bound of ``ops/kernels.check_scan_topk``;
+all six pools at rows of any width (516, 768, 1024, 1536 dims).  Every test is marked ``cuda``
 and skips without a card.  This file imports no JAX, so it runs on a machine
 with a card and no JAX:
 
@@ -152,6 +152,87 @@ def test_ivf_pool_bit_equal_to_plain_on_card():
         assert torch.equal(kv[rows], pv[rows])
         fin = torch.isfinite(pv[rows])
         assert torch.equal(kp[rows][fin], pp[rows][fin])
+
+
+def _ivf_inputs(g, nlist, cap, p_cap, d):
+    dev = "cuda"
+    qsel = torch.randint(-127, 128, (nlist * p_cap, d), device=dev,
+                         generator=g, dtype=torch.int8).view(torch.int32)
+    cm = torch.randint(-127, 128, (nlist * cap, d), device=dev,
+                       generator=g, dtype=torch.int8).view(torch.int32)
+    off = torch.randn(nlist * cap, device=dev, generator=g) * 100
+    off[torch.rand(nlist * cap, device=dev, generator=g) < 0.1] = float("inf")
+    sc = -torch.rand(nlist * cap, device=dev, generator=g) * 0.05
+    return qsel, cm, off, sc
+
+
+def _hold_ivf_with_canary(counts, qsel, cm, off, sc, nlist, cap, p_cap,
+                          winners):
+    """B8 bit-equal to its plain version on the rows a merge reads, with
+    and without the caller's probe count; every other row keeps the
+    sentinel the outputs were filled with."""
+    pv, pp = tk.fused_ivf_pool_plain(counts, qsel, cm, off, sc, nlist, cap,
+                                     p_cap, winners)
+    rows = torch.cat([c * p_cap + torch.arange(int(counts[c]), device="cuda")
+                      for c in range(nlist)])
+    other = torch.ones(nlist * p_cap, dtype=torch.bool, device="cuda")
+    other[rows] = False
+    fin = torch.isfinite(pv[rows])
+    for probes in (None, int(counts.sum())):
+        out = (torch.full_like(pv, -12345.0), torch.full_like(pp, -777))
+        before = tk.fused_ivf_pool.launches
+        kv, kp = tk.fused_ivf_pool(counts, qsel, cm, off, sc, nlist, cap,
+                                   p_cap, winners, probes=probes, out=out)
+        torch.cuda.synchronize()
+        assert tk.fused_ivf_pool.launches == before + 1
+        assert kv is out[0] and kp is out[1]
+        assert torch.equal(kv[rows], pv[rows])
+        assert torch.equal(kp[rows][fin], pp[rows][fin])
+        assert (kv[other] == -12345.0).all() and (kp[other] == -777).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlist,cap,p_cap,winners", [
+    (37, 2688, 32, 4),    # a 128-row box runs over four clusters' probers
+    (37, 2688, 64, 4),
+    (9, 1024, 160, 2),    # a second tile of 32 rows
+    (64, 128, 64, 4),     # one bucket a cluster
+    (5, 4096, 40, 4),     # the pool row full
+    (3, 128, 8, 40),      # more winners than a quad has lanes
+])
+def test_ivf_pool_writes_only_the_rows_it_owns_on_card(nlist, cap, p_cap,
+                                                       winners):
+    """Prober counts that end mid-tile: no row at or past a cluster's count
+    is written, above all none past p_cap (the next cluster's rows), and no
+    row of an unprobed cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(11 + cap + p_cap)
+    counts = torch.randint(0, p_cap + 1, (nlist,), device="cuda",
+                           generator=g, dtype=torch.int32)
+    counts[::4] = 0
+    counts[1] = p_cap
+    counts[2] = 1
+    _hold_ivf_with_canary(counts, *_ivf_inputs(g, nlist, cap, p_cap, 512),
+                          nlist, cap, p_cap, winners)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [36, 516, 768, 1024, 1536])
+def test_ivf_pool_takes_rows_of_any_width_on_card(d):
+    """B8 at rows that are not whole 16-byte vectors (36, 516: the cp.async
+    producer and a padded prober tile) and past the resident prober tile
+    (1536: the streamed layout), two prober tiles a cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(13 + d)
+    nlist, cap, p_cap = 11, 640, 200
+    counts = torch.randint(0, p_cap + 1, (nlist,), device="cuda",
+                           generator=g, dtype=torch.int32)
+    counts[0] = 0
+    counts[1] = p_cap
+    _hold_ivf_with_canary(counts, *_ivf_inputs(g, nlist, cap, p_cap, d),
+                          nlist, cap, p_cap, 4)
 
 
 @pytest.mark.cuda

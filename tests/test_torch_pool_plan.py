@@ -2,8 +2,9 @@
 that runs before any launch: the pass-split plan of ``_run_pool`` for the
 wgmma tile loop (128-query tiles; the bf16 and the s8 pools alike), the
 ring depth and query-tile layout (resident or streamed) derived from that
-loop's shared-memory arithmetic, and that rows of any width reach the
-kernel library.  CPU only; nothing here needs a card.
+loop's shared-memory arithmetic, the cluster scan's plan (blocks, bucket
+split, ring), and that rows of any width reach the kernel library.  CPU
+only; nothing here needs a card.
 """
 
 import pytest
@@ -96,6 +97,88 @@ def test_wgmma_plan_follows_the_shared_memory_layout(d, elem, max_stages,
     assert streamed == (not fits_resident)
     if not streamed and stages < max_stages:  # one more stage would not fit
         assert _smem(d * elem, stages + 1, False) > 232448
+
+
+# ------------------------------------------------ the cluster scan's plan
+GRID_1M = (513, 2688)     # nlist, cap of the 1M scan_ivf grid
+GRID_10M = (4865, 2688)   # ... of a 9,962,496-slot store
+
+
+@pytest.mark.parametrize("grid,p_cap,q_n,want_tiles,want_splits", [
+    # Q=1024, nprobe 64: more live (cluster, tile) pairs than SMs, no split
+    (GRID_1M, 512, 1024, 513 + 512, 1),
+    (GRID_10M, 64, 1024, 4865, 1),
+    # Q=1: at most 64 clusters, one tile each; 2 x 64 blocks, one wave
+    (GRID_1M, 32, 1, 64, 2),
+    (GRID_10M, 32, 1, 64, 2),
+    (GRID_1M, 32, 2, 129, 1),
+    # no probe count: every pair gets a block
+    (GRID_1M, 512, None, 513 * 4, 1),
+    (GRID_10M, 64, None, 4865, 1),
+    # a bucket a cluster cannot be split; 32 buckets over 4 blocks each
+    ((64, 128), 64, 1, 64, 1),
+    ((16, 4096), 160, None, 32, 4),
+    ((8, 2688), 32, 1, 8, 11),     # 16 splits wanted: 2 buckets each, 11
+])
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_ivf_pool_plan_fills_the_card(grid, p_cap, q_n, want_tiles,
+                                      want_splits, sms):
+    """One block a (cluster, 128-prober tile) pair, bounded by the batch's
+    probes where the caller knows them; when those blocks leave more than
+    half of the SMs idle, each cluster's buckets are split over as many
+    blocks as still run in one wave, every bucket in exactly one split."""
+    nlist, cap = grid
+    probes = None if q_n is None else q_n * 64
+    plan = tk.ivf_pool_plan(nlist, cap, p_cap, 512, sms, probes)
+    assert plan.tile_rows == 128 and plan.tiles == want_tiles
+    if sms == H100_SMS:
+        assert plan.splits == want_splits
+    buckets = cap // 128
+    assert 1 <= plan.splits <= buckets
+    if 2 * plan.tiles > sms:
+        assert plan.splits == 1
+    else:
+        assert plan.splits >= 2 or buckets == 1
+        assert plan.splits * plan.tiles <= sms          # one wave
+    covered = [b for y in range(plan.splits)
+               for b in range(y * plan.buckets_per_split,
+                              min(buckets, (y + 1) * plan.buckets_per_split))]
+    assert covered == list(range(buckets))          # each bucket once
+    assert (plan.splits - 1) * plan.buckets_per_split < buckets  # none empty
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ivf_pool_plan_has_a_block_for_every_live_pair(seed):
+    """Whatever the prober counts of a batch of `probes` probes, the live
+    (cluster, tile) pairs fit the planned blocks."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nlist, cap = GRID_1M
+    for q_n, p_cap in [(1, 32), (7, 32), (100, 64), (1024, 512)]:
+        probes = q_n * 64
+        hit = rng.choice(nlist, probes) if seed % 2 else rng.choice(
+            max(1, nlist // 16), probes)        # spread, or piled up
+        counts = np.minimum(np.bincount(hit, minlength=nlist), p_cap)
+        live = int((-(-counts // 128)).sum())
+        plan = tk.ivf_pool_plan(nlist, cap, p_cap, 512, H100_SMS, probes)
+        assert live <= plan.tiles <= nlist * -(-p_cap // 128)
+
+
+@pytest.mark.parametrize("d,want", [
+    (32, (9, False)), (512, (9, False)), (516, (8, False)),
+    (768, (7, False)), (1024, (5, False)), (1280, (3, False)),
+    (1408, (6, True)), (1536, (6, True)), (4096, (6, True)),
+])
+def test_ivf_pool_plan_follows_the_shared_memory_layout(d, want):
+    """The cluster scan's ring: the prober tile resident beside up to nine
+    stages while three fit, streamed past that; within one H100 block's
+    shared memory at every width."""
+    plan = tk.ivf_pool_plan(513, 2688, 512, d, H100_SMS, 65536)
+    assert (plan.stages, plan.streamed) == want
+    assert plan.stages >= 3
+    assert _smem(d, plan.stages, plan.streamed) <= 232448
+    assert plan.streamed == (_smem(d, 3, False) > 232448)
 
 
 class _OnCard(torch.Tensor):

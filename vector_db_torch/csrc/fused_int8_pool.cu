@@ -35,7 +35,8 @@
 // 0: the int8 shadows pad rows only to 4 bytes, and B4 reads the compressed
 // store's own rows, which cannot be re-padded; TMA's global stride must be
 // a multiple of 16 bytes) by 4-byte cp.async copies from all four producer
-// warps, handed over with fence.proxy.async as B5's decode does.
+// warps, handed over with fence.proxy.async as B5's decode does
+// (wg::TmaRows and wg::CopyRows in pool_wgmma.cuh, which B8 shares).
 //
 // What bounds them on an H100: at the main path's shape (Q = 1024 queries,
 // N ~ 1M slots, d = 512) the 5.4e11 s8 multiply-adds (0.53 ms of the int8
@@ -95,91 +96,6 @@ struct Global {
   }
 };
 
-// Rows of whole, 16-byte aligned vectors: one TMA per stage.
-template <class Epi>
-struct TmaRows : Epi {
-  static constexpr int kFullArrivals = 1;  // the TMA thread's expect_tx
-  __device__ __forceinline__ void produce(const wg::Ring& r,
-                                          const CUtensorMap* rmap, int N,
-                                          int W, int c0, int p_begin,
-                                          int p_end) const {
-    wg::produce_tma(*this, r, rmap, N, W, c0, p_begin, p_end);
-  }
-};
-
-// Copy 4 bytes global -> shared, or write 4 zero bytes when bytes == 0.
-__device__ __forceinline__ void copy4(uint32_t dst, const void* src,
-                                      int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// Rows of d bytes (d % 4 == 0, 4-byte aligned): all four producer warps
-// copy each stage by 4-byte cp.async, and a stage is handed over once the
-// next one's copies started (two stages of copies in flight a thread).
-template <class Epi>
-struct CopyRows : Epi {
-  static constexpr int kFullArrivals = 4;  // one per producer warp
-  const uint8_t* rows;
-  int d;
-
-  // k-chunk kc of slots row0 .. row0 + 127 into the slab: warp u copies
-  // rows u, u + 4, ..., lane l the row's bytes 4l .. 4l + 3 of the chunk,
-  // at r*128 + ((l/4) ^ (r%8))*16 + (l%4)*4, the 128-byte swizzle of the
-  // wgmma descriptors; zeros past d and past N.
-  __device__ __forceinline__ void copy_chunk(uint32_t slab, long long row0,
-                                             int kc, int N, int warp,
-                                             int lane) const {
-    const int byte = wg::kRowBytes * kc + 4 * lane;
-    const uint32_t col = (lane & 3) << 2;
-#pragma unroll 4
-    for (int r = warp; r < wg::kTN; r += 4) {
-      const bool ok = byte < d && row0 + r < N;
-      const uint8_t* src = ok ? rows + (size_t)(row0 + r) * d + byte : rows;
-      copy4(slab + r * wg::kRowBytes + ((((lane >> 2) ^ (r & 7)) << 4) | col),
-            src, ok ? 4 : 0);
-    }
-  }
-
-  __device__ __forceinline__ void produce(const wg::Ring& r,
-                                          const CUtensorMap*, int N, int W,
-                                          int c0, int p_begin,
-                                          int p_end) const {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int total = (p_end - p_begin) * r.kc_n;
-    if (total <= 0) return;
-    float v0[4], v1[4];
-    int kc = 0, pl = 0, s = 0;
-    uint32_t ph = 0;
-    long long row0 = (long long)p_begin * W + c0;
-    for (int it = 0; it < total; ++it) {
-      if (warp == 0 && kc == 0) wg::col_load(*this, row0, N, lane, v0, v1);
-      wg::wait(r.empty + 8 * s, ph ^ 1);
-      if (warp == 0 && lane == 0) wg::stream_query<wg::S8Mma::kDims>(r, s, kc);
-      copy_chunk(wg::slab(r, s), row0, kc, N, warp, lane);
-      wg::cp_async_commit();
-      if (it > 0) {
-        wg::cp_async_wait<1>();
-        wg::hand_over(r, (it - 1) % r.stages, lane);
-      }
-      if (warp == 0 && kc == r.kc_n - 1) wg::col_store(r, pl, lane, v0, v1);
-      if (++s == r.stages) {
-        s = 0;
-        ph ^= 1;
-      }
-      if (++kc == r.kc_n) {
-        kc = 0;
-        row0 += W;
-        ++pl;
-      }
-    }
-    wg::cp_async_wait<0>();
-    wg::hand_over(r, (total - 1) % r.stages, lane);
-  }
-};
-
 // The producer for these rows, then the tile loop.  q8 [q, d16] (d16 = d
 // rounded up to 16, zeros past d, 16-byte aligned) is read by TMA.
 template <class Epi>
@@ -191,11 +107,11 @@ int launch_s8(const Epi& epi, const void* q8, const void* rows,
     return (int)cudaErrorInvalidValue;
   const int q_cols = (d + 15) & ~15;
   if (d % 16 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0) {
-    const TmaRows<Epi> op{epi};
+    const wg::TmaRows<Epi> op{epi};
     return wg::launch(q8, q_cols, rows, op, part_vals, part_slots, vals,
                       slots, q, n, d, w, splits, stages, streamed, stream);
   }
-  const CopyRows<Epi> op{epi, static_cast<const uint8_t*>(rows), d};
+  const wg::CopyRows<Epi> op{epi, static_cast<const uint8_t*>(rows), d};
   return wg::launch(q8, q_cols, nullptr, op, part_vals, part_slots, vals,
                     slots, q, n, d, w, splits, stages, streamed, stream);
 }

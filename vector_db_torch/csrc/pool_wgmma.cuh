@@ -1,11 +1,16 @@
 // The tensor-core scan + strided-bucket min pool of the port, for NVIDIA
-// Hopper (sm_90a): one warp-specialised wgmma tile loop that serves five
-// kernels through its element type and its producer:
+// Hopper (sm_90a): one warp-specialised wgmma tile loop that serves six
+// kernels through its element type, its producer and its pass epilogue:
 //
 //   bf16 m64n128k16 -> f32   B6 fused_raw_pool.cu (rows by TMA),
 //                            B5 fused_adc_pool.cu (rows decoded from PQ codes);
 //   s8 m64n128k32 -> s32     B2, B4, B7 fused_int8_pool.cu (rows by TMA, or by
-//                            cp.async where they are not whole 16-byte vectors).
+//                            cp.async where not whole 16-byte vectors),
+//                            B8 fused_ivf_pool.cu (the same two producers over
+//                            one cluster's buckets; its own kernel around the
+//                            loop's pieces: ring_init, load_query_tile, the
+//                            producers and consume, with the winners of each
+//                            bucket picked in the pass epilogue).
 //
 // One kernel template, `pool_kernel<Op>`, computes for queries q [Q, d] and
 // the N corpus rows that `Op` produces into shared memory:
@@ -398,6 +403,224 @@ __device__ __forceinline__ void produce_tma(const Op& op, const Ring& r,
   }
 }
 
+// Rows of whole, 16-byte aligned vectors: one TMA per stage.  `Epi` gives
+// the element type (Mma) and the per-column values.
+template <class Epi>
+struct TmaRows : Epi {
+  static constexpr int kFullArrivals = 1;  // the TMA thread's expect_tx
+  __device__ __forceinline__ void produce(const Ring& r,
+                                          const CUtensorMap* rmap, int N,
+                                          int W, int c0, int p_begin,
+                                          int p_end) const {
+    produce_tma(*this, r, rmap, N, W, c0, p_begin, p_end);
+  }
+};
+
+// Copy 4 bytes global -> shared, or write 4 zero bytes when bytes == 0.
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// s8 rows of d bytes (d % 4 == 0, 4-byte aligned): all four producer warps
+// copy each stage by 4-byte cp.async, and a stage is handed over once the
+// next one's copies started (two stages of copies in flight a thread).
+template <class Epi>
+struct CopyRows : Epi {
+  static constexpr int kFullArrivals = 4;  // one per producer warp
+  const uint8_t* rows;
+  int d;
+
+  // k-chunk kc of slots row0 .. row0 + 127 into the slab: warp u copies
+  // rows u, u + 4, ..., lane l the row's bytes 4l .. 4l + 3 of the chunk,
+  // at r*128 + ((l/4) ^ (r%8))*16 + (l%4)*4, the 128-byte swizzle of the
+  // wgmma descriptors; zeros past d and past N.
+  __device__ __forceinline__ void copy_chunk(uint32_t slab, long long row0,
+                                             int kc, int N, int warp,
+                                             int lane) const {
+    const int byte = kRowBytes * kc + 4 * lane;
+    const uint32_t col = (lane & 3) << 2;
+#pragma unroll 4
+    for (int r = warp; r < kTN; r += 4) {
+      const bool ok = byte < d && row0 + r < N;
+      const uint8_t* src = ok ? rows + (size_t)(row0 + r) * d + byte : rows;
+      copy4(slab + r * kRowBytes + ((((lane >> 2) ^ (r & 7)) << 4) | col),
+            src, ok ? 4 : 0);
+    }
+  }
+
+  __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap*,
+                                          int N, int W, int c0, int p_begin,
+                                          int p_end) const {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int total = (p_end - p_begin) * r.kc_n;
+    if (total <= 0) return;
+    float v0[4], v1[4];
+    int kc = 0, pl = 0, s = 0;
+    uint32_t ph = 0;
+    long long row0 = (long long)p_begin * W + c0;
+    for (int it = 0; it < total; ++it) {
+      if (warp == 0 && kc == 0) col_load(*this, row0, N, lane, v0, v1);
+      wait(r.empty + 8 * s, ph ^ 1);
+      if (warp == 0 && lane == 0) stream_query<S8Mma::kDims>(r, s, kc);
+      copy_chunk(slab(r, s), row0, kc, N, warp, lane);
+      cp_async_commit();
+      if (it > 0) {
+        cp_async_wait<1>();
+        hand_over(r, (it - 1) % r.stages, lane);
+      }
+      if (warp == 0 && kc == r.kc_n - 1) col_store(r, pl, lane, v0, v1);
+      if (++s == r.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+      if (++kc == r.kc_n) {
+        kc = 0;
+        row0 += W;
+        ++pl;
+      }
+    }
+    cp_async_wait<0>();
+    hand_over(r, (total - 1) % r.stages, lane);
+  }
+};
+
+// Carve the block's dynamic shared memory into the query tile (rows q0 ..
+// q0 + 127 of the query map), the ring, the per-column buffers and the
+// barriers (a stage's full barrier takes `full_arrivals` arrivals),
+// initialise the barriers and synchronise the block.
+__device__ __forceinline__ void ring_init(Ring& r, unsigned char* smem_raw,
+                                          const CUtensorMap* qmap, int q0,
+                                          int kc_n, int stages, int streamed,
+                                          int full_arrivals) {
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + kAlign - 1) & ~(kAlign - 1);
+  r.streamed = streamed != 0;
+  r.stage_bytes = r.streamed ? 2 * kChunkBytes : kChunkBytes;
+  r.q = base;
+  r.stage = r.q + (r.streamed ? 0 : kc_n * kChunkBytes);
+  const uint32_t cols = r.stage + stages * r.stage_bytes;
+  r.cols = reinterpret_cast<float*>(smem_raw + (cols - raw));
+  r.full = cols + kColBytes;
+  r.empty = r.full + 8 * kMaxStages;
+  r.colfull = r.empty + 8 * kMaxStages;
+  r.colempty = r.colfull + 16;
+  r.qbar = r.colempty + 16;
+  r.qmap = qmap;
+  r.stages = stages;
+  r.kc_n = kc_n;
+  r.q0 = q0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxStages; ++s) {
+      bar_init(r.full + 8 * s, full_arrivals);
+      bar_init(r.empty + 8 * s, 8);  // one per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      bar_init(r.colfull + 8 * b, 1);
+      bar_init(r.colempty + 8 * b, 8);
+    }
+    bar_init(r.qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer's first thread: the resident query tile by TMA, counted on
+// r.qbar (streamed: an arrival without bytes, so the consumers' wait
+// passes).
+template <class Mma>
+__device__ __forceinline__ void load_query_tile(const Ring& r) {
+  if (threadIdx.x != 0) return;
+  arrive_expect_tx(r.qbar, r.streamed ? 0 : r.kc_n * kChunkBytes);
+  if (!r.streamed)
+    for (int kc = 0; kc < r.kc_n; ++kc)
+      tma_load(r.q + kc * kChunkBytes, r.qmap, r.qbar, Mma::kDims * kc, r.q0);
+}
+
+// Consumer warpgroup cw (0 or 1: rows 64 cw .. 64 cw + 63 of the query
+// tile) over the block's passes p_begin .. p_end - 1: a pass's products
+// into `acc` (kMma) or, for a warpgroup whose rows are all dead, only the
+// protocol; then, once the pass's per-column values are staged,
+// `pass_end(p, cv)` on the accumulators in registers (kMma only; cv
+// [2][128] the pass's two per-column values).  Two instances and no runtime
+// branch around the wgmmas, so no path joins another while a wgmma group is
+// in flight (ptxas would wait for the group there: advisory C7517).
+//
+// The s8 pools, where the ring holds a whole pass and one stage more: the
+// two warpgroups take turns at the tensor cores, a pass each, so one's
+// epilogue overlaps the other's products (6% at B2's main shape,
+// chip_smoke.py's stage sweep on an H100): warpgroup cw waits for its turn
+// (named barrier 1 + cw over both warpgroups' 256 threads) before a pass's
+// products and hands the turn over after them; warpgroup 0 takes the
+// first.  With a shallower ring warpgroup 0 could not finish a pass before
+// warpgroup 1 freed its first stages (the producers hand a stage over up to
+// one chunk late), so the two go in step; so do the bf16 pools, whose four
+// stages hold a pass only below 256 dims (and whose consumers would spill
+// with the turns).
+template <class Mma, bool kMma, class PassEnd>
+__device__ __forceinline__ void consume(const Ring& r, int cw, int p_begin,
+                                        int p_end,
+                                        typename Mma::Acc (&acc)[64],
+                                        PassEnd&& pass_end) {
+  const int lane = threadIdx.x & 31;
+  const int stages = r.stages;
+  const int kc_n = r.kc_n;
+  // the warpgroup's 64 rows in a query k-chunk
+  const uint32_t a_off = cw * (kChunkBytes / 2);
+  auto release = [&](uint32_t bar) {  // one arrival per warp
+    __syncwarp();
+    if (lane == 0) arrive(bar);
+  };
+  const bool turns = std::is_same<Mma, S8Mma>::value && stages >= kc_n + 1;
+  wait(r.qbar, 0);
+  int s = 0;
+  uint32_t ph = 0;
+  for (int p = p_begin; p < p_end; ++p) {
+    if (turns && (cw == 1 || p > p_begin)) named_sync(1 + cw, 2 * kTQ);
+    // one wgmma group stays in flight: stage k is released once stage
+    // k+1's products started, the pass's last stage after all finish
+    int prev = -1;
+    for (int kc = 0; kc < kc_n; ++kc) {
+      wait(r.full + 8 * s, ph);
+      if constexpr (kMma) {
+        const uint32_t b = slab(r, s);
+        const uint32_t a =
+            (r.streamed ? b + kChunkBytes : r.q + kc * kChunkBytes) + a_off;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRowBytes / 32; ++kk)
+          Mma::mma(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
+                   (kc | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(acc);
+      }
+      if (prev >= 0) release(r.empty + 8 * prev);
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    if constexpr (kMma) {
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    if (prev >= 0) release(r.empty + 8 * prev);
+    if (turns && (cw == 0 || p + 1 < p_end)) named_arrive(2 - cw, 2 * kTQ);
+    const int pl = p - p_begin;
+    const int b = pl & 1;
+    wait(r.colfull + 8 * b, (pl >> 1) & 1);
+    if constexpr (kMma) pass_end(p, r.cols + 2 * kTN * b);
+    __syncwarp();
+    if (lane == 0) arrive(r.colempty + 8 * b);
+  }
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -419,43 +642,13 @@ pool_kernel(const __grid_constant__ CUtensorMap qmap,  // the queries
   using Acc = typename Mma::Acc;
   using Val = typename Op::Val;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + kAlign - 1) & ~(kAlign - 1);
-  Ring r;
-  r.streamed = streamed != 0;
-  r.stage_bytes = r.streamed ? 2 * kChunkBytes : kChunkBytes;
-  r.q = base;
-  r.stage = r.q + (r.streamed ? 0 : kc_n * kChunkBytes);
-  const uint32_t cols = r.stage + stages * r.stage_bytes;
-  r.cols = reinterpret_cast<float*>(smem_raw + (cols - raw));
-  r.full = cols + kColBytes;
-  r.empty = r.full + 8 * kMaxStages;
-  r.colfull = r.empty + 8 * kMaxStages;
-  r.colempty = r.colfull + 16;
-  r.qbar = r.colempty + 16;
-  r.qmap = &qmap;
-  r.stages = stages;
-  r.kc_n = kc_n;
-
   const int c0 = blockIdx.x * kTN;
-  r.q0 = blockIdx.y * kTQ;
   const int split = blockIdx.z;
   const int p_begin = split * passes_per_split;
   const int p_end = min(passes, p_begin + passes_per_split);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kMaxStages; ++s) {
-      bar_init(r.full + 8 * s, Op::kFullArrivals);
-      bar_init(r.empty + 8 * s, 8);  // one per consumer warp
-    }
-    for (int b = 0; b < 2; ++b) {
-      bar_init(r.colfull + 8 * b, 1);
-      bar_init(r.colempty + 8 * b, 8);
-    }
-    bar_init(r.qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  Ring r;
+  ring_init(r, smem_raw, &qmap, blockIdx.y * kTQ, kc_n, stages, streamed,
+            Op::kFullArrivals);
 
   // the warpgroup's role, provably warp-uniform (a shuffle from lane 0), so
   // ptxas allocates each branch with its own setmaxnreg count
@@ -463,14 +656,7 @@ pool_kernel(const __grid_constant__ CUtensorMap qmap,  // the queries
   if (role == 0) {
     // ---- producer warpgroup
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      // streamed: an arrival without bytes, so the consumers' wait passes
-      arrive_expect_tx(r.qbar, r.streamed ? 0 : kc_n * kChunkBytes);
-      if (!r.streamed)
-        for (int kc = 0; kc < kc_n; ++kc)
-          tma_load(r.q + kc * kChunkBytes, &qmap, r.qbar, Mma::kDims * kc,
-                   r.q0);
-    }
+    load_query_tile<Mma>(r);
     op.produce(r, &rmap, N, W, c0, p_begin, p_end);
   } else {
     // ---- consumer warpgroups: query rows q0 + 64 cw .. + 63
@@ -484,12 +670,6 @@ pool_kernel(const __grid_constant__ CUtensorMap qmap,  // the queries
     // a warpgroup whose 64 rows all lie past Q only keeps the protocol (the
     // flag shuffled from lane 0, provably uniform like the role)
     const bool active = __shfl_sync(0xffffffffu, r.q0 + 64 * cw < Q, 0);
-    // the warpgroup's 64 rows in a query k-chunk
-    const uint32_t a_off = cw * (kChunkBytes / 2);
-    auto release = [&](uint32_t bar) {  // one arrival per warp
-      __syncwarp();
-      if (lane == 0) arrive(bar);
-    };
     float rq[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) rq[h] = op.row_value(row_base + 8 * h, Q);
@@ -502,96 +682,31 @@ pool_kernel(const __grid_constant__ CUtensorMap qmap,  // the queries
       best_v[i] = Op::init();
       best_p[i] = 0;
     }
-    wait(r.qbar, 0);
-    // The passes, with the products (kMma) or, for an inactive warpgroup,
-    // only the protocol: two instances and no runtime branch around the
-    // wgmmas, so no path joins another while a wgmma group is in flight
-    // (ptxas would wait for the group there: advisory C7517).
-    // The s8 pools, where the ring holds a whole pass and one stage more:
-    // the two warpgroups take turns at the tensor cores, a pass each, so
-    // one's epilogue overlaps the other's products (6% at the main path's
-    // shape, chip_smoke.py's stage sweep on an H100): warpgroup cw waits
-    // for its turn (named barrier 1 + cw over both warpgroups' 256
-    // threads) before a pass's products and hands the turn over after
-    // them; warpgroup 0 takes the first.  With a shallower ring warpgroup 0
-    // could not finish a pass before warpgroup 1 freed its first stages
-    // (the producers hand a stage over up to one chunk late), so the two go
-    // in step; so do the bf16 pools, whose four stages hold a pass only
-    // below 256 dims (and whose consumers would spill with the turns).
-    const bool turns =
-        std::is_same<Mma, S8Mma>::value && stages >= kc_n + 1;
-    auto passes = [&](auto mma_tag) {
-      constexpr bool kMma = decltype(mma_tag)::value;
-      int s = 0;
-      uint32_t ph = 0;
-      for (int p = p_begin; p < p_end; ++p) {
-        if (turns && (cw == 1 || p > p_begin)) named_sync(1 + cw, 2 * kTQ);
-        // one wgmma group stays in flight: stage k is released once stage
-        // k+1's products started, the pass's last stage after all finish
-        int prev = -1;
-        for (int kc = 0; kc < kc_n; ++kc) {
-          wait(r.full + 8 * s, ph);
-          if constexpr (kMma) {
-            const uint32_t b = slab(r, s);
-            const uint32_t a =
-                (r.streamed ? b + kChunkBytes : r.q + kc * kChunkBytes) +
-                a_off;
-            fence_acc(acc);
-            wgmma_fence();
+    // the pool compare of a pass: the running (value, pass) minimum
+    auto pass_end = [&](int p, const float* cv) {
 #pragma unroll
-            for (int kk = 0; kk < kRowBytes / 32; ++kk)
-              Mma::mma(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
-                       (kc | kk) != 0);
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_acc(acc);
-          }
-          if (prev >= 0) release(r.empty + 8 * prev);
-          prev = s;
-          if (++s == stages) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-        if constexpr (kMma) {
-          wgmma_wait<0>();
-          fence_acc(acc);
-        }
-        if (prev >= 0) release(r.empty + 8 * prev);
-        if (turns && (cw == 0 || p + 1 < p_end))
-          named_arrive(2 - cw, 2 * kTQ);
-        const int pl = p - p_begin;
-        const int b = pl & 1;
-        wait(r.colfull + 8 * b, (pl >> 1) & 1);
-        if constexpr (kMma) {
-          const float* cv = r.cols + 2 * kTN * b;
+      for (int j = 0; j < 16; ++j) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float o = cv[col];
+          const float c = cv[kTN + col];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 8 * j + 2 * t + e;
-              const float o = cv[col];
-              const float c = cv[kTN + col];
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int i = 4 * j + 2 * h + e;
-                const Val score = Op::score(acc[i], o, c, rq[h]);
-                if (score < best_v[i]) {
-                  best_v[i] = score;
-                  best_p[i] = p;
-                }
-              }
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            const Val score = Op::score(acc[i], o, c, rq[h]);
+            if (score < best_v[i]) {
+              best_v[i] = score;
+              best_p[i] = p;
             }
           }
         }
-        __syncwarp();
-        if (lane == 0) arrive(r.colempty + 8 * b);
       }
     };
     if (active)
-      passes(std::true_type{});
+      consume<Mma, true>(r, cw, p_begin, p_end, acc, pass_end);
     else
-      passes(std::false_type{});
+      consume<Mma, false>(r, cw, p_begin, p_end, acc, pass_end);
     if (active) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

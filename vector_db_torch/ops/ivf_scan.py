@@ -187,7 +187,7 @@ def ivf_pool_candidates(queries: torch.Tensor, centroids: torch.Tensor,
     qsel = q8.view(torch.int32)[probers.long()]          # [nlist*p_cap, d/4]
     vals, pos = fused_ivf_pool(prober_counts(top_c, nlist, p_cap), qsel,
                                cm_packed, off_cm, sc_cm * sq, nlist, cap,
-                               p_cap, winners)
+                               p_cap, winners, probes=top_c.numel())
     # per-query merge: each (query, probe)'s pool row, dropped probes masked
     rows = (top_c * p_cap + ppos).clamp(min=0)            # [Q, nprobe]
     live = (ppos >= 0)[:, :, None]

@@ -4,17 +4,18 @@
 Each function replaces the TPU kernel of the same name in
 ``vector_db_tpu/ops/pallas_kernels.py``:
 
-  * five pools on one ``wgmma`` tile loop with a producer warpgroup
+  * six pools on one ``wgmma`` tile loop with a producer warpgroup
     (``vector_db_torch/csrc/pool_wgmma.cuh``): ``fused_int8_pool`` (:585),
     ``fused_packed_pool`` (:900) and ``fused_int8g_pool`` (:726) on its s8
     instance, three entry points in ``vector_db_torch/csrc/fused_int8_pool.cu``
     fed by TMA or cp.async; ``fused_raw_pool`` (:460) and
     ``fused_adc_pool`` (:284) on its bf16 instance, fed by TMA in
     ``vector_db_torch/csrc/fused_raw_pool.cu`` and by the PQ decode in
-    ``vector_db_torch/csrc/fused_adc_pool.cu``;
-  * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``;
-  * ``fused_ivf_pool`` (:1153), the cluster-pruned scan of ``scan_ivf``,
+    ``vector_db_torch/csrc/fused_adc_pool.cu``; ``fused_ivf_pool`` (:1153),
+    the cluster-pruned scan of ``scan_ivf``, the s8 loop walking one
+    cluster's buckets with the winners picked in registers,
     ``vector_db_torch/csrc/fused_ivf_pool.cu``;
+  * ``pq_decode_recon_t`` (:174), ``vector_db_torch/csrc/pq_decode.cu``;
   * ``fused_scan_topk`` (:988), the f32 bucket-winner scan,
     ``vector_db_torch/csrc/fused_scan_topk.cu``.
 
@@ -41,7 +42,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -141,7 +142,7 @@ class _Library:
             getattr(lib, entry).restype = i32
         lib.vdb_pq_decode_recon_t.argtypes = ([ptr, i64, ptr, ptr]
                                               + [i32] * 4 + [ptr])
-        lib.vdb_fused_ivf_pool.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.vdb_fused_ivf_pool.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
         lib.vdb_fused_scan_topk.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         for entry in ("vdb_pq_decode_recon_t", "vdb_fused_ivf_pool",
                       "vdb_fused_scan_topk"):
@@ -938,6 +939,45 @@ IVF_PW = 128
 #: bytes of [clusters, p_cap, cap] f32 scores one step of the plain version
 #: holds
 IVF_PLAIN_CHUNK_BYTES = 256 << 20
+#: the ring depth of the cluster scan (the stage sweep of chip_smoke.py
+#: phase 3g, on an H100)
+IVF_POOL_STAGES = 9
+
+
+class IvfPoolPlan(NamedTuple):
+    """The launch of ``csrc/fused_ivf_pool.cu`` (:func:`ivf_pool_plan`)."""
+    tile_rows: int          #: prober rows of one block's resident tile
+    tiles: int              #: blocks along x: >= the live (cluster, tile)s
+    splits: int             #: blocks along y sharing one cluster's buckets
+    buckets_per_split: int  #: split y takes buckets [y * this, (y + 1) * this)
+    stages: int             #: ring stages
+    streamed: bool          #: the prober tile streams beside each stage
+
+
+def ivf_pool_plan(nlist: int, cap: int, p_cap: int, row_bytes: int, sms: int,
+                  probes: Optional[int] = None) -> IvfPoolPlan:
+    """How the cluster scan is laid over the card, the arithmetic of
+    ``csrc/fused_ivf_pool.cu``: one block owns a (cluster, 128-prober tile)
+    pair and walks the cluster's cap / 128 buckets.  ``tiles`` bounds the
+    live pairs: every pair, or with ``probes`` (an upper bound of the
+    batch's (query, probe) pairs) at most one a probed cluster and one more
+    for every 128 probes.  When the pairs leave more than half of the
+    ``sms`` SMs idle (one query probes 64 clusters), ``splits`` blocks share
+    each cluster's buckets, ceil(buckets / splits) each and none empty, as
+    many as still run in one wave (a second wave cost more than it gave:
+    the bucket-split sweep of chip_smoke.py phase 3g, on an H100); buckets
+    write disjoint columns, so nothing is merged.  The ring and the prober
+    tile's layout follow :func:`wgmma_plan` for rows of ``row_bytes``."""
+    ptiles = -(-p_cap // POOL_TILE_Q)
+    tiles = nlist * ptiles
+    if probes is not None:
+        tiles = max(1, min(tiles, min(nlist, probes) + probes // POOL_TILE_Q))
+    buckets = cap // LANES
+    want = max(1, min(buckets, sms // tiles))
+    per = -(-buckets // want)
+    stages, streamed = wgmma_plan(row_bytes, IVF_POOL_STAGES)
+    return IvfPoolPlan(POOL_TILE_Q, tiles, -(-buckets // per), per, stages,
+                       streamed)
 
 
 def _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist: int,
@@ -1018,7 +1058,9 @@ def fused_ivf_pool_plain(counts: torch.Tensor, qsel: torch.Tensor,
 
 def fused_ivf_pool(counts: torch.Tensor, qsel: torch.Tensor, cm: torch.Tensor,
                    sel_off: torch.Tensor, sel_scale: torch.Tensor, nlist: int,
-                   cap: int, p_cap: int, winners: int = 4
+                   cap: int, p_cap: int, winners: int = 4,
+                   probes: Optional[int] = None,
+                   out: Optional[tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cluster-pruned s8 scan + per-bucket winners (``search_mode=
     "scan_ivf"``).
@@ -1038,14 +1080,25 @@ def fused_ivf_pool(counts: torch.Tensor, qsel: torch.Tensor, cm: torch.Tensor,
     rows at or past a cluster's count are undefined: callers read only the
     rows of their (query, probe) pairs.
 
+    ``probes``, where the caller knows it, is an upper bound of
+    ``counts.sum()`` (a batch's queries x nprobe): it only sizes the
+    kernel's grid (:func:`ivf_pool_plan`), and a bound below the truth
+    leaves clusters unscanned.  ``out``, where given, is the (vals, pos)
+    pair the kernel writes into (contiguous, of the returned shapes and
+    types, on ``cm``'s device); rows that are undefined keep what they held.
+
     A CPU tensor runs :func:`fused_ivf_pool_plain`; a CUDA tensor runs the
     kernel (``csrc/fused_ivf_pool.cu``, bit-equal to the plain version on
     the rows that are read) and counts one launch in
     ``fused_ivf_pool.launches``.
     """
     if cm.device.type == "cpu":
-        return fused_ivf_pool_plain(counts, qsel, cm, sel_off, sel_scale,
-                                    nlist, cap, p_cap, winners)
+        res = fused_ivf_pool_plain(counts, qsel, cm, sel_off, sel_scale,
+                                   nlist, cap, p_cap, winners)
+        if out is not None:
+            out[0].copy_(res[0])
+            out[1].copy_(res[1])
+        return res if out is None else out
     if cm.device.type != "cuda":
         raise ValueError(f"unsupported device {cm.device}")
     dw = _check_ivf_args(counts, qsel, cm, sel_off, sel_scale, nlist, cap,
@@ -1056,17 +1109,36 @@ def fused_ivf_pool(counts: torch.Tensor, qsel: torch.Tensor, cm: torch.Tensor,
         raise TypeError("counts must be int32")
     if sel_off.dtype != torch.float32 or sel_scale.dtype != torch.float32:
         raise TypeError("sel_off/sel_scale must be float32")
+    if out is not None:
+        _check_same_device(cm, vals=out[0], pos=out[1])
+        if (out[0].shape != (nlist * p_cap, IVF_PW)
+                or out[0].shape != out[1].shape
+                or out[0].dtype != torch.float32
+                or out[1].dtype != torch.int32
+                or out[0].data_ptr() % 16 or out[1].data_ptr() % 16):
+            raise ValueError("out must be 16-byte aligned (f32, int32) "
+                             f"[nlist * p_cap, {IVF_PW}] tensors")
     lib = LIBRARY.get()
-    vals = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.float32,
-                       device=cm.device)
-    pos = torch.empty((nlist * p_cap, IVF_PW), dtype=torch.int32,
-                      device=cm.device)
+    if out is None:
+        out = (torch.empty((nlist * p_cap, IVF_PW), dtype=torch.float32,
+                           device=cm.device),
+               torch.empty((nlist * p_cap, IVF_PW), dtype=torch.int32,
+                           device=cm.device))
+    vals, pos = out
+    if dw % 4:  # the prober tile comes by TMA: rows of whole 16-byte vectors
+        qsel = torch.nn.functional.pad(qsel, (0, -dw % 4))
+    sms = torch.cuda.get_device_properties(cm.device).multi_processor_count
+    plan = ivf_pool_plan(nlist, cap, p_cap, 4 * dw, sms, probes)
+    work = torch.empty((nlist * -(-p_cap // plan.tile_rows) + 1,),
+                       dtype=torch.int32, device=cm.device)
     with torch.cuda.device(cm.device):
         stream = torch.cuda.current_stream(cm.device).cuda_stream
         rc = lib.vdb_fused_ivf_pool(
             counts.data_ptr(), qsel.data_ptr(), cm.data_ptr(),
-            sel_off.data_ptr(), sel_scale.data_ptr(), vals.data_ptr(),
-            pos.data_ptr(), nlist, cap, p_cap, dw, winners, stream)
+            sel_off.data_ptr(), sel_scale.data_ptr(), work.data_ptr(),
+            vals.data_ptr(), pos.data_ptr(), nlist, cap, p_cap, dw,
+            qsel.shape[1], winners, plan.tiles, plan.splits, plan.stages,
+            int(plan.streamed), stream)
     _raise_on_error(lib, "vdb_fused_ivf_pool", rc)
     fused_ivf_pool.launches += 1
     return vals, pos
