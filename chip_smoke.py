@@ -75,15 +75,21 @@ name and power limit):
                pool kernel), each recall@10 >= 0.95, the index time and a
                profiled search of each pool mode, and CRUD in the two new
                kernel modes;
-  6. 10M     — the compressed tier (raw_store=False, refine_residual=True,
-               adc_pool="approx", adc_select_r=512) through VectorDatabase:
+  6. 10M     — the compressed tier through VectorDatabase with the config
+               of benchmarks/bench_10m_api.py:91-103 (raw_store=False,
+               proxy_dims=64, search_mode="pca", pca_r=512,
+               adc_pool="approx", adc_select_r=512, refine_residual=True),
+               the mode set per search as that script does:
                9,961,472 x 512 spectral rows by bulk_load_stream in 76
                chunks of 131,072, exact ground truth merged per chunk;
                auto -> adc_fast (pq_decode_recon_t must launch), recall@10
                >= 0.94; scan_pallas_int8 (fused_packed_pool must launch),
                recall@10 >= 0.96; adc_fast with adc_pool="fused"
-               (fused_adc_pool must launch), recall@10 >= 0.94; the index
-               time and a profiled search of both; CRUD at 10M live;
+               (fused_adc_pool must launch), recall@10 >= 0.94; pca (the
+               chunked proxy scan: Q N 4 = 40 GB > 6 GB; no kernel),
+               recall@10 >= 0.92 (TPU reference 94.35%), with the proxy's
+               bytes and the peak memory; the index time and a profiled
+               search of each; CRUD at 10M live, under pca too;
   7. 100k memory-bound — the raw store with search_mode="adc_fast",
                adc_pool="approx", adc_select_r=128, refine_store="bf16" on
                512-d x 100,000 spectral rows by bulk_load
@@ -107,9 +113,46 @@ name and power limit):
                at this size, so it has no floor of its own); then the coarse
                quantizer trained again on a sample of the whole store (the
                stream trains it on its first chunk), for the recall that
-               costs.
+               costs;
+  9. the table scan, the proxy and the graph, through VectorDatabase:
+               a. adc: search_mode="adc" (refine_k=1024) on the 100k
+                  memory-bound corpus of phase 7, Q=1024 and Q=1, k=10:
+                  exhaustive (flagship_search) and nlist=1024, nprobe=64
+                  (flagship_search_pruned), on the raw store and on
+                  raw_store=False, refine_residual=True; no reference figure
+                  exists, so each floor is what this script measured on an
+                  H100 less 0.01, printed beside the same index's recall
+                  under phase 7's adc_fast settings;
+                  then ops/adc.adc_decode_topk against adc_scan_topk on the
+                  index's codes (pq_decode_recon_t must launch; distances
+                  within 2e-2 relative, the bf16 rounding);
+               b. pca: the same corpus, proxy_dims=64, pca_r 128 and 256
+                  (floors 0.96 / 0.97; TPU reference 97.35% / 98.22%) under
+                  L2, and pca_r=256 under cosine (floor 0.97);
+               c. graph: (i) IndexType.HNSW, 128-d x 10,000 gaussian rows,
+                  ef_search 128 and 400 (floors 0.90 / 0.97; TPU reference
+                  93.1% / 98.8%); (ii) IndexType.HNSW, 512-d x 100,000
+                  gaussian rows: the from-scratch build (bulk_build), 10,000
+                  adds in batches of 100 under insert_policy="defer" (ms/row
+                  amortised with the flush, p50 / p99 per add_batch), every
+                  added id found by its own vector before the flush (the
+                  exact overlay: all) and after (the graph's top-1 recall on
+                  these rows: measured less 0.01), recall@10 at the
+                  adaptive ef >= 0.85 (TPU reference 89.3%), the entry point
+                  deleted, close + reopen with the same ids; (iii)
+                  IndexType.HNSWPQ, use_graph=True, refine_k=64 on the
+                  flagship 100k by bulk_load: ADC traversal + exact re-rank
+                  at ef_search 64 and 256 (floors: measured less 0.01), 2,000
+                  adds answered through the pending overlay; (iv) the
+                  sequential insert path (insert_policy="stream",
+                  bulk_build=False) at 4,096 x 128-d rows: ms/row, recall@10
+                  >= the bulk-built graph's less 0.02;
+               with one profiled index.search_batch (device ms, idle
+               share, launches) at Q=1024 and Q=1 for adc exhaustive and
+               pruned (raw store), each pca case, HNSW (i) at ef 400 and
+               (ii) after the flush, and the ADC traversal at ef 256.
 
-Every path of phases 4-8 runs with all kernel launch counts set to 0 just
+Every path of phases 4-9 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
 its time, its plain version's, its launches on the main path, its bound at
 the timed shape: the larger of its bytes over 3.35 TB/s and its operations
@@ -155,6 +198,7 @@ RAGGED_ADC = ((16, 2), (96, 1), (128, 4), (74, 8), (37, 16))
 N_10M_CHUNK = 131_072
 N_10M_CHUNKS = 76
 CFG_10M = dict(raw_store=False, num_subspaces=64, training_samples=20000,
+               proxy_dims=64, search_mode="pca", pca_r=512,
                adc_pool="approx", adc_select_r=512, refine_residual=True)
 CFG_MEMBOUND = dict(num_subspaces=64, training_samples=20000,
                     search_mode="adc_fast", adc_pool="approx",
@@ -164,6 +208,25 @@ CFG_IVF = dict(raw_store=False, refine_residual=True, search_mode="scan_ivf",
                nlist=0, nprobe=64, num_subspaces=64, training_samples=20000)
 CFG_IVF_RAW = dict(search_mode="scan_ivf", nprobe=64, num_subspaces=64,
                    training_samples=20000)
+#: phase 9a: recall@10 floors of search_mode="adc" by (store, nlist): what
+#: this script measured on an H100 less 0.01 (no reference figure exists)
+CFG_ADC = dict(num_subspaces=64, training_samples=20000, search_mode="adc",
+               refine_k=1024, nprobe=64)
+ADC_FLOORS = {("raw", 0): 0.9899, ("raw", 1024): 0.9047,
+              ("int8_resid", 0): 0.9898, ("int8_resid", 1024): 0.9179}
+CFG_PCA = dict(num_subspaces=64, training_samples=20000, search_mode="pca",
+               proxy_dims=64)
+PCA_FLOORS = {("l2", 128): 0.96, ("l2", 256): 0.97, ("cosine", 256): 0.97}
+#: phase 9c (iii): ADC traversal, refine_k=64 so that ef_search sets the beam
+CFG_GRAPH_PQ = dict(num_subspaces=64, training_samples=20000, use_graph=True,
+                    refine_k=64, ef_search=64)
+GRAPH_PQ_FLOORS = {64: 0.2975, 256: 0.4018}
+N_HNSW_SMALL, DIM_HNSW_SMALL = 10_000, 128
+N_HNSW_ADDS = 10_000
+#: 9c (ii): share of the flushed rows a search by their own vector must
+#: return first (what this script measured on an H100 less 0.01)
+OWN_VECTOR_FLOOR = 0.7374
+N_STREAM = 4_096
 IVF_SHAPE = dict(nlist=513, cap=2688, p_cap=512, d=512)  # the 1M grid
 SCAN_SHAPES_Q = (13, 1024)
 SCAN_SHAPES_N = (4000, 100_000)
@@ -880,12 +943,24 @@ def read_launches(label, must_launch=(), must_not=()):
 
 
 
-def make_db(n, path=None, cfg=None):
-    from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
+def make_db(n, path=None, cfg=None, metric="l2", hnsw=False, dim=DIM,
+            flush_interval=None):
+    """An HNSWPQ database (``cfg``: HnswPqConfig fields), or with ``hnsw``
+    an IndexType.HNSW one (``cfg``: HnswConfig fields).  ``flush_interval``
+    (mutations between two checkpoints, 1,000 by default) is an argument of
+    VectorDatabase itself; the fluent chain does not take it."""
+    from vector_db_torch import (HnswConfig, HnswPqConfig, IndexType,
+                                 VectorDatabase)
 
-    b = (VectorDatabase.builder().with_dimension(DIM).with_max_elements(n)
-         .with_index_type(IndexType.HNSWPQ)
-         .with_index_config(HnswPqConfig(**(cfg or CFG))).with_device(DEVICE))
+    config = HnswConfig(**(cfg or {})) if hnsw else HnswPqConfig(**(cfg or CFG))
+    if flush_interval is not None:
+        return VectorDatabase(
+            dim, n, IndexType.HNSW if hnsw else IndexType.HNSWPQ, metric,
+            path, index_config=config, flush_interval=flush_interval,
+            device=DEVICE)
+    b = (VectorDatabase.builder().with_dimension(dim).with_max_elements(n)
+         .with_index_type(IndexType.HNSW if hnsw else IndexType.HNSWPQ)
+         .with_metric(metric).with_index_config(config).with_device(DEVICE))
     if path:
         b = b.with_storage_path(path)
     return b.build()
@@ -899,19 +974,25 @@ def exact_ids(corpus, queries):
     return idx.cpu().tolist()  # ids are the row numbers
 
 
-def serve(db, label, queries, gt):
-    """Recall, batched QPS and Q=1 latency of db; returns the ids."""
-    mode = db.index.resolve_mode(db.size())
+def serve(db, label, queries, gt, q1_reps=20):
+    """Recall, batched QPS and Q=1 latency (median of ``q1_reps`` single
+    queries) of db; returns the ids."""
+    if db.index.kind == "hnsw":
+        cfg_mode = mode = "hnsw"
+    else:
+        cfg_mode = db.index.config.search_mode
+        mode = db.index.resolve_mode(db.size())
     ids = result_ids(db.search_batch(queries, K))
     rec = recall(ids, gt)
-    say(f"phase {label}: rows={db.size()} {db.index.config.search_mode} -> "
+    say(f"phase {label}: rows={db.size()} {cfg_mode} -> "
         f"{mode} recall@10={rec}")
     t = host_s(lambda: db.search_batch(queries, K))
     timing(f"phase {label} batched QPS (Q={NQ}, k={K}, best of 3)",
            NQ / t, "queries/s")
     lat = sorted(host_s(lambda: db.search_batch(queries[i:i + 1], K), reps=1)
-                 for i in range(20))
-    timing(f"phase {label} Q=1 latency (median of 20)", lat[10] * 1e3, "ms")
+                 for i in range(q1_reps))
+    timing(f"phase {label} Q=1 latency (median of {q1_reps})",
+           lat[q1_reps // 2] * 1e3, "ms")
     return mode, rec, ids
 
 
@@ -1129,10 +1210,32 @@ def phase_10m():
         if rec < floor:
             raise RuntimeError(f"{label} recall@10 {rec} < {floor}")
     db.index.config.adc_pool = "approx"
-    # CRUD at 10M live, in both of the tier's scan kernels' modes
+    # the proxy scan: no kernel; chunked, since [Q, N] f32 passes 6 GB
+    from vector_db_torch.ops import pca as pca_ops
+
+    db.index.config.search_mode = "pca"
+    label = "6 10M pca"
+    if NQ * db.index.store.capacity * 4 <= pca_ops.FULL_ROW_BYTES:
+        raise RuntimeError("10M pca would not take the chunked branch")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, rec, _ = serve(db, label, queries, gt)
+    index_time(label, db.index, queries)
+    profile_search(f"{label} index.search_batch Q=1",
+                   lambda: db.index.search_batch(queries[:1], K))
+    add(read_launches(label, must_not=tuple(KERNELS)))
+    timing(f"phase {label} peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+    say(f"phase {label}: proxy_bytes={stats['proxy_bytes']} chunk="
+        f"{db.index._scan_chunk(db.index.store.capacity, NQ)} rows "
+        "(TPU reference recall@10 94.35%)")
+    if rec < 0.92 or stats["proxy_bytes"] != db.index.store.capacity * 64 * 2:
+        raise RuntimeError(f"{label} recall@10 {rec} < 0.92, or no proxy")
+    # CRUD at 10M live, in the tier's scan kernels' modes and under pca
     reset_launches()
     crud_round(db, "6 10M", (("adc_fast", "per_row"),
-                             ("scan_pallas_int8", "per_row")))
+                             ("scan_pallas_int8", "per_row"),
+                             ("pca", "per_row")))
     add(read_launches("6 10M CRUD", must_launch=("pq_decode_recon_t",
                                                    "fused_packed_pool")))
     if db.size() != n:
@@ -1544,15 +1647,18 @@ def index_time(label, index, queries):
                    lambda: index.search_batch(queries, K))
 
 
-def profile_search(label, fn):
+def profile_search(label, fn, host_ops=True):
     """One fn() under torch.profiler after a warm-up: the device kernels
-    by total time and the device's idle share of the host window."""
+    by total time and the device's idle share of the host window.  Without
+    ``host_ops`` only the device is traced: a graph search is thousands of
+    launches, and tracing its host operators too takes 17 s where this
+    takes 2.5 (same device time and launch count)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host_ops else [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1573,7 +1679,8 @@ def profile_search(label, fn):
             "(not measured)")
         return
     timing(f"phase {label} profile: wall {wall:.3f} ms, device {device:.3f} "
-           f"ms, idle", 1 - device / wall, "of the window")
+           f"ms in {sum(r[1] for r in rows)} launches, idle",
+           1 - device / wall, "of the window")
     for ms, count, key in rows[:12]:
         say(f"phase {label} profile: {ms:.3f} ms in {count} x {key[:90]}")
 
@@ -1833,6 +1940,392 @@ def phase_ivf_10m():
     return counts
 
 
+def gaussian(n, dim, seed):
+    return torch.randn(n, dim, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(seed))
+
+
+def hold_floor(label, rec, floor, note=""):
+    say(f"phase {label}: recall@10={rec} floor={floor}{note}")
+    if rec < floor:
+        raise RuntimeError(f"{label} recall@10 {rec} < {floor}")
+
+
+def search_time(label, index, queries):
+    timing(f"phase {label} index.search_batch time (Q={NQ}, k={K}, best of "
+           "3)", host_s(lambda: index.search_batch(queries, K)) * 1e3, "ms")
+
+
+def profile_both(label, index, queries, host_ops=True):
+    """Index time at Q=1024, and one profiled search at Q=1024 and Q=1."""
+    search_time(label, index, queries)
+    for qn in (NQ, 1):
+        profile_search(f"{label} index.search_batch Q={qn}",
+                       lambda: index.search_batch(queries[:qn], K), host_ops)
+
+
+def phase_adc_modes():
+    """9a: search_mode="adc" on the memory-bound 100k corpus, exhaustive and
+    cluster-pruned, on both stores; then adc_decode_topk against
+    adc_scan_topk on the index's own codes.  Returns the launch counts."""
+    from vector_db_torch.ops import adc
+
+    n = N_FLAGSHIP
+    scale = spectrum()
+    corpus = gaussian(n, DIM, 42) * scale
+    queries = gaussian(NQ, DIM, 7) * scale
+    gt = exact_ids(corpus, queries)
+    counts = {name: 0 for name in KERNELS}
+    raw_ix = None
+    for store in ("raw", "int8_resid"):
+        for nlist in (0, 1024):
+            cfg = dict(CFG_ADC, nlist=nlist)
+            if store != "raw":
+                cfg.update(raw_store=False, refine_residual=True)
+            label = f"9a adc 100k {store} nlist={nlist}"
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            db = make_db(n, cfg=cfg)
+            t0 = time.perf_counter()
+            if store == "raw":
+                db.bulk_load(range(n), corpus)
+            else:
+                db.bulk_load_stream(
+                    (np.arange(s, min(s + 32768, n)), corpus[s:s + 32768])
+                    for s in range(0, n, 32768))
+            torch.cuda.synchronize()
+            timing(f"phase {label} build", time.perf_counter() - t0, "s")
+            mode, rec, _ = serve(db, label, queries, gt)
+            if store == "raw":  # the compressed store differs by its refine
+                profile_both(label, db.index, queries)
+            else:
+                search_time(label, db.index, queries)
+            timing(f"phase {label} peak device memory",
+                   torch.cuda.max_memory_allocated() / 2**30, "GiB")
+            if nlist:
+                members, max_len, over = db.index._member_table()
+                say(f"phase {label}: member table {tuple(members.shape)} "
+                    f"overflow={int((over >= 0).sum())} candidates a query="
+                    f"{64 * max_len + over.shape[0]}")
+            for name, c in read_launches(label, must_not=tuple(KERNELS)).items():
+                counts[name] += c
+            if mode != "adc":
+                raise RuntimeError(f"{label}: resolved to {mode}")
+            # the same index under phase 7's adc_fast settings, for scale
+            cfg_ix = db.index.config
+            cfg_ix.search_mode, cfg_ix.adc_pool = "adc_fast", "approx"
+            cfg_ix.adc_select_r = 128
+            reset_launches()
+            fast = recall(result_ids(db.search_batch(queries, K)), gt)
+            for name, c in read_launches(
+                    f"{label} as adc_fast", must_launch=("pq_decode_recon_t",),
+                    must_not=POOL_KERNELS).items():
+                counts[name] += c
+            cfg_ix.search_mode = "adc"
+            hold_floor(label, rec, ADC_FLOORS[(store, nlist)],
+                       " (measured less 0.01); the same index's adc_fast "
+                       f"(approx pool, select 128) recall@10={fast}")
+            if store == "raw" and nlist == 0:
+                raw_ix = db.index
+            else:
+                db.close()
+    # the ranked ADC scan through the decode kernel against the table scan
+    ix = raw_ix
+    st = ix.store.state
+    ct, cbt, cnorms = ix._fast_tables()
+    tables = adc.build_distance_tables(queries[:, ix.perm], ix.codebooks)
+    reset_launches()
+    scan_d, scan_i = adc.adc_scan_topk(tables, ix.codes, st.valid, 128,
+                                       impl="gather")
+    dec_d, dec_i = adc.adc_decode_topk(queries, ct, cbt, st.valid, 128,
+                                       code_norms=cnorms, perm=ix.perm)
+    rel = float(((dec_d - scan_d).abs() / scan_d.clamp(min=1e-6)).max())
+    same = float((dec_i[:, :, None] == scan_i[:, None, :]).any(2)
+                 .float().mean())
+    say(f"phase 9a adc_decode_topk vs adc_scan_topk (Q={NQ}, k=128, N="
+        f"{st.capacity}): max relative distance error={rel} (bar 2e-2, bf16 "
+        f"rounding) shared slots={same}")
+    timing("phase 9a adc_decode_topk", cuda_ms(lambda: adc.adc_decode_topk(
+        queries, ct, cbt, st.valid, 128, code_norms=cnorms, perm=ix.perm)),
+        "ms")
+    timing("phase 9a adc_scan_topk gather", cuda_ms(lambda: adc.adc_scan_topk(
+        tables, ix.codes, st.valid, 128, impl="gather")), "ms")
+    timing("phase 9a adc_scan_topk onehot", cuda_ms(lambda: adc.adc_scan_topk(
+        tables, ix.codes, st.valid, 128, impl="onehot")), "ms")
+    for name, c in read_launches("9a adc_decode_topk",
+                                 must_launch=("pq_decode_recon_t",),
+                                 must_not=POOL_KERNELS).items():
+        counts[name] += c
+    if rel > 2e-2 or same < 0.9:
+        raise RuntimeError("9a: adc_decode_topk disagrees with adc_scan_topk")
+    return counts
+
+
+def phase_pca():
+    """9b: search_mode="pca" on the memory-bound 100k corpus, pca_r 128 and
+    256 under L2 and 256 under cosine.  Returns the launch counts."""
+    from vector_db_torch.ops.distance import normalize_rows
+
+    n = N_FLAGSHIP
+    scale = spectrum()
+    corpus = gaussian(n, DIM, 42) * scale
+    queries = gaussian(NQ, DIM, 7) * scale
+    counts = {name: 0 for name in KERNELS}
+    for metric in ("l2", "cosine"):
+        gt = exact_ids(normalize_rows(corpus), normalize_rows(queries)) \
+            if metric == "cosine" else exact_ids(corpus, queries)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        db = make_db(n, cfg=dict(CFG_PCA, pca_r=256), metric=metric)
+        t0 = time.perf_counter()
+        db.bulk_load(range(n), corpus)
+        torch.cuda.synchronize()
+        timing(f"phase 9b pca 100k {metric} build (bulk_load + train + proxy "
+               "fit + encode + project)", time.perf_counter() - t0, "s")
+        say(f"phase 9b pca 100k {metric}: proxy_bytes="
+            f"{db.stats()['proxy_bytes']} index_bytes="
+            f"{db.stats()['index_bytes']}")
+        for r in (128, 256) if metric == "l2" else (256,):
+            db.index.config.pca_r = r
+            label = f"9b pca 100k {metric} pca_r={r}"
+            mode, rec, _ = serve(db, label, queries, gt)
+            profile_both(label, db.index, queries)
+            hold_floor(label, rec, PCA_FLOORS[(metric, r)],
+                       " (TPU reference 97.35% / 98.22% at 128 / 256, L2)")
+            if mode != "pca":
+                raise RuntimeError(f"{label}: resolved to {mode}")
+        timing(f"phase 9b pca 100k {metric} peak device memory",
+               torch.cuda.max_memory_allocated() / 2**30, "GiB")
+        for name, c in read_launches(f"9b pca {metric}",
+                                     must_not=tuple(KERNELS)).items():
+            counts[name] += c
+        db.close()
+    return counts
+
+
+def timed_calls(obj, name):
+    """Wrap obj.name so its synchronised seconds add up in the returned
+    dict's "seconds"."""
+    spent = {"seconds": 0.0, "calls": 0}
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        spent["seconds"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    setattr(obj, name, timed)
+    return spent
+
+
+def found_by_own_vector(db, ids, rows):
+    """Share of ``ids`` that a search by their own row returns first."""
+    hit = 0
+    for s in range(0, len(ids), NQ):
+        got = db.index.search_batch(rows[s:s + NQ], 1)[0][:, 0]
+        hit += int((got == np.asarray(ids[s:s + NQ])).sum())
+    return hit / len(ids)
+
+
+def graph_small():
+    """9c (i): IndexType.HNSW at 128-d x 10,000, ef_search 128 and 400."""
+    n, dim = N_HNSW_SMALL, DIM_HNSW_SMALL
+    corpus, queries = gaussian(n, dim, 42), gaussian(NQ, dim, 7)
+    gt = exact_ids(corpus, queries)
+    db = make_db(n, cfg=dict(ef_search=128), hnsw=True, dim=dim)
+    t0 = time.perf_counter()
+    db.add_batch(range(n), corpus)
+    torch.cuda.synchronize()
+    timing(f"phase 9c(i) HNSW {dim}-d x {n} build (add_batch + bulk_build)",
+           time.perf_counter() - t0, "s")
+    for ef, floor in ((128, 0.90), (400, 0.97)):
+        db.index.config.ef_search = ef
+        label = f"9c(i) HNSW {dim}-d x {n} ef={ef}"
+        _, rec, _ = serve(db, label, queries, gt, q1_reps=5)
+        if ef == 400:  # one profiled pair a graph path
+            profile_both(label, db.index, queries, host_ops=False)
+        else:
+            search_time(label, db.index, queries)
+        hold_floor(label, rec, floor,
+                   " (TPU reference 93.1% / 98.8% at ef 128 / 400)")
+    db.close()
+
+
+def graph_incremental():
+    """9c (ii): IndexType.HNSW at 512-d x 100,000: bulk build, deferred
+    adds, the flush, the entry point deleted, close + reopen.  The database
+    checkpoints only when it closes (flush_interval past the run's
+    mutations): a checkpoint connects the pending rows first, and the
+    default of one every 1,000 mutations would turn every tenth add_batch
+    into a flush plus a 225 MB file."""
+    n, extra = N_FLAGSHIP, N_HNSW_ADDS
+    path = os.path.join(WORK, "hnsw100k")
+    shutil.rmtree(path, ignore_errors=True)
+    corpus, queries = gaussian(n + extra, DIM, 42), gaussian(NQ, DIM, 7)
+    torch.cuda.reset_peak_memory_stats()
+    db = make_db(n + extra, path, hnsw=True, flush_interval=10**9)
+    ix = db.index
+    build = timed_calls(ix, "_graph_insert")
+    t0 = time.perf_counter()
+    db.add_batch(range(n), corpus[:n])
+    torch.cuda.synchronize()
+    timing(f"phase 9c(ii) HNSW {DIM}-d x {n} from scratch (add_batch + WAL + "
+           "bulk_build)", time.perf_counter() - t0, "s")
+    timing("phase 9c(ii) bulk_build alone", build["seconds"], "s")
+    st = ix.stats()
+    say(f"phase 9c(ii): levels={st['level_histogram']} avg_degree_l0="
+        f"{st['avg_degree_l0']} entry={st['entry_point']} max_level="
+        f"{st['max_level']} ef={ix.config.ef_for_query(16, n, DIM)}")
+    label = f"9c(ii) HNSW {DIM}-d x {n}"
+    rec0 = recall(result_ids(db.search_batch(queries, K)),
+                  exact_ids(corpus[:n], queries))
+    # deferred adds: buffered, answered through the exact overlay
+    new_ids = list(range(n, n + extra))
+    lats = []
+    for s in range(0, extra, 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.add_batch(new_ids[s:s + 100], corpus[n + s:n + s + 100])
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+    pending = ix.stats()["pending_inserts"]
+    before = found_by_own_vector(db, new_ids, corpus[n:])
+    gt = exact_ids(corpus, queries)
+    rec_pending = recall(result_ids(db.search_batch(queries, K)), gt)
+    search_time(f"{label} + {extra} pending", ix, queries)
+    t0 = time.perf_counter()
+    ix.flush_pending()
+    torch.cuda.synchronize()
+    flush = time.perf_counter() - t0
+    after = found_by_own_vector(db, new_ids, corpus[n:])
+    lat_ms = np.asarray(lats) * 1e3
+    timing(f"phase 9c(ii) {extra} adds in batches of 100 (defer): amortised "
+           "with the flush", (sum(lats) + flush) / extra * 1e3, "ms/row")
+    timing("phase 9c(ii) add_batch p50", float(np.percentile(lat_ms, 50)), "ms")
+    timing("phase 9c(ii) add_batch p99", float(np.percentile(lat_ms, 99)), "ms")
+    timing(f"phase 9c(ii) flush of {pending} pending rows "
+           "(bulk_insert_delta)", flush, "s")
+    say(f"phase 9c(ii): pending before the flush={pending} found by own "
+        f"vector before={before} (bar 1.0: the exact overlay) after={after} "
+        f"(bar {OWN_VECTOR_FLOOR}: the graph's own top-1 recall, measured "
+        "less 0.01)")
+    _, rec, ids = serve(db, f"{label} + {extra} flushed", queries, gt,
+                        q1_reps=5)
+    profile_both(f"{label} + {extra} flushed", ix, queries, host_ops=False)
+    timing("phase 9c(ii) peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+    hold_floor(f"{label} built", rec0, 0.85)
+    hold_floor(f"{label} pending", rec_pending, 0.85)
+    hold_floor(f"{label} flushed", rec, 0.85, " (TPU reference 89.3%)")
+    if pending != extra or before < 1.0 or after < OWN_VECTOR_FLOOR:
+        raise RuntimeError("9c(ii): added rows not found by their own vector")
+    # the entry point goes; the answers stay valid
+    entry_id = int(ix.store.state.ids[ix.graph.entry])
+    if not db.delete_vector(entry_id):
+        raise RuntimeError("9c(ii): delete of the entry point failed")
+    ids = result_ids(db.search_batch(queries, K))
+    rec_del = recall(ids, [[i for i in row if i != entry_id] for row in gt])
+    live = all(0 <= i < n + extra and i != entry_id for row in ids for i in row)
+    say(f"phase 9c(ii): entry point id {entry_id} deleted, new entry slot "
+        f"{ix.graph.entry} level {ix.graph.entry_level}, answers valid={live} "
+        f"recall@10={rec_del}")
+    if not live or ix.graph.entry < 0 or rec_del < 0.85 * 0.9:
+        raise RuntimeError("9c(ii): answers after deleting the entry point")
+    t0 = time.perf_counter()
+    db.close()
+    db = make_db(n + extra, path, hnsw=True, flush_interval=10**9)
+    timing("phase 9c(ii) close + reopen", time.perf_counter() - t0, "s")
+    again = result_ids(db.search_batch(queries, K))
+    say(f"phase 9c(ii): reopened rows={db.size()} identical_ids={again == ids}")
+    if again != ids:
+        raise RuntimeError("9c(ii): ids differ after close/reopen")
+    db.close()
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def graph_pq():
+    """9c (iii): HnswPqIndex with its graph on the flagship 100k: ADC
+    traversal + exact re-rank, adds through the pending overlay."""
+    n = N_FLAGSHIP
+    corpus, queries = gaussian(n + 2000, DIM, 42), gaussian(NQ, DIM, 7)
+    gt = exact_ids(corpus[:n], queries)
+    torch.cuda.reset_peak_memory_stats()
+    db = make_db(n + 2000, cfg=CFG_GRAPH_PQ)
+    t0 = time.perf_counter()
+    db.bulk_load(range(n), corpus[:n])
+    torch.cuda.synchronize()
+    timing("phase 9c(iii) HNSWPQ graph 100k build (bulk_load + train + encode "
+           "+ bulk_build)", time.perf_counter() - t0, "s")
+    s = db.stats()
+    say(f"phase 9c(iii): use_graph={s['use_graph']} index_bytes="
+        f"{s['index_bytes']} (graph {db.index.graph.neighbors.numel() * 4})")
+    for ef in (64, 256):
+        db.index.config.ef_search = ef
+        label = f"9c(iii) HNSWPQ graph 100k ef={ef}"
+        mode, rec, _ = serve(db, label, queries, gt, q1_reps=5)
+        if ef == 256:
+            profile_both(label, db.index, queries, host_ops=False)
+        else:
+            search_time(label, db.index, queries)
+        hold_floor(label, rec, GRAPH_PQ_FLOORS[ef], " (measured less 0.01)")
+        if mode != "graph":
+            raise RuntimeError(f"{label}: resolved to {mode}")
+    new_ids = list(range(n, n + 2000))
+    db.add_batch(new_ids, corpus[n:])
+    pending = db.stats()["pending_inserts"]
+    found = found_by_own_vector(db, new_ids, corpus[n:])
+    rec = recall(result_ids(db.search_batch(queries, K)),
+                 exact_ids(corpus, queries))
+    search_time("9c(iii) HNSWPQ graph 100k + 2000 pending", db.index,
+                     queries)
+    say(f"phase 9c(iii): 2000 adds pending={pending} found by own vector="
+        f"{found} recall@10={rec}")
+    timing("phase 9c(iii) peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+    if pending != 2000 or found < 1.0 or rec < GRAPH_PQ_FLOORS[256]:
+        raise RuntimeError("9c(iii): pending rows not answered")
+    db.close()
+
+
+def graph_stream():
+    """9c (iv): the sequential insert path carrying a whole build."""
+    n, dim = N_STREAM, DIM_HNSW_SMALL
+    corpus, queries = gaussian(n, dim, 42), gaussian(NQ, dim, 7)
+    gt = exact_ids(corpus, queries)
+    recs = {}
+    for policy, cfg in (("bulk", {}), ("stream", dict(insert_policy="stream",
+                                                      bulk_build=False))):
+        db = make_db(n, cfg=cfg, hnsw=True, dim=dim)
+        t0 = time.perf_counter()
+        db.add_batch(range(n), corpus)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        timing(f"phase 9c(iv) HNSW {dim}-d x {n} {policy} build", took, "s")
+        if policy == "stream":
+            timing("phase 9c(iv) sequential insert (host_insert_stream, "
+                   "rounds of 64, efc 400)", took / n * 1e3, "ms/row")
+        recs[policy] = recall(result_ids(db.search_batch(queries, K)), gt)
+        db.close()
+    hold_floor("9c(iv) sequential insert", recs["stream"],
+               recs["bulk"] - 0.02, " (the bulk-built graph's less 0.02)")
+
+
+def phase_graph():
+    """9c: the graph engine through VectorDatabase.  No kernel of the port
+    is on these paths; returns their (zero) launch counts."""
+    reset_launches()
+    for part in (graph_small, graph_incremental, graph_pq, graph_stream):
+        t0 = time.perf_counter()
+        part()
+        timing(f"phase 9c {part.__name__} took", time.perf_counter() - t0, "s")
+    torch.cuda.empty_cache()
+    return read_launches("9c graph", must_not=tuple(KERNELS))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -1854,7 +2347,8 @@ def main():
     # the main path: each phase sets every launch count to 0 just before
     # its paths and reads them just after
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),
-                   phase_ivf(), phase_ivf_10m()):
+                   phase_ivf(), phase_ivf_10m(), phase_adc_modes(),
+                   phase_pca(), phase_graph()):
         for name, c in counts.items():
             entries[name]["launches"] += c
     for name, entry in entries.items():

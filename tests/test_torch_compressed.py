@@ -414,8 +414,8 @@ def test_constructor_errors_match_reference():
         assert str(got.value) == str(want.value)
     port = _port_index(False)
     assert port.config.refine_store == "int8"
-    with pytest.raises(NotImplementedError, match="A10"):
-        _port_index(False, mode="pca")
+    for mode in ("pca", "adc"):   # the modes a compressed store may take
+        assert _port_index(False, mode=mode).config.search_mode == mode
 
 
 def test_compressed_stats_report_resident_bytes():

@@ -1,6 +1,6 @@
 """The port's VectorDatabase facade (vector_db_torch/api/database.py):
-copies of the reference's CRUD and persistence cases for BRUTE and HNSWPQ,
-a checkpoint written by the reference loading into the port, and the
+copies of the reference's CRUD and persistence cases for BRUTE, HNSW and
+HNSWPQ, checkpoints written by the reference loading into the port, and the
 package's independence from JAX."""
 
 import os
@@ -14,10 +14,11 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import vector_db_tpu as ref_vdb  # noqa: E402
-from vector_db_torch import (HnswPqConfig, IndexType, SearchResult,  # noqa: E402
+from vector_db_torch import (CompressionConfig, HnswConfig,  # noqa: E402
+                             HnswPqConfig, IndexType, SearchResult,
                              VectorDatabase)
 
-KINDS = [IndexType.BRUTE, IndexType.HNSWPQ]
+KINDS = [IndexType.BRUTE, IndexType.HNSW, IndexType.HNSWPQ]
 
 
 def make_db(kind, path=None, dim=10, max_elements=1000):
@@ -141,8 +142,55 @@ def test_default_device_without_cuda_raises():
             .with_index_type(IndexType.BRUTE).build()
 
 
+def test_reference_hnsw_checkpoint_loads_with_same_answers(rng,
+                                                           tmp_store_path):
+    """IndexType.HNSW through both facades: the reference's checkpoint
+    (graph included, pending rows connected by the save) answers alike in
+    the port, which then goes on adding and deleting."""
+    vecs = rng.standard_normal((1400, 16)).astype(np.float32)
+    queries = rng.standard_normal((24, 16)).astype(np.float32)
+    ref = (ref_vdb.VectorDatabase.builder().with_dimension(16)
+           .with_max_elements(2000).with_index_type(ref_vdb.IndexType.HNSW)
+           .with_index_config(ref_vdb.HnswConfig(m=8, ef_search=64))
+           .with_storage_path(tmp_store_path).build())
+    ref.add_batch(range(1200), vecs[:1200])
+    for vid in range(0, 1200, 7):
+        ref.delete_vector(vid)
+    ref.close()
+    ref = (ref_vdb.VectorDatabase.builder().with_dimension(16)
+           .with_max_elements(2000).with_index_type(ref_vdb.IndexType.HNSW)
+           .with_index_config(ref_vdb.HnswConfig(m=8, ef_search=64))
+           .with_storage_path(tmp_store_path).build())
+    want = [[r.id for r in row] for row in ref.search_batch(queries, 10)]
+    port = (VectorDatabase.builder().with_dimension(16).with_max_elements(2000)
+            .with_index_type(IndexType.HNSW)
+            .with_index_config(HnswConfig(m=8, ef_search=64))
+            .with_storage_path(tmp_store_path).with_device("cpu").build())
+    assert port.index.kind == "hnsw" and port.size() == ref.size()
+    assert port.index.graph.entry == int(ref.index.graph.entry) >= 0
+    got = [[r.id for r in row] for row in port.search_batch(queries, 10)]
+    assert np.mean(np.asarray(got) == np.asarray(want)) >= 0.99
+    port.add_batch(range(5000, 5200), vecs[1200:])
+    assert port.stats()["pending_inserts"] == 200
+    assert port.search(vecs[1250], 1)[0].id == 5050
+    assert port.delete_vector(5050)
+    assert port.search(vecs[1250], 1)[0].id != 5050
+    port.close()
+
+
+def test_hnsw_with_compression_routes_to_hnswpq():
+    db = (VectorDatabase.builder().with_dimension(16).with_max_elements(256)
+          .with_index_type(IndexType.HNSW).with_device("cpu")
+          .with_compression(CompressionConfig.hnsw_pq_config(4)).build())
+    assert db.index.kind == "hnswpq" and db.index.config.num_subspaces == 4
+    plain = (VectorDatabase.builder().with_dimension(16)
+             .with_max_elements(256).with_index_type("hnsw")
+             .with_device("cpu").build())
+    assert plain.index.kind == "hnsw" and plain.index.config.m == 32
+
+
 def test_unported_index_types_raise():
-    for kind in (IndexType.HNSW, IndexType.PQ, IndexType.IVF, IndexType.LSH,
+    for kind in (IndexType.PQ, IndexType.IVF, IndexType.LSH,
                  IndexType.ANNOY):
         with pytest.raises(NotImplementedError, match="A11"):
             make_db(kind)

@@ -493,11 +493,3 @@ def test_compressed_fused_adc_matches_reference():
     gt = _oracle(dict(enumerate(vecs)), queries)
     assert _overlap(port_ids, ref_ids) >= 0.99
     assert _overlap(port_ids, gt) >= _overlap(ref_ids, gt) - 0.005
-
-
-@pytest.mark.parametrize("mode,item", [("pca", "A10"), ("adc", "A10"),
-                                       ("graph", "A10")])
-def test_unported_modes_still_raise(mode, item):
-    with pytest.raises(NotImplementedError, match=item):
-        hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(search_mode=mode),
-                       device="cpu")

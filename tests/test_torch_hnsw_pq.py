@@ -147,8 +147,14 @@ def test_no_graph_is_allocated_without_use_graph():
     expected = (st.vectors.nbytes + st.ids.nbytes + st.norms.nbytes
                 + st.valid.nbytes + port.codes.nbytes)
     assert sum(t.nbytes for t in held) == expected
-    with pytest.raises(NotImplementedError, match="A10"):
-        hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(use_graph=True), device="cpu")
+    assert port.stats()["index_bytes"] == CAP * 8 and not port.stats()["use_graph"]
+    # under use_graph=True it is the reference's [L, cap, M] int32 array
+    port = hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(num_subspaces=8,
+                                                     use_graph=True),
+                          device="cpu")
+    assert tuple(port.graph.neighbors.shape) == ref.graph.neighbors.shape
+    assert port.graph.neighbors.nbytes == graph_bytes
+    assert port.stats()["index_bytes"] == CAP * 8 + graph_bytes
 
 
 def test_lazy_training_and_exact_fallback():
@@ -164,6 +170,190 @@ def test_lazy_training_and_exact_fallback():
     assert idx.trained and idx.codebooks.shape == (8, 256, 4)
     ids, _ = idx.search_batch(x[:4], 3)
     np.testing.assert_array_equal(ids[:, 0], np.arange(4))
-    with pytest.raises(NotImplementedError, match="A10"):
-        hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(search_mode="pca"),
+    assert hp._MODE_ROADMAP == {}
+    for mode in ("pca", "adc", "graph"):
+        hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(search_mode=mode),
                        device="cpu")
+
+
+# ------------------------------------------------------------- graph mode
+GRAPH_CFG = dict(num_subspaces=8, training_samples=2000, use_graph=True, m=8,
+                 ef_construction=32, ef_search=32, refine_k=32, flush_min=64,
+                 flush_frac=0.1)
+
+
+def _rows_equal(a, b):
+    a = np.sort(np.asarray(a).reshape(-1, a.shape[-1]), axis=1)
+    b = np.sort(np.asarray(b).reshape(-1, b.shape[-1]), axis=1)
+    return float(np.mean(np.all(a == b, axis=1)))
+
+
+def _same_graph(port, ref):
+    g, r = port.graph, ref.graph
+    np.testing.assert_array_equal(g.levels.numpy(), np.asarray(r.levels))
+    assert (g.entry, g.entry_level) == (int(r.entry), int(r.entry_level))
+    assert _rows_equal(g.neighbors.numpy(), r.neighbors) >= 0.99
+    assert port._pending_count == ref._pending_count
+    assert port._level_counter == ref._level_counter
+
+
+@pytest.fixture(scope="module")
+def graph_ref():
+    """A reference index trained with its graph, and the rows."""
+    r = np.random.default_rng(14)
+    base = (r.standard_normal((N + 400, D)) + 1.0).astype(np.float32)
+    queries = (r.standard_normal((32, D)) + 1.0).astype(np.float32)
+    ref = ref_hp.HnswPqIndex(D, CAP, "l2", RefConfig(**GRAPH_CFG))
+    ref.add_batch(range(N), base[:N])
+    assert ref.trained and int(ref.graph.entry) >= 0
+    return ref.state_arrays(), base, queries
+
+
+def _graph_pair(arrays, metric="l2", **kw):
+    cfg = {**GRAPH_CFG, **kw}
+    ref = ref_hp.HnswPqIndex(D, CAP, metric, RefConfig(**cfg))
+    ref.load_state_arrays(arrays)
+    port = hp.HnswPqIndex(D, CAP, metric, HnswPqConfig(**cfg), device="cpu")
+    port.load_state_arrays(arrays)
+    return ref, port
+
+
+def test_graph_mode_follows_the_reference(graph_ref):
+    """ADC traversal + exact re-rank from the reference's trained state
+    (graph and codes loaded), adds answered through the pending overlay, the
+    delta flush, delete of a pending row and of the entry point, rebuild."""
+    arrays, base, queries = graph_ref
+    ref, port = _graph_pair(arrays)
+    assert port.resolve_mode(N) == "graph"
+    _same_graph(port, ref)
+    rows = {i: base[i] for i in range(N)}
+    _compare(ref, port, queries, rows)
+
+    ids = list(range(N, N + 120))               # pending: below the flush
+    assert port.add_batch(ids, base[N:N + 120]) \
+        == ref.add_batch(ids, base[N:N + 120])
+    rows.update(zip(ids, base[N:N + 120]))
+    assert port._pending_count == ref._pending_count == 120
+    assert port.stats()["pending_inserts"] == 120
+    _same_graph(port, ref)
+    _compare(ref, port, queries, rows)
+    own, _ = port.search_batch(base[N:N + 16], 1)    # found while pending
+    np.testing.assert_array_equal(own[:, 0], ids[:16])
+    assert port.remove(N + 5) and ref.remove(N + 5)  # never reached the graph
+    del rows[N + 5]
+    assert port._pending_count == ref._pending_count == 119
+
+    ids = list(range(N + 120, N + 400))         # crosses max(64, 10%): flush
+    assert port.add_batch(ids, base[N + 120:N + 400]) \
+        == ref.add_batch(ids, base[N + 120:N + 400])
+    rows.update(zip(ids, base[N + 120:N + 400]))
+    assert port._pending_count == ref._pending_count == 0
+    _same_graph(port, ref)
+    _compare(ref, port, queries, rows)
+
+    entry_id = int(port.store.state.ids[port.graph.entry])
+    for vid in (entry_id, 23):
+        assert port.remove(vid) and ref.remove(vid)
+        del rows[vid]
+    _same_graph(port, ref)
+    got, _ = port.search_batch(queries, K)
+    assert entry_id not in got and 23 not in got
+    _compare(ref, port, queries, rows)
+
+    port.build()
+    ref.build()
+    _same_graph(port, ref)
+    np.testing.assert_array_equal(port.codes.numpy(), np.asarray(ref.codes))
+    _compare(ref, port, queries, rows)
+    s, rs = port.stats(), ref.stats()
+    for key in ("index_bytes", "use_graph", "pending_inserts", "size"):
+        assert s[key] == rs[key], key
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_graph_built_by_the_port_equals_the_references(metric):
+    """The graph is built with exact distances from levels both packages
+    draw alike, so it does not depend on the codebooks each trains: the
+    port's own training ends with the reference's graph.  Under cosine the
+    traversal runs in the PQ space of normalized rows."""
+    r = np.random.default_rng(15)
+    base = (r.standard_normal((N, D)) + 1.0).astype(np.float32)
+    queries = (r.standard_normal((16, D)) + 1.0).astype(np.float32)
+    ref = ref_hp.HnswPqIndex(D, CAP, metric, RefConfig(**GRAPH_CFG))
+    port = hp.HnswPqIndex(D, CAP, metric, HnswPqConfig(**GRAPH_CFG),
+                          device="cpu")
+    assert port.add_batch(range(N), base) == ref.add_batch(range(N), base)
+    assert port.trained
+    _same_graph(port, ref)
+    # same graph and codes: the searches agree (the reference's state)
+    ref2, port2 = _graph_pair(ref.state_arrays(), metric)
+    ref_ids, _ = ref2.search_batch(queries, K)
+    port_ids, _ = port2.search_batch(torch.from_numpy(queries), K)
+    assert _overlap(port_ids, ref_ids) >= 0.99
+
+
+def test_stream_policy_inserts_into_the_graph_at_once(graph_ref):
+    arrays, base, queries = graph_ref
+    ref, port = _graph_pair(arrays, insert_policy="stream")
+    ids = list(range(N, N + 70))
+    assert port.add_batch(ids, base[N:N + 70]) \
+        == ref.add_batch(ids, base[N:N + 70])
+    assert port._pending_count == 0
+    _same_graph(port, ref)
+    rows = {i: base[i] for i in range(N + 70)}
+    _compare(ref, port, queries, rows)
+
+
+def test_graph_checkpoints_cross_both_ways(graph_ref):
+    arrays, base, queries = graph_ref
+    _, port = _graph_pair(arrays)
+    ids = list(range(N, N + 100))
+    port.add_batch(ids, base[N:N + 100])
+    assert port._pending_count == 100
+    state = port.state_arrays()                 # connects the pending rows
+    assert port._pending_count == 0
+    assert set(state["graph"]) == {"neighbors", "levels", "entry",
+                                   "entry_level"}
+    back, again = _graph_pair(state)
+    _same_graph(port, back)
+    _same_graph(again, back)
+    rows = {i: base[i] for i in range(N + 100)}
+    _compare(back, port, queries, rows)
+    # a checkpoint without a graph cannot serve use_graph=True; one with a
+    # graph loads into an index without (the graph is left out)
+    plain = {k: v for k, v in state.items() if k != "graph"}
+    with pytest.raises(ValueError, match="graph"):
+        again.load_state_arrays(plain)
+    flat = hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(
+        num_subspaces=8, search_mode="scan_exact"), device="cpu")
+    flat.load_state_arrays(state)
+    assert not hasattr(flat, "graph") and "graph" not in flat.state_arrays()
+
+
+def test_graph_refusals_match_the_reference():
+    for kw in (dict(raw_store=False, use_graph=True),):
+        with pytest.raises(ValueError) as want:
+            ref_hp.HnswPqIndex(D, CAP, "l2", RefConfig(**kw))
+        with pytest.raises(ValueError) as got:
+            hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(**kw), device="cpu")
+        assert str(got.value) == str(want.value)
+    x = np.zeros((300, D), np.float32)
+    with pytest.raises(ValueError) as want:
+        ref_hp.HnswPqIndex(D, CAP, "l2", RefConfig(use_graph=True)
+                           ).bulk_load_stream([(range(300), x)])
+    with pytest.raises(ValueError) as got:
+        hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(use_graph=True),
+                       device="cpu").bulk_load_stream([(range(300), x)])
+    assert str(got.value) == str(want.value)
+
+
+def test_graph_mode_without_a_graph_runs_the_adc_scan(trained):
+    """search_mode="graph" with use_graph=False: no graph exists, and both
+    packages answer with the adc scan."""
+    arrays, base, queries, _ = trained
+    ref, port = _pair(arrays, "graph")
+    _, adc_port = _pair(arrays, "adc")
+    _compare(ref, port, queries, {i: base[i] for i in range(N)})
+    q = torch.from_numpy(queries)
+    np.testing.assert_array_equal(port.search_batch(q, K)[0],
+                                  adc_port.search_batch(q, K)[0])

@@ -6,7 +6,10 @@ main path's shapes and the ragged ones) within the f32 summation-order
 bound of ``ops/kernels.check_float_pool``; B8 ``fused_ivf_pool`` bit-equal on
 the rows the merge reads (and writing no other row), B1
 ``fused_scan_topk`` within the bound of ``ops/kernels.check_scan_topk``;
-all six pools at rows of any width (516, 768, 1024, 1536 dims).  Every test is marked ``cuda``
+all six pools at rows of any width (516, 768, 1024, 1536 dims); and the
+plain-PyTorch paths on the card against the CPU: the graph build and search
+(``ops/hnsw_graph``), the chunked proxy scan (``ops/pca``), and
+``ops/adc.adc_decode_topk`` launching B3.  Every test is marked ``cuda``
 and skips without a card.  This file imports no JAX, so it runs on a machine
 with a card and no JAX:
 
@@ -393,3 +396,120 @@ def test_pools_take_rows_of_any_width_on_card(d):
     assert torch.equal(kv[rows], pv[rows])
     fin = torch.isfinite(pv[rows])
     assert torch.equal(kp[rows][fin], pp[rows][fin])
+
+
+def _recall(got, want, k):
+    return float((got[:, :, None] == want[:, None, :]).any(2).float().mean())
+
+
+@pytest.mark.cuda
+def test_graph_build_and_search_on_card_match_the_cpu():
+    """The graph engine is plain PyTorch: from the same seeded rows and
+    levels the card builds the CPU's graph (at least 99% of the adjacency
+    rows equal as sets: the products sum in another order) and a search
+    reaches the CPU's recall within 0.005; the delta insert likewise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vector_db_torch.ops import hnsw_graph as hg
+    from vector_db_torch.ops.distance import blocked_knn
+
+    r = np.random.default_rng(3)
+    n, extra, cap, d, m = 3000, 200, 4096, 64, 16
+    base = torch.zeros(cap, d)
+    base[:n + extra] = torch.from_numpy(
+        r.standard_normal((n + extra, d)).astype(np.float32))
+    queries = torch.from_numpy(r.standard_normal((64, d)).astype(np.float32))
+    u = r.uniform(1e-12, 1.0, n + extra)
+    levels = np.clip(np.floor(-np.log(u) / np.log(m)).astype(np.int32), 0, 2)
+    slots = np.arange(n + extra, dtype=np.int32)
+    valid = torch.zeros(cap, dtype=torch.bool)
+    valid[:n + extra] = True
+    graphs, answers = {}, {}
+    for dev in ("cpu", "cuda"):
+        b, v = base.to(dev), valid.to(dev)
+        norms = torch.sum(b * b, dim=1)
+        g = hg.bulk_build(hg.init_graph(cap, m, 3, dev), b, norms, slots[:n],
+                          levels[:n], m=m)
+        hg.bulk_insert_delta(g, b, norms, v, slots[n:], levels[n:], m=m)
+        graphs[dev] = g
+        answers[dev] = hg.hnsw_search(g, b, norms, v, queries.to(dev), 16,
+                                      96)[1].cpu()
+    a, c = graphs["cuda"], graphs["cpu"]
+    assert (a.entry, a.entry_level) == (c.entry, c.entry_level)
+    assert torch.equal(a.levels.cpu(), c.levels)
+    rows_a = torch.sort(a.neighbors.cpu().reshape(-1, m), dim=1)[0]
+    rows_c = torch.sort(c.neighbors.reshape(-1, m), dim=1)[0]
+    assert float((rows_a == rows_c).all(1).float().mean()) >= 0.99
+    gt = blocked_knn(queries, base, valid, 16)[1]
+    assert _recall(answers["cuda"], gt, 16) \
+        >= _recall(answers["cpu"], gt, 16) - 0.005
+    assert _recall(answers["cuda"], gt, 16) >= 0.9
+
+
+@pytest.mark.cuda
+def test_pca_chunked_branch_on_card_matches_the_cpu():
+    """The chunked proxy scan (a ragged last chunk) on the card: the bf16
+    product accumulates in f32 there as on the CPU, so the answers agree
+    (at least 99% of the ids) and equal the full-row branch's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from vector_db_torch.ops import pca
+
+    r = np.random.default_rng(4)
+    n, d, p = 5000, 64, 16
+    base = (r.standard_normal((n, d)) * (np.arange(d) + 1.0) ** -0.8
+            ).astype(np.float32)
+    queries = torch.from_numpy(
+        (r.standard_normal((32, d)) * (np.arange(d) + 1.0) ** -0.8
+         ).astype(np.float32))
+    mu, basis = pca.pca_fit(base[:2000], p)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        b = torch.from_numpy(base).to(dev)
+        mean, bas = torch.from_numpy(mu).to(dev), torch.from_numpy(basis).to(dev)
+        proxy = pca.project_rows(b, mean, bas)
+        args = (queries.to(dev), mean, bas, proxy, pca.rows_sq_norms(proxy),
+                torch.ones(n, dtype=torch.bool, device=dev), b,
+                torch.arange(n, dtype=torch.int32, device=dev))
+        out[dev] = pca.pca_proxy_search(*args, k=16, select_r=128,
+                                        block_n=1536, force_chunked=True)
+        full = pca.pca_proxy_search(*args, k=16, select_r=128)
+        assert torch.equal(out[dev][1], full[1])
+    same = out["cuda"][1].cpu() == out["cpu"][1]
+    assert float(same.float().mean()) >= 0.99
+    assert torch.allclose(out["cuda"][0].cpu()[same], out["cpu"][0][same],
+                          rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_adc_decode_topk_launches_the_decode_kernel():
+    """adc_decode_topk on CUDA tensors runs B3 (one launch for the cross
+    terms, one for the norms when none are cached) and ranks the ADC
+    distances of adc_scan_topk up to the bf16 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from vector_db_torch.ops import adc
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    s, sd, k, n, qn = 16, 4, 256, 6000, 24
+    codebooks = torch.randn(s, k, sd, device="cuda", generator=g)
+    codes = torch.randint(0, k, (n, s), device="cuda", generator=g,
+                          dtype=torch.uint8)
+    queries = torch.randn(qn, s * sd, device="cuda", generator=g)
+    valid = torch.rand(n, device="cuda", generator=g) > 0.1
+    before = tk.pq_decode_recon_t.launches
+    dec_d, dec_i = adc.adc_decode_topk(
+        queries, codes.T.contiguous(), adc.codebooks_to_cbt(codebooks), valid,
+        32)
+    assert tk.pq_decode_recon_t.launches == before + 2
+    tables = adc.build_distance_tables(queries, codebooks)
+    scan_d, scan_i = adc.adc_scan_topk(tables, codes, valid, 32)
+    assert torch.allclose(dec_d, scan_d, rtol=2e-2, atol=1e-2)
+    assert _recall(dec_i, scan_i, 32) >= 0.9
+    assert bool(valid[dec_i.long()].all())
+    onehot_d, _ = adc.adc_scan_topk(tables, codes, valid, 32, impl="onehot")
+    assert torch.allclose(onehot_d, scan_d, rtol=2e-2, atol=1e-2)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 
 
 class CompressionType(enum.Enum):
@@ -80,7 +81,16 @@ class CompressionConfig:
 
 @dataclasses.dataclass
 class HnswConfig:
-    """HNSW graph index settings (index not ported yet: ROADMAP A11)."""
+    """HNSW graph index settings (``index/hnsw.py``).
+
+    ``ef_search`` 0 is the adaptive beam of :meth:`ef_for_query`; ``max_level``
+    0 derives the level count from the capacity; ``heuristic`` False selects
+    plain nearest-M neighbors; ``bulk_build`` builds from scratch by exact
+    k-NN construction; ``insert_policy`` "defer" buffers adds (searches see
+    them through an exact overlay) and connects them in bulk once the buffer
+    reaches max(flush_min, min(flush_frac * graph rows, flush_max)), "stream"
+    inserts the moment ``add_batch`` returns.
+    """
 
     m: int = 32
     ef_construction: int = 400
@@ -97,20 +107,66 @@ class HnswConfig:
     flush_max: int = 32768
     flush_chunk: int = 0
 
+    def derived_max_level(self, capacity: int) -> int:
+        if self.max_level > 0:
+            return self.max_level
+        return max(1, int(math.log(max(capacity, 2))
+                          / math.log(max(self.m, 2))) + 1)
+
+    def ef_for_query(self, k: int, n: int = 1000, dim: int = 0) -> int:
+        """Per-query beam width (the reference's policy, value for value).
+
+        Fixed mode (``ef_search > 0``): max(ef_search, 4k).  Adaptive mode:
+        (k + ef_delta) grows ~20% a decade of N, the k-multiplier floor
+        steps 4/5/6/8 at 1k/5k/20k rows, capped at 300 (<= 10k rows) / 400;
+        at dim >= 256 a floor of 256..320 (+64 past 20k rows; 768 there at
+        dim >= 384, 512 below) widens the beam where greedy descent loses
+        discrimination, and the cap lifts to 1024 past 10k rows.
+        """
+        if self.ef_search > 0:
+            return max(self.ef_search, 4 * k)
+        base = k + self.ef_delta
+        if n > 100:
+            base = int(base * (1.0 + 0.2 * math.log10(n / 100.0 + 1.0)))
+        mult = 4
+        if n > 1000:
+            mult = 5
+        if n > 5000:
+            mult = 6
+        if n > 20000:
+            mult = 8
+        ef = max(base, k * mult)
+        floor = 0
+        if dim >= 256 and n > 1000:
+            floor = 256 + 32 * min(max((dim - 128) // 256, 0), 2)
+            if n > 20000:
+                floor += 64
+        cap = 300 if n <= 10000 else 400
+        if dim >= 256:
+            cap = 1024 if n > 10000 else cap
+            if n > 20000:
+                floor = max(floor, 768 if dim >= 384 else 512)
+        # never clip an adaptive beam under the fixed mode's floor
+        cap = max(cap, 4 * k)
+        return min(max(ef, floor), max(cap, floor))
+
 
 @dataclasses.dataclass
 class HnswPqConfig:
     """Flagship HNSW+PQ settings (same fields and defaults as the reference).
 
-    The port serves both stores (``raw_store``; the compressed one with
-    ``refine_residual``) with ``use_graph=False``, and the search modes
-    ``auto``, ``scan_exact``, ``scan_pallas_int8`` (``int8_epilogue``
-    ``per_row`` or ``global``), ``scan_pallas``, ``scan_bf16``, ``adc_fast``
-    (pools ``bucket``, ``approx`` and ``fused``), ``scan_int8`` and
-    ``scan_ivf`` (the coarse quantizer: ``nlist``, 0 auto-sizes it under
-    scan_ivf; ``nprobe``; ``ivf_p_cap``, ``ivf_winners``, ``ivf_pool``, 0 =
-    the reference's rules); ``pca``, ``adc`` and the graph raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    Both stores (``raw_store``; the compressed one with
+    ``refine_residual``) and every search mode of the reference: ``auto``,
+    ``scan_exact``, ``scan_pallas_int8`` (``int8_epilogue`` ``per_row`` or
+    ``global``), ``scan_pallas``, ``scan_bf16``, ``adc_fast`` (pools
+    ``bucket``, ``approx`` and ``fused``), ``scan_int8``, ``scan_ivf`` (the
+    coarse quantizer: ``nlist``, 0 auto-sizes it under scan_ivf; ``nprobe``;
+    ``ivf_p_cap``, ``ivf_winners``, ``ivf_pool``, 0 = the reference's
+    rules), ``adc`` (the table scan, cluster-pruned with ``nlist > 0``;
+    ``refine_k`` candidates re-ranked), ``pca`` (``proxy_dims``, ``pca_r``)
+    and, with ``use_graph=True`` (raw store only), ``graph``: ADC-distance
+    traversal (``m``, ``ef_construction``, ``ef_search``) with an exact
+    re-rank, adds deferred as in :class:`HnswConfig`.
     """
 
     m: int = 32
@@ -121,7 +177,7 @@ class HnswPqConfig:
     training_iterations: int = 25
     training_samples: int = 10000  # lazy-train threshold and sample cap
     refine_k: int = 1024
-    use_graph: bool = False  # True -> graph traversal (ROADMAP A10)
+    use_graph: bool = False  # True builds the graph; auto then searches it
     insert_policy: str = "defer"
     flush_min: int = 1024
     flush_frac: float = 0.25

@@ -4,7 +4,7 @@ counterpart of ``vector_db_tpu/api/database.py``).
 The same API, WAL and checkpoint format as the reference, with one
 addition: the device is explicit (``device=``, ``Builder.with_device``;
 default ``"cuda"``, which raises where CUDA is absent).  The index factory
-serves BRUTE and HNSWPQ; the other index types raise
+serves BRUTE, HNSW and HNSWPQ; the other index types raise
 ``NotImplementedError`` naming ROADMAP A11.
 """
 
@@ -73,6 +73,10 @@ def _create_index(index_type: IndexType, dim: int, capacity: int,
         from ..index.brute import BruteForceIndex
 
         return BruteForceIndex(dim, capacity, metric, device=device)
+    if index_type == IndexType.HNSW:
+        from ..index.hnsw import HnswIndex
+
+        return HnswIndex(dim, capacity, metric, index_config, device=device)
     if index_type == IndexType.HNSWPQ:
         from ..index.hnsw_pq import HnswPqIndex
 

@@ -32,6 +32,106 @@ def pad_queries_pow2(queries: torch.Tensor, min_q: int = 8
     return queries, q_n
 
 
+class DeferInsertMixin:
+    """The deferred-insert policy of the graph indexes (HnswIndex,
+    HnswPqIndex; a copy of the reference's mixin): pending adds are buffered
+    in a slot mask, searches overlay the pending rows exactly, and a
+    threshold flush connects the whole batch with exact-kNN delta insertion
+    (``ops/hnsw_graph.bulk_insert_delta``).
+
+    The host state lives here; subclasses provide ``store``, ``graph``,
+    ``device``, ``config`` (m / flush_min / flush_frac / flush_max /
+    flush_chunk), ``_sample_levels``, the from-scratch ``_graph_insert``
+    hook, and ``_graph_heuristic``.
+    """
+
+    _graph_heuristic: bool = True
+
+    def _graph_insert(self, slots: np.ndarray) -> None:
+        raise NotImplementedError
+
+    def _init_pending(self, capacity: int) -> None:
+        self._pending_mask = np.zeros(capacity, bool)
+        self._pending_count = 0
+        self._pending_pad_cache = None
+
+    def _pend_slots(self, slots_np: np.ndarray) -> None:
+        """Buffer new slots; flush once the batch amortizes.  With
+        ``config.flush_chunk > 0`` a threshold flush connects at most that
+        many slots; the rest stay visible through the overlay and drain on
+        later adds (or an explicit :meth:`flush_pending`)."""
+        self._pending_mask[slots_np] = True
+        self._pending_count += len(slots_np)
+        self._pending_pad_cache = None
+        if self._pending_count >= self._flush_threshold():
+            chunk = int(getattr(self.config, "flush_chunk", 0))
+            self.flush_pending(limit=chunk if chunk > 0 else None)
+
+    def _unpend_slot(self, slot: int) -> bool:
+        """Drop a removed slot that never reached the graph; True if it
+        was pending."""
+        if self._pending_mask[slot]:
+            self._pending_mask[slot] = False
+            self._pending_count -= 1
+            self._pending_pad_cache = None
+            return True
+        return False
+
+    def _clear_pending(self) -> None:
+        self._pending_mask[:] = False
+        self._pending_count = 0
+        self._pending_pad_cache = None
+
+    def _flush_threshold(self) -> int:
+        """Pending count that triggers a flush: a fraction of the connected
+        graph (the delta insert amortises against it), floored so tiny
+        indexes never flush per add and capped so the overlay scan of a
+        search stays bounded."""
+        graph_live = max(0, self.store.size() - self._pending_count)
+        return max(self.config.flush_min,
+                   min(int(self.config.flush_frac * graph_live),
+                       self.config.flush_max))
+
+    def flush_pending(self, limit: Optional[int] = None) -> None:
+        """Connect pending slots to the graph (exact-kNN delta insert; the
+        from-scratch path while the graph is empty).  ``limit`` caps how
+        many slots this call connects (lowest slot first); the rest stay
+        pending and searchable through the overlay."""
+        if self._pending_count == 0:
+            return
+        slots = np.flatnonzero(self._pending_mask).astype(np.int32)
+        if limit is not None and 0 < limit < slots.size:
+            slots = slots[:limit]
+            self._pending_mask[slots] = False
+            self._pending_count -= int(slots.size)
+            self._pending_pad_cache = None
+        else:
+            self._clear_pending()
+        if slots.size == 0:
+            return
+        if self.graph.entry < 0:
+            self._graph_insert(slots)
+            return
+        from ..ops import hnsw_graph as hg
+
+        st = self.store.state
+        hg.bulk_insert_delta(
+            self.graph, st.vectors, st.norms, st.valid, slots,
+            self._sample_levels(len(slots)), m=self.config.m,
+            heuristic=self._graph_heuristic)
+
+    def _pending_padded(self) -> torch.Tensor:
+        """Pending slots padded with -1 to a power of two (at least 8), as
+        a device tensor cached until the pending set changes."""
+        if self._pending_pad_cache is None:
+            slots = np.flatnonzero(self._pending_mask).astype(np.int32)
+            n_pad = max(8, pow2(slots.size))
+            self._pending_pad_cache = torch.as_tensor(np.concatenate(
+                [slots, np.full(n_pad - slots.size, -1, np.int32)]),
+                device=self.device)
+        return self._pending_pad_cache
+
+
 class VectorIndex(abc.ABC):
     """Batch-first ANN index over a device-resident corpus."""
 

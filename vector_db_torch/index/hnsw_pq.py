@@ -1,5 +1,5 @@
-"""HNSW+PQ flagship index, raw f32 or compressed int8 store, scan search
-(the counterpart of ``vector_db_tpu/index/hnsw_pq.py`` without the graph).
+"""HNSW+PQ flagship index, raw f32 or compressed int8 store (the
+counterpart of ``vector_db_tpu/index/hnsw_pq.py``).
 
 PQ codebooks train on the live corpus (lazily at the training threshold,
 at ``bulk_load``, or on the first chunk of ``bulk_load_stream``), every
@@ -32,18 +32,30 @@ row is encoded, and ``search_batch`` scans:
     exact f32 (raw store) or int8 + residual (compressed) refine, with the
     rows written since the last layout scored exactly beside the pool
     (:func:`pallas_ivf_refine_raw`, :func:`pallas_ivf_refine_packed`);
-  * ``auto`` — raw store: scan_exact below 700,000 live rows,
-    scan_pallas_int8 at and above (the reference's crossover,
-    :func:`_auto_scan_mode`); compressed store: adc_fast.
+  * ``pca`` — a bf16 PCA projection of the rows (the proxy, fitted at
+    training under ``search_mode="pca"``, kept current by every encode) is
+    scanned, its ranked top-``pca_r`` re-ranked (``ops/pca``);
+  * ``adc`` — per-query distance tables scanned over the [N, S] codes
+    (:func:`flagship_search`), or with ``nlist > 0`` over the members of
+    the ``nprobe`` nearest coarse clusters from a quota + overflow member
+    table (:func:`flagship_search_pruned`), ``refine_k`` candidates
+    re-ranked;
+  * ``graph`` (``use_graph=True``, raw store) — an HNSW graph over the
+    rows (``ops/hnsw_graph``), built with exact distances, traversed with
+    ADC distances (:func:`hnsw_pq_search`), the beam's pool re-ranked
+    exactly; adds are deferred as in ``index/hnsw.py`` and answered through
+    an exact overlay (:func:`_graph_refine_pending`);
+  * ``auto`` — the graph when ``use_graph``; else raw store: scan_exact
+    below 700,000 live rows, scan_pallas_int8 at and above (the reference's
+    crossover, :func:`_auto_scan_mode`); compressed store: adc_fast.
 
 The compressed store (``raw_store=False``) keeps int8 rows, exact norms
 and optionally a residual level (``refine_residual``) and no f32 matrix;
 ``bulk_load_stream`` fills it chunk by chunk.  Caches derived from the
 store or the codes are keyed on version counters (``store.version``, the
 codes' own ``_codes_version``): the port writes in place, so the
-reference's array-identity keys would never change.  ``pca``, ``adc`` and
-the graph raise ``NotImplementedError`` naming their ROADMAP item.  Unlike
-the reference, no [L, cap, M] graph is allocated.
+reference's array-identity keys would never change.  Unlike the reference,
+the [L, cap, M] graph is allocated only under ``use_graph=True``.
 """
 
 from __future__ import annotations
@@ -56,8 +68,10 @@ import numpy as np
 import torch
 
 from ..api.config import HnswPqConfig
+from ..core.member_table import build_member_table
 from ..core.store import VectorStore
-from ..ops import adc, ivf_scan
+from ..ops import adc, ivf_scan, pca
+from ..ops import hnsw_graph as hg
 from ..ops.distance import (bf16_pool_scan, blocked_knn, blocked_knn_fast,
                             blocked_knn_int8, blocked_rerank,
                             blocked_rerank_int8, normalize_rows,
@@ -66,14 +80,16 @@ from ..ops.distance import (bf16_pool_scan, blocked_knn, blocked_knn_fast,
 from ..ops.kernels import (IVF_PW, LANES, fused_int8_pool, fused_int8g_pool,
                            fused_packed_pool, fused_raw_pool,
                            pq_decode_recon_t, preserved_pool_width)
+from ..ops.topk import merge_topk
 from ..ops.kmeans import kmeans_fit, kmeans_fit_blocked, subspace_kmeans_fit
-from .base import (VectorIndex, as_queries, pad_queries_pow2, pow2,
-                   to_host_results)
+from .base import (DeferInsertMixin, VectorIndex, as_queries,
+                   pad_queries_pow2, pow2, to_host_results)
+from .hnsw import (fix_entry_after_unlink, graph_from_host, graph_to_host,
+                   sample_graph_levels)
 
-#: search modes the port serves, and the ROADMAP item that ports each other
-PORTED_MODES = ("auto", "scan_exact", "scan_pallas_int8", "scan_pallas",
-                "scan_bf16", "adc_fast", "scan_int8", "scan_ivf")
-_MODE_ROADMAP = {"pca": "A10", "adc": "A10", "graph": "A10"}
+#: search modes of the reference still to port, by ROADMAP item (none: a
+#: mode no branch of search_batch names runs the ``adc`` scan, as there)
+_MODE_ROADMAP: dict = {}
 #: modes that read the raw f32 rows (refused by a compressed store)
 RAW_ONLY_MODES = ("scan_exact", "scan_pallas", "scan_bf16", "graph")
 #: live rows at which auto switches from scan_exact to scan_pallas_int8
@@ -89,11 +105,7 @@ RECON_NORM_CHUNK = 1 << 19
 COARSE_BLOCK_ELEMS = 1 << 26
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
-class HnswPqIndex(VectorIndex):
+class HnswPqIndex(DeferInsertMixin, VectorIndex):
     kind = "hnswpq"
 
     def __init__(self, dim: int, capacity: int, metric: str = "l2",
@@ -124,11 +136,6 @@ class HnswPqIndex(VectorIndex):
                 "refine_residual=True needs the compressed store "
                 "(raw_store=False); the raw tier's f32 rows are already "
                 "exact refine sources")
-        if config.use_graph:
-            raise _not_ported("use_graph=True (graph search)", "A10")
-        if config.search_mode not in PORTED_MODES:
-            raise _not_ported(f"search_mode={config.search_mode!r}",
-                              _MODE_ROADMAP.get(config.search_mode, "A10"))
         self.config = config
         self.store = VectorStore(capacity, dim, raw=config.raw_store,
                                  device=device,
@@ -142,7 +149,32 @@ class HnswPqIndex(VectorIndex):
         self.perm: Optional[torch.Tensor] = None  # PQ space = vectors[:, perm]
         self.trained = False
         self.seed = 42
-        self._level_counter = 0  # checkpoint field of the reference's graph
+        # the table scan of ``adc`` reduces a block by a one-hot product
+        # (bf16 tables, the reference's choice) rather than a gather
+        self.adc_impl = "onehot"
+        # the graph (exact-distance build), only under use_graph: its
+        # [L, cap, M] int32 adjacency is 6.4 GB at 10M rows
+        self._max_level = max(1, int(np.log(max(self.store.capacity, 2))
+                                     / np.log(max(config.m, 2))) + 1)
+        if config.use_graph:
+            self.graph = hg.init_graph(self.store.capacity, config.m,
+                                       self._max_level, self.device)
+        self._level_counter = 0
+        # defer insert policy: trained graph-mode adds are buffered here
+        # and searches fold them into the exact refine
+        self._init_pending(self.store.capacity)
+        # the quota + overflow member table of the pruned ``adc`` scan,
+        # rebuilt when coarse_assign or the live set moved
+        self._members: Optional[torch.Tensor] = None
+        self._overflow: Optional[torch.Tensor] = None
+        self._members_dirty = True
+        # PCA proxy (search_mode="pca", proxy_dims > 0): mean / basis fitted
+        # at training, proxy rows [cap, p] bf16 written by every encode,
+        # their squared norms cached until the next write
+        self.pca_mean: Optional[torch.Tensor] = None
+        self.pca_basis: Optional[torch.Tensor] = None
+        self.proxy: Optional[torch.Tensor] = None
+        self._proxy_norms: Optional[torch.Tensor] = None
         # the coarse quantizer (config.nlist > 0): centroids [nlist, dim] in
         # probe space, and each slot's nearest centroid on the host (-1 for
         # dead slots, and for rows train() places under scan_ivf, whose
@@ -243,7 +275,17 @@ class HnswPqIndex(VectorIndex):
             self._encode_slots(slots_np)
             if self.coarse_centroids is not None:
                 self._assign_coarse(slots_np)
+            if self.config.use_graph:
+                if self.config.insert_policy == "defer":
+                    self._pend_slots(slots_np.astype(np.int32))
+                else:
+                    self._graph_insert(slots_np.astype(np.int32))
         return accepted
+
+    def _sample_levels(self, n: int) -> np.ndarray:
+        self._level_counter += 1
+        return sample_graph_levels(self.seed, self._level_counter - 1, n,
+                                   self.config.m, self._max_level)
 
     def bulk_load(self, ids: Sequence[int], vectors) -> list[int]:
         """Bulk ingest of an [n, dim] corpus (ideally already on the
@@ -270,6 +312,10 @@ class HnswPqIndex(VectorIndex):
         if self.store.size() > 0:
             raise ValueError("bulk_load_stream requires an empty index")
         self._note_store_rewrite()
+        if self.config.use_graph:
+            raise ValueError(
+                "bulk_load_stream does not build the HNSW graph; "
+                "use use_graph=False (scan/adc/pca modes) or bulk_load")
         cap = self.store.capacity
         start = 0
         id_map = self.store._id_to_slot
@@ -300,6 +346,8 @@ class HnswPqIndex(VectorIndex):
                 self.store.write_range(start, ids_np, vecs)
                 self.codes[start:start + c] = adc.pq_encode(
                     self._pq_space(vecs), self.codebooks)
+                if self.proxy is not None:
+                    self.proxy[start:start + c] = self._project(vecs)
                 if self.coarse_centroids is not None:
                     self.coarse_assign[start:start + c] = self._nearest_coarse(
                         vecs)
@@ -308,11 +356,14 @@ class HnswPqIndex(VectorIndex):
             # the freelist reflects whatever was written, even on a raise
             self.store._free = list(range(cap - 1, start - 1, -1))
             self._codes_version += 1
+            self._proxy_norms = None
+            self._members_dirty = True
         return start
 
     def _fit_quantizers(self, data: torch.Tensor) -> None:
-        """Fit the PQ codebooks (and the dimension permutation) on a
-        training sample of the first streamed chunk, and the coarse
+        """Fit the PQ codebooks (and the dimension permutation) and, under
+        ``pca``, the proxy basis on a training sample of the first streamed
+        chunk, and the coarse
         quantizer on the chunk itself when ``nlist > 0`` (under scan_ivf
         ``nlist = 0`` is sized from the store capacity: the final live
         count is unknown mid-stream); encodes nothing."""
@@ -328,6 +379,7 @@ class HnswPqIndex(VectorIndex):
                                       replace=False))
             sample = data[torch.as_tensor(pick, device=data.device)]
         self._fit_codebooks(sample)
+        self._fit_proxy(sample)
         if self.config.nlist == 0 and self.config.search_mode == "scan_ivf":
             self.config.nlist = ivf_scan.auto_ivf_geometry(
                 self.store.capacity, winners=self.config.ivf_winners)[0]
@@ -360,12 +412,44 @@ class HnswPqIndex(VectorIndex):
         self.trained = True
         self._codes_version += 1
 
+    def _fit_proxy(self, sample: torch.Tensor) -> None:
+        """Under ``search_mode="pca"`` with ``proxy_dims > 0``: fit the PCA
+        basis on the (unpermuted) training rows, normalized under cosine
+        (the proxy space holds the unit sphere), on the host in numpy as
+        the reference does, and allocate the proxy.  Other modes pay
+        neither the projection of every encode nor the checkpoint bytes."""
+        if self.config.proxy_dims <= 0 or self.config.search_mode != "pca":
+            return
+        raw = sample.cpu().numpy()
+        if self.metric == "cosine":
+            raw = raw / np.maximum(
+                np.linalg.norm(raw, axis=1, keepdims=True), 1e-12)
+        mu, basis = pca.pca_fit(raw, min(self.config.proxy_dims, self.dim))
+        self.pca_mean = torch.as_tensor(mu, device=self.device)
+        self.pca_basis = torch.as_tensor(basis, device=self.device)
+        self.proxy = torch.zeros((self.store.capacity, basis.shape[1]),
+                                 dtype=torch.bfloat16, device=self.device)
+        self._proxy_norms = None
+
+    def _project(self, vecs: torch.Tensor) -> torch.Tensor:
+        """Proxy rows of store rows (normalized first under cosine)."""
+        if self.metric == "cosine":
+            vecs = normalize_rows(vecs)
+        return pca.project_rows(vecs, self.pca_mean, self.pca_basis)
+
     def remove(self, vec_id: int) -> bool:
         slot = self.store.remove(vec_id)
         if slot is None:
             return False
         self._note_row_mutation(np.asarray([slot]))
         self.coarse_assign[slot] = -1
+        self._members_dirty = True
+        if not self.config.use_graph or self._unpend_slot(slot):
+            return True  # no graph, or the row never reached it
+        was_entry = self.graph.entry == slot
+        hg.unlink_slot(self.graph, slot)
+        if was_entry:
+            fix_entry_after_unlink(self.graph, self.store.state.valid)
         return True
 
     # --------------------------------------------------------------- train
@@ -384,7 +468,10 @@ class HnswPqIndex(VectorIndex):
             rng = np.random.default_rng(self.seed)
             sample = rng.choice(sample, self.config.training_samples,
                                 replace=False)
-        self._fit_codebooks(self.store.rows(np.sort(sample)))
+        rows = self.store.rows(np.sort(sample))
+        self._fit_codebooks(rows)
+        self._fit_proxy(rows)
+        del rows
         self._encode_slots(live)
         if self.config.nlist == 0 and self.config.search_mode == "scan_ivf":
             self.config.nlist = ivf_scan.auto_ivf_geometry(
@@ -403,6 +490,8 @@ class HnswPqIndex(VectorIndex):
             if self.config.search_mode != "scan_ivf":
                 # scan_ivf places rows by its own top-8 choices pass
                 self._assign_coarse(live)
+        if self.config.use_graph:
+            self._rebuild_graph()
         return True
 
     def _coarse_kmeans(self, full: torch.Tensor, nlist: int) -> torch.Tensor:
@@ -425,6 +514,7 @@ class HnswPqIndex(VectorIndex):
         is dropped."""
         self.coarse_centroids = centroids
         self._ivf_cache = None
+        self._members_dirty = True
 
     def _nearest_coarse(self, vecs: torch.Tensor) -> np.ndarray:
         """Each row's nearest coarse centroid (rows normalized under
@@ -442,19 +532,41 @@ class HnswPqIndex(VectorIndex):
         for s in range(0, slots.size, step):
             sl = slots[s:s + step]
             self.coarse_assign[sl] = self._nearest_coarse(self.store.rows(sl))
+        self._members_dirty = True
+
+    def _member_table(self) -> tuple:
+        """(members [nlist, L], L, overflow) of the pruned ``adc`` scan:
+        each cluster keeps at most a quota of 4x the mean size, members
+        past it spill into the shared overflow list every query scans
+        (``core/member_table``); rebuilt on the host when the assignment or
+        the live set moved."""
+        with self._cache_lock:
+            if self._members is None or self._members_dirty:
+                table, _, over = build_member_table(
+                    self.coarse_assign, self.store.state.valid.cpu().numpy(),
+                    int(self.coarse_centroids.shape[0]), quota_mult=4.0,
+                    align=32)
+                self._members = torch.as_tensor(table, device=self.device)
+                self._overflow = torch.as_tensor(over, device=self.device)
+                self._members_dirty = False
+            return self._members, self._members.shape[1], self._overflow
 
     def build(self) -> None:
-        """Train if needed, else re-encode every live row."""
+        """Train if needed, else re-encode every live row and, with the
+        graph, rebuild it."""
         if not self.trained:
             self.train()
         else:
             self._encode_slots(
                 np.flatnonzero(self.store.state.valid.cpu().numpy()))
+            if self.config.use_graph:
+                self._rebuild_graph()
 
     def _encode_slots(self, slots: np.ndarray) -> None:
-        """PQ-encode the given slots, in chunks whose [S, rows, K] distance
-        block fits ``adc.ENCODE_CHUNK_BYTES`` (the compressed store
-        dequantizes only one chunk of rows at a time)."""
+        """PQ-encode the given slots (and project them into the proxy), in
+        chunks whose [S, rows, K] distance block fits
+        ``adc.ENCODE_CHUNK_BYTES`` (the compressed store dequantizes only
+        one chunk of rows at a time)."""
         if self.codebooks is None or len(slots) == 0:
             return
         s, k, _ = self.codebooks.shape
@@ -463,8 +575,12 @@ class HnswPqIndex(VectorIndex):
                                   device=self.device)
         for start in range(0, slots_t.numel(), chunk):
             sl = slots_t[start:start + chunk]
-            self.codes[sl] = adc.pq_encode(
-                self._pq_space(self.store.rows(sl)), self.codebooks)
+            rows = self.store.rows(sl)
+            self.codes[sl] = adc.pq_encode(self._pq_space(rows),
+                                           self.codebooks)
+            if self.proxy is not None:
+                self.proxy[sl] = self._project(rows)
+                self._proxy_norms = None
         self._codes_version += 1
         self._note_slots("_fast_dirty", slots)
 
@@ -612,6 +728,16 @@ class HnswPqIndex(VectorIndex):
             self._packed_cache = (self.store.version, value)
             return value
 
+    def _int8_refine_args(self, i8: Optional[tuple], resid, rscales) -> dict:
+        """The int8 refine keywords of the pool searches from an
+        :meth:`_int8_refine_store` pair (None: no int8 refine) and the
+        residual level."""
+        return dict(
+            int8_base=None if i8 is None else i8[0],
+            int8_scales=None if i8 is None else i8[1],
+            int8_norms=None if i8 is None else self.store.state.norms,
+            int8_resid=resid, int8_rscales=rscales)
+
     def _int8_resid_store(self) -> tuple:
         """(resid, rscales) of a compressed store with the residual level,
         else (None, None)."""
@@ -741,6 +867,39 @@ class HnswPqIndex(VectorIndex):
             self._ivf_overlay_dev = torch.as_tensor(arr, device=self.device)
         return self._ivf_overlay_dev
 
+    # ------------------------------------------------------------- graph ops
+    def _graph_insert(self, slots: np.ndarray) -> None:
+        """Connect store slots with exact distances: the exact-kNN bulk
+        build into an empty graph (at least 4 m slots), else batched
+        insertion rounds of 64.  (Also the mixin's hook for a flush into an
+        empty graph.)"""
+        levels = self._sample_levels(len(slots))
+        st = self.store.state
+        live = self.store.size() - len(slots)
+        if self.graph.entry < 0 and len(slots) >= 4 * self.config.m:
+            hg.bulk_build(self.graph, st.vectors, st.norms, slots, levels,
+                          m=self.config.m, heuristic=True)
+            return
+        if self.graph.entry < 0:
+            hg.seed_first(self.graph, int(slots[0]), int(levels[0]))
+            live = max(live, 1)
+        hg.host_insert_stream(
+            self.graph, st.vectors, st.norms, slots, levels, batch=64,
+            live_before=live, efc=self.config.ef_construction, expand=4,
+            heuristic=True)
+
+    def _rebuild_graph(self) -> None:
+        """A fresh graph over every live row, in id order."""
+        st = self.store.state
+        ids_np = st.ids.cpu().numpy()
+        live = np.flatnonzero(st.valid.cpu().numpy())
+        order = live[np.argsort(ids_np[live], kind="stable")]
+        self.graph = hg.init_graph(self.store.capacity, self.config.m,
+                                   self._max_level, self.device)
+        self._clear_pending()  # the rebuild connects everything
+        if order.size:
+            self._graph_insert(order.astype(np.int32))
+
     # --------------------------------------------------------------- search
     def _f32_scan_block(self, capacity: int, q_n: int) -> int:
         """Block length of the blocked exact scan: few big blocks, the
@@ -843,10 +1002,82 @@ class HnswPqIndex(VectorIndex):
             dists, ext = self._adc_fast(padded, k_pad, resid, rscales)
         elif mode == "scan_ivf":
             dists, ext = self._scan_ivf(padded, k_pad, resid, rscales)
+        elif mode == "pca":
+            dists, ext = self._pca(padded, k_pad, resid, rscales)
+        elif self.config.use_graph and self.graph.entry >= 0:
+            # (mode "graph" without use_graph has no graph to search and
+            # runs the adc scan, as in the reference)
+            dists, slots = self._graph_search(padded, k_pad)
+            return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
         else:
-            raise _not_ported(f"search_mode={mode!r}",
-                              _MODE_ROADMAP.get(mode, "A10"))
+            dists, ext = self._adc(padded, k_pad, resid, rscales)
         return to_host_results(q_n, k, k_eff, ext, None, dists)
+
+    def _refine_width(self, k_pad: int) -> int:
+        """Candidates the ``adc`` and graph modes re-rank."""
+        return min(max(pow2(self.config.refine_k), k_pad),
+                   self.store.capacity)
+
+    def _pca(self, padded, k_pad, resid, rscales):
+        """pca on either store: chunked past 6 GB of [Q, N] proxy
+        distances (``ops/pca``), in chunks of :meth:`_scan_chunk` rows."""
+        if self.proxy is None:
+            raise ValueError(
+                "search_mode='pca' needs a fitted proxy: set proxy_dims > 0 "
+                "and search_mode='pca' before training (or retrain/build())")
+        st = self.store.state
+        with self._cache_lock:
+            if self._proxy_norms is None:
+                self._proxy_norms = pca.rows_sq_norms(self.proxy)
+            proxy_norms = self._proxy_norms
+        return pca.pca_proxy_search(
+            padded, self.pca_mean, self.pca_basis, self.proxy, proxy_norms,
+            st.valid, st.vectors if self.store.raw else None, st.ids,
+            k=k_pad, select_r=max(self.config.pca_r, k_pad),
+            metric=self.metric, packed_base=self._packed_refine_store(),
+            block_n=self._scan_chunk(st.capacity, padded.shape[0]),
+            **self._int8_refine_args(self._int8_refine_store(), resid,
+                                     rscales))
+
+    def _graph_search(self, padded, k_pad):
+        """Graph mode: ADC-distance traversal with a beam of
+        max(pow2(ef_search), refine), the first ``refine`` of its pool
+        re-ranked exactly; pending rows are scored by one [Q, P] product
+        beside the refine (never broadcast into its [Q, R, d] gather)."""
+        st = self.store.state
+        refine = self._refine_width(k_pad)
+        tables = adc.build_distance_tables(self._pq_space(padded),
+                                           self.codebooks)
+        ef = min(max(pow2(self.config.ef_search), refine), st.capacity)
+        _, cand = hnsw_pq_search(self.graph, self.codes, tables, st.valid, ef)
+        cand = cand[:, :refine]
+        if self._pending_count > 0:
+            return _graph_refine_pending(
+                padded, st.vectors, st.valid, cand, self._pending_padded(),
+                k_pad, self.metric)
+        return blocked_rerank(padded, st.vectors, cand, k_pad, self.metric)
+
+    def _adc(self, padded, k_pad, resid, rscales):
+        """adc on either store: the exhaustive table scan, or the pruned
+        one when a coarse quantizer is trained."""
+        st = self.store.state
+        # a raw store re-ranks against its f32 rows, whatever refine_store
+        refine_args = self._int8_refine_args(
+            None if self.store.raw else self._int8_refine_store(), resid,
+            rscales)
+        base = st.vectors if self.store.raw else None
+        refine = self._refine_width(k_pad)
+        if self.coarse_centroids is not None:
+            members, max_len, overflow = self._member_table()
+            nprobe = min(self.config.nprobe, self.coarse_centroids.shape[0])
+            return flagship_search_pruned(
+                padded, self.codebooks, self.codes, st.valid, base, st.ids,
+                self.coarse_centroids, members, overflow, k_pad, refine,
+                nprobe, max_len, self.metric, self.perm, **refine_args)
+        return flagship_search(
+            padded, self.codebooks, self.codes, st.valid, base, st.ids,
+            k_pad, refine, self.adc_impl, min(4096, st.capacity),
+            self.metric, self.perm, **refine_args)
 
     def resolve_mode(self, n_live: int) -> str:
         """The scan a trained index runs for ``search_mode`` at ``n_live``
@@ -901,7 +1132,6 @@ class HnswPqIndex(VectorIndex):
                       or st.capacity * self.dim * 2 > 1 << 30)
         chunk = (self._scan_chunk(st.capacity, padded.shape[0])
                  if need_chunk else 0)
-        i8 = self._int8_refine_store()
         return adc.adc_fast_search(
             padded, ct, cbt, st.valid, st.vectors if self.store.raw else None,
             st.ids, k=k_pad,
@@ -911,10 +1141,8 @@ class HnswPqIndex(VectorIndex):
             code_norms=cnorms, perm=self.perm,
             packed_base=self._packed_refine_store(),
             select_r=self.config.adc_select_r,
-            int8_base=None if i8 is None else i8[0],
-            int8_scales=None if i8 is None else i8[1],
-            int8_norms=None if i8 is None else st.norms,
-            int8_resid=resid, int8_rscales=rscales)
+            **self._int8_refine_args(self._int8_refine_store(), resid,
+                                     rscales))
 
     # ---------------------------------------------------------------- state
     def size(self) -> int:
@@ -939,25 +1167,32 @@ class HnswPqIndex(VectorIndex):
             store_bytes = cap * (self.dim + 8)
             if self.store.state.resid is not None:
                 store_bytes += cap * (self.dim + 4)
+        graph_bytes = (self.graph.neighbors.numel() * 4
+                       if self.config.use_graph else 0)
+        proxy_bytes = self.proxy.numel() * 2 if self.proxy is not None else 0
         s.update(
             trained=self.trained,
             num_subspaces=sub,
             num_centroids=self.config.num_centroids,
             compression_ratio=4.0 * self.dim / sub,
-            index_bytes=code_bytes + cb_bytes,
-            proxy_bytes=0,
+            index_bytes=code_bytes + cb_bytes + graph_bytes + proxy_bytes,
+            proxy_bytes=proxy_bytes,
             raw_bytes=cap * self.dim * 4,
             store_bytes=store_bytes,
             raw_store=self.store.raw,
-            use_graph=False,
-            pending_inserts=0,
+            use_graph=self.config.use_graph,
+            pending_inserts=int(self._pending_count),
             device=str(self.device),
         )
         return s
 
     # ------------------------------------------------------------ persistence
     def state_arrays(self) -> dict:
-        """Host arrays under the reference's checkpoint keys (no graph)."""
+        """Host arrays under the reference's checkpoint keys; the graph
+        (complete: pending rows are connected first) only with
+        ``use_graph``, the proxy only when fitted."""
+        if self.config.use_graph:
+            self.flush_pending()
         out = {
             "store": self.store.to_host(),
             "codes": self.codes.cpu().numpy(),
@@ -971,15 +1206,22 @@ class HnswPqIndex(VectorIndex):
         if self.coarse_centroids is not None:
             out["coarse_centroids"] = self.coarse_centroids.cpu().numpy()
             out["coarse_assign"] = self.coarse_assign
+        if self.config.use_graph:
+            out["graph"] = graph_to_host(self.graph)
+        if self.proxy is not None:
+            out["pca_mean"] = self.pca_mean.cpu().numpy()
+            out["pca_basis"] = self.pca_basis.cpu().numpy()
+            out["proxy"] = self.proxy.cpu().to(torch.float32).numpy()
         return out
 
     def load_state_arrays(self, arrays: dict) -> None:
         """Load ``state_arrays()`` of either package, raw or compressed
-        store, with the coarse quantizer when it has one (numpy arrays; the
-        reference's graph and other modes' state are ignored) onto this
-        index's device."""
+        store, with the coarse quantizer, the proxy and (under
+        ``use_graph``; the reference always writes one) the graph when it
+        has them (numpy arrays) onto this index's device."""
         dev = self.device
         self.store = VectorStore.from_host(arrays["store"], dev)
+        self._init_pending(self.store.capacity)  # checkpoints: complete graphs
         self.codes = torch.tensor(np.asarray(arrays["codes"], np.uint8),
                                   device=dev)
         self.trained = bool(np.asarray(arrays["trained"])[0])
@@ -1000,6 +1242,24 @@ class HnswPqIndex(VectorIndex):
         else:
             self._set_coarse(None)
             self.coarse_assign = np.full(self.store.capacity, -1, np.int32)
+        if self.config.use_graph:
+            if "graph" not in arrays:
+                raise ValueError(
+                    "use_graph=True needs a checkpoint with a graph; load "
+                    "with use_graph=False, or build() after loading")
+            self.graph = graph_from_host(arrays["graph"], dev)
+        if "proxy" in arrays:
+            self.pca_mean = torch.tensor(
+                np.asarray(arrays["pca_mean"], np.float32), device=dev)
+            self.pca_basis = torch.tensor(
+                np.asarray(arrays["pca_basis"], np.float32), device=dev)
+            self.proxy = torch.tensor(
+                np.asarray(arrays["proxy"], np.float32)).to(
+                    torch.bfloat16).to(dev)
+        else:
+            self.pca_mean = self.pca_basis = self.proxy = None
+        self._proxy_norms = None
+        self._members = self._overflow = None
         # the new store restarts its version: drop every derived cache
         self._scan8_cache = self._scan8p_cache = None
         self._scan8g_cache = self._scan16_cache = None
@@ -1008,6 +1268,122 @@ class HnswPqIndex(VectorIndex):
         self._ivf_overlay_dev = None
         self._codes_version += 1
         self._note_store_rewrite()
+
+
+def flagship_search(queries, codebooks, codes, valid, base, ids, k, refine,
+                    impl, block_n, metric, perm=None, int8_base=None,
+                    int8_scales=None, int8_norms=None, int8_resid=None,
+                    int8_rscales=None):
+    """The ``adc`` search: distance tables -> exhaustive blocked ADC scan
+    with a running top-``refine`` (``ops/adc.adc_scan_topk``) -> re-rank
+    against the raw rows or the int8 store -> (dists [Q, k], external ids
+    [Q, k], -1 where empty)."""
+    tables = adc.build_distance_tables(
+        _cosine_pq_queries(queries, metric, perm), codebooks)
+    _, cand = adc.adc_scan_topk(tables, codes, valid, refine,
+                                block_n=block_n, impl=impl)
+    return _rerank_any(queries, base, cand, ids, k, metric, int8_base,
+                       int8_scales, int8_norms, int8_resid, int8_rscales)
+
+
+def _cosine_pq_queries(queries, metric, perm):
+    """Queries as the quantizer sees them: normalized under cosine (the
+    codes hold the unit sphere), then permuted."""
+    q = normalize_rows(queries) if metric == "cosine" else queries
+    return q if perm is None else q[:, perm]
+
+
+def _rerank_any(queries, base, cand, ids, k, metric, int8_base, int8_scales,
+                int8_norms=None, int8_resid=None, int8_rscales=None):
+    """Re-rank candidate slots against the int8 store when given, else the
+    raw rows, mapped to external ids."""
+    if int8_base is not None:
+        d, slots = blocked_rerank_int8(
+            queries, int8_base, int8_scales, cand, k, metric,
+            b_norms=int8_norms, resid=int8_resid, rscales=int8_rscales)
+    else:
+        d, slots = blocked_rerank(queries, base, cand, k, metric)
+    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                      torch.full_like(slots, -1).to(ids.dtype))
+    return d, ext
+
+
+#: candidates scored per step of the pruned adc scan
+PRUNED_BLOCK = 2048
+
+
+def flagship_search_pruned(queries, codebooks, codes, valid, base, ids,
+                           centroids, members, overflow, k, refine, nprobe,
+                           max_len, metric, perm=None, int8_base=None,
+                           int8_scales=None, int8_norms=None,
+                           int8_resid=None, int8_rscales=None):
+    """The cluster-pruned ``adc`` search: the ``nprobe`` nearest coarse
+    centroids of each query -> their members from the [nlist, max_len]
+    table plus the shared overflow list -> ADC scores in blocks of
+    ``PRUNED_BLOCK`` candidates with a running top-``refine`` (the whole
+    [Q, C, S] gather of the codes is never built) -> re-rank -> (dists
+    [Q, k], external ids [Q, k]).  Under cosine the centroids live on the
+    sphere, so the probing query is normalized too."""
+    q_n = queries.shape[0]
+    tables = adc.build_distance_tables(
+        _cosine_pq_queries(queries, metric, perm), codebooks)
+    q_probe = normalize_rows(queries) if metric == "cosine" else queries
+    cd = (torch.sum(q_probe * q_probe, dim=1)[:, None]
+          + torch.sum(centroids * centroids, dim=1)[None, :]
+          - 2.0 * (q_probe @ centroids.T))
+    probes = torch.topk(cd, nprobe, dim=1, largest=False, sorted=True)[1]
+    cand = torch.cat([members[probes].reshape(q_n, nprobe * max_len),
+                      overflow[None, :].expand(q_n, -1)], dim=1)
+    cand = torch.where(valid[cand.clamp(min=0).long()], cand, -1)
+    c_total = cand.shape[1]
+    r = min(refine, c_total)
+    dist = hg._adc_dist(codes, tables)
+    top_d = torch.full((q_n, r), float("inf"), device=queries.device)
+    top_i = torch.full((q_n, r), -1, dtype=torch.int32,
+                       device=queries.device)
+    for start in range(0, c_total, PRUNED_BLOCK):
+        cnd = cand[:, start:start + PRUNED_BLOCK]
+        top_d, top_i = merge_topk(top_d, top_i, dist(cnd), cnd, r)
+    return _rerank_any(queries, base, top_i, ids, k, metric, int8_base,
+                       int8_scales, int8_norms, int8_resid, int8_rscales)
+
+
+def hnsw_pq_search(graph, codes, tables, valid, ef):
+    """Graph traversal with ADC distances: greedy descent on the upper
+    levels, an ef-beam on level 0 (``expand`` 4, at most ef steps), all with
+    quantized distances; dead slots dropped from the pool.  The caller
+    re-ranks exactly.  Returns (pool_d [Q, ef], pool_i [Q, ef])."""
+    pool_d, pool_i = hg._descend_and_beam(
+        graph, hg._adc_dist(codes, tables), tables.shape[0], ef, ef, 4)
+    ok = (pool_i >= 0) & valid[pool_i.clamp(min=0).long()]
+    return (torch.where(ok, pool_d, float("inf")),
+            torch.where(ok, pool_i, -1))
+
+
+def _graph_refine_pending(queries, base, valid, cand, pending, k, metric):
+    """Blocked exact refine of the graph pool, plus an exact overlay over
+    the deferred slots (``pending`` [P], -1 padded) scored with ONE [Q, P]
+    product and merged by top-k.  Pending slots are disjoint from graph
+    nodes, so the merge cannot duplicate ids.  Returns (dists [Q, k],
+    slots [Q, k])."""
+    d_g, i_g = blocked_rerank(queries, base, cand, k, metric)
+    safe = pending.clamp(min=0).long()
+    pv = base[safe]                                              # [P, d]
+    dots = queries @ pv.T
+    if metric == "l2":
+        qn = torch.sum(queries * queries, dim=1)
+        pn = torch.sum(pv * pv, dim=1)
+        d_p = (qn[:, None] + pn[None, :] - 2.0 * dots).clamp_(min=0.0)
+    else:
+        qn = torch.linalg.norm(queries, dim=1, keepdim=True)
+        pn = torch.linalg.norm(pv, dim=1)[None, :]
+        d_p = 1.0 - dots / torch.clamp(qn * pn, min=1e-12)
+    ok = (pending >= 0) & valid[safe]
+    d_p = torch.where(ok[None, :], d_p, float("inf"))
+    d_p, i_p = hg._nearest_m(d_p, pending[None, :].expand(d_p.shape[0], -1),
+                             min(k, d_p.shape[1]))
+    return hg._nearest_m(torch.cat([d_g, d_p], dim=1),
+                         torch.cat([i_g, i_p.to(i_g.dtype)], dim=1), k)
 
 
 def _auto_scan_mode(use_graph: bool, n_live: int) -> str:

@@ -1,7 +1,11 @@
-"""Product quantization: encode and the fast codes-only scoring pipeline
-(the counterpart of ``vector_db_tpu/ops/adc.py``: ``pq_encode``,
-``balanced_subspace_perm``, ``codebooks_to_cbt`` and ``adc_fast_search``;
-the table scans ``adc_scan_topk``/``adc_decode_topk`` are ROADMAP A10).
+"""Product quantization: encode, the distance-table scans and the fast
+codes-only scoring pipeline (the counterpart of ``vector_db_tpu/ops/adc.py``).
+
+``build_distance_tables`` gives each query its [S, K] table of subspace
+distances; ``adc_scan_topk`` scans the [N, S] codes against the tables in
+blocks with a running exact top-k, reducing a block by a gather or by a
+one-hot product (bf16 inputs, f32 output), and ``adc_decode_topk`` ranks
+the same ADC distances from the decode kernel's reconstruction.
 
 ``adc_fast_search`` decodes the codes with the PQ decode kernel
 (``ops/kernels.pq_decode_recon_t``), scores the queries against the
@@ -19,8 +23,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .distance import blocked_rerank, blocked_rerank_int8, normalize_rows
+from .distance import (_bf16_mm, blocked_rerank, blocked_rerank_int8,
+                       normalize_rows)
 from .kernels import fused_adc_pool, pq_decode_recon_t
+from .topk import merge_topk, smallest_k
 
 #: bytes of the [S, rows, K] f32 distance block one pq_encode chunk holds
 ENCODE_CHUNK_BYTES = 1 << 30
@@ -45,6 +51,72 @@ def pq_encode(data: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
         d.sub_(torch.bmm(sub, codebooks.transpose(1, 2)).mul_(2.0))
         codes[start:start + rows] = torch.argmin(d, dim=2).T.to(torch.uint8)
     return codes
+
+
+def build_distance_tables(queries: torch.Tensor, codebooks: torch.Tensor
+                          ) -> torch.Tensor:
+    """Per-query subspace distance tables: queries [Q, dim], codebooks
+    [S, K, sub_dim] -> tables [Q, S, K] f32 with tables[q, s, c] =
+    ||q_sub[s] - codebooks[s, c]||^2."""
+    q_n = queries.shape[0]
+    s, _, sub_dim = codebooks.shape
+    q_sub = queries.reshape(q_n, s, sub_dim)
+    cb_norms = torch.sum(codebooks * codebooks, dim=2)            # [S, K]
+    q_norms = torch.sum(q_sub * q_sub, dim=2)                     # [Q, S]
+    cross = torch.bmm(q_sub.transpose(0, 1), codebooks.transpose(1, 2)
+                      ).transpose(0, 1)                           # [Q, S, K]
+    return q_norms[:, :, None] + cb_norms[None, :, :] - 2.0 * cross
+
+
+def _adc_block_gather(tables: torch.Tensor, codes_blk: torch.Tensor
+                      ) -> torch.Tensor:
+    """Distances of one code block by gather: tables [Q, S, K], codes
+    [B, S] -> [Q, B]."""
+    idx = codes_blk.long().T[None, :, :].expand(tables.shape[0], -1, -1)
+    return torch.sum(torch.gather(tables, 2, idx), dim=1)
+
+
+def _adc_block_onehot(tables: torch.Tensor, codes_blk: torch.Tensor
+                      ) -> torch.Tensor:
+    """Distances of one code block by a one-hot product: the tables are
+    rounded to bf16 (the reference's arithmetic under ``impl="onehot"``),
+    the [B, S*K] one-hot matrix is exact, and the product accumulates in
+    f32.  tables [Q, S, K], codes [B, S] -> [Q, B]."""
+    q_n, s, k = tables.shape
+    b = codes_blk.shape[0]
+    col = codes_blk.long() + torch.arange(s, device=tables.device)[None] * k
+    onehot = torch.zeros((b, s * k), dtype=torch.bfloat16,
+                         device=tables.device).scatter_(1, col, 1.0)
+    return _bf16_mm(tables.reshape(q_n, s * k), onehot)
+
+
+def adc_scan_topk(tables: torch.Tensor, codes: torch.Tensor,
+                  valid: torch.Tensor, k: int, block_n: int = 4096,
+                  impl: str = "gather") -> tuple[torch.Tensor, torch.Tensor]:
+    """Exhaustive ADC scan with a running exact top-k over blocks of
+    ``block_n`` codes (the last block may be short: nothing is padded).
+
+    tables [Q, S, K]; codes [N, S] uint8; valid [N] bool.  Returns (dists
+    [Q, k], slots [Q, k] int32) ascending; +inf / -1 where empty.
+    """
+    q_n, n = tables.shape[0], codes.shape[0]
+    block_fn = _adc_block_gather if impl == "gather" else _adc_block_onehot
+    dev = tables.device
+    top_d = torch.full((q_n, k), float("inf"), device=dev)
+    top_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
+    for start in range(0, n, block_n):
+        stop = min(start + block_n, n)
+        d_blk = block_fn(tables, codes[start:stop])
+        d_blk = d_blk.masked_fill_(~valid[None, start:stop], float("inf"))
+        i_blk = torch.arange(start, stop, dtype=torch.int32,
+                             device=dev).expand(q_n, -1)
+        top_d, top_i = merge_topk(top_d, top_i, d_blk, i_blk, k)
+    return top_d, top_i
+
+
+def adc_distances(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Full [Q, N] ADC distance matrix (small N, or single pairs)."""
+    return _adc_block_gather(tables, codes)
 
 
 def balanced_subspace_perm(variances, num_subspaces: int) -> np.ndarray:
@@ -92,6 +164,28 @@ def code_norms_from_codes(codes_t: torch.Tensor, cbt: torch.Tensor,
         r32 = pq_decode_recon_t(codes_t, cbt).to(torch.float32)
         code_norms = torch.sum(r32 * r32, dim=0)
     return torch.where(valid, code_norms, float("inf"))
+
+
+def adc_decode_topk(queries: torch.Tensor, codes_t: torch.Tensor,
+                    cbt: torch.Tensor, valid: torch.Tensor, k: int,
+                    code_norms: Optional[torch.Tensor] = None,
+                    perm: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ranked ADC top-k through the decode kernel: decode, one product
+    (:func:`_decode_cross`), an exact top-k.  Returns the ADC distances
+    |q - reconstruction|^2 (query norm added back, floored at 0),
+    ascending, with slots [Q, k] int32; +inf / -1 where empty.  The same
+    distances as :func:`adc_scan_topk` up to the bf16 rounding of the
+    reconstruction and the queries."""
+    masked = code_norms_from_codes(codes_t, cbt, valid, code_norms)
+    if perm is not None:
+        queries = queries[:, perm]
+    cross = _decode_cross(
+        queries.to(scan_dtype(queries.device)).contiguous(), codes_t, cbt)
+    q_norms = torch.sum(queries * queries, dim=1)
+    dist = torch.add(q_norms[:, None] + masked[None, :], cross, alpha=-2.0)
+    vals, idx = smallest_k(dist, k)
+    return vals.clamp_(min=0.0), idx
 
 
 def _decode_cross(qb: torch.Tensor, codes_t: torch.Tensor,
