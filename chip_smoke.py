@@ -152,7 +152,37 @@ name and power limit):
                pruned (raw store), each pca case, HNSW (i) at ef 400 and
                (ii) after the flush, and the ADC traversal at ef 256.
 
-Every path of phases 4-9 runs with all kernel launch counts set to 0 just
+ 10. the other index types, through their indexes at
+               benchmarks/full_bench.py's configurations (rows bulk-loaded,
+               then build(); numpy gaussian rows, seeds 42 / 7 at 512-d and
+               1 / 2 at 128-d; Q=256, k=10; each floor a point or three
+               under the TPU reference of BENCH_REPORT.md, printed beside
+               it):
+               a. flat PQ, PqConfig(num_subspaces=64, training_iterations=10,
+                  refine_k=512) at 512-d x 10,000 (floor 0.90; then
+                  refine_k=0, printed), and at 100,000 rows with Q=1024
+                  (pq_decode_recon_t must launch; its launches printed);
+                  pq_decode_recon_t bit-equal to its plain version at
+                  N=100,000, adc_decode_topk against adc_scan_topk (shared
+                  slots, max relative distance error < 2e-2);
+               b. IVF, IvfConfig(num_clusters=100, num_probes=10) at 128-d x
+                  10,000, nprobe 5 / 10 / 20 / 50 (floor 0.90 at 10), and
+                  the default config at 512-d x 100,000: candidates a query,
+                  profiled searches at Q=256 and Q=1, peak memory;
+               c. LSH, LshConfig(backfill=False) at 512-d x 100,000
+                  isotropic (0.70), 128-d x 10,000 (0.90) and 512-d x
+                  100,000 spectral (0.96): the calibrated tables, bits and
+                  radius, the short rows;
+               d. Annoy, AnnoyConfig(backfill=False) at 128-d x 10,000
+                  (0.95; then backfill on) and 512-d x 100,000 (0.80): host
+                  build seconds, descent ms and chunks, candidates a query;
+               e. PQ, IVF, LSH and ANNOY through VectorDatabase with a
+                  storage path (add, rebuild, add, delete, search, close,
+                  reopen: the same ids), then
+                  vector_db_torch/examples/text_search_example.main() at
+                  its default sizes on the card (seven index types).
+
+Every path of phases 4-10 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
 its time, its plain version's, its launches on the main path, its bound at
 the timed shape: the larger of its bytes over 3.35 TB/s and its operations
@@ -227,6 +257,18 @@ N_HNSW_ADDS = 10_000
 #: return first (what this script measured on an H100 less 0.01)
 OWN_VECTOR_FLOOR = 0.7374
 N_STREAM = 4_096
+#: phase 10: the other index types at benchmarks/full_bench.py's
+#: configurations, Q=256 (full_bench's batch for these cells)
+NQ_INDEX = 256
+N_INDEX_SMALL, N_INDEX = 10_000, 100_000
+CFG_PQ = dict(num_subspaces=64, training_iterations=10, refine_k=512)
+IVF_NPROBES = (5, 10, 20, 50)
+#: recall@10 floors: a point or three under the TPU reference's figure
+#: (BENCH_REPORT.md), which is printed beside each
+INDEX_FLOORS = {"pq": (0.90, 0.927), "ivf": (0.90, 0.920),
+                "lsh 512 iso": (0.70, 0.727), "lsh 128": (0.90, 0.928),
+                "lsh 512 spectral": (0.96, 0.983),
+                "annoy 128": (0.95, 0.974), "annoy 512": (0.80, 0.830)}
 IVF_SHAPE = dict(nlist=513, cap=2688, p_cap=512, d=512)  # the 1M grid
 SCAN_SHAPES_Q = (13, 1024)
 SCAN_SHAPES_N = (4000, 100_000)
@@ -2326,6 +2368,332 @@ def phase_graph():
     return read_launches("9c graph", must_not=tuple(KERNELS))
 
 
+def np_gaussian(n, dim, seed, spectral=False):
+    """Gaussian rows from a numpy generator (full_bench.py's corpora: rows
+    seed 42 and queries 7 at 512-d, 1 and 2 at 128-d; ``spectral`` scales
+    dim i by (i + 1)^-0.5), on the card."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, dim), dtype=np.float32)).to(DEVICE)
+    if spectral:
+        x *= (torch.arange(dim, device=DEVICE, dtype=torch.float32) + 1
+              ) ** -0.5
+    return x
+
+
+def index_corpus(n, dim, spectral=False):
+    """(rows, queries [NQ_INDEX], exact top-10 ids) of a phase 10 cell."""
+    seeds = (42, 7) if dim == DIM else (1, 2)
+    rows = np_gaussian(n, dim, seeds[0], spectral)
+    queries = np_gaussian(NQ_INDEX, dim, seeds[1], spectral)
+    return rows, queries, exact_ids(rows, queries)
+
+
+def loaded(index, rows):
+    """``index`` with ``rows`` bulk-loaded into its store and built
+    (full_bench.py's order); prints the synchronised build seconds."""
+    index.store.bulk_load(range(rows.shape[0]), rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.build()
+    torch.cuda.synchronize()
+    return index, time.perf_counter() - t0
+
+
+def index_cell(label, index, queries, gt, floor_key=None, note=""):
+    """Recall@10 of one Q=NQ_INDEX batch (held to its floor), the index
+    time (best of 3) and the Q=1 time (median of 20)."""
+    ids, _ = index.search_batch(queries, K)
+    rec = recall(ids.tolist(), gt)
+    if floor_key:
+        floor, tpu = INDEX_FLOORS[floor_key]
+        hold_floor(label, rec, floor, f" (TPU reference {tpu}){note}")
+    else:
+        say(f"phase {label}: recall@10={rec}{note}")
+    timing(f"phase {label} index.search_batch time (Q={NQ_INDEX}, k={K}, "
+           "best of 3)", host_s(lambda: index.search_batch(queries, K)) * 1e3,
+           "ms")
+    lat = sorted(host_s(lambda: index.search_batch(queries[i:i + 1], K),
+                        reps=1) for i in range(20))
+    timing(f"phase {label} Q=1 index time (median of 20)", lat[10] * 1e3,
+           "ms")
+    return rec
+
+
+def peak(label):
+    timing(f"phase {label} peak device memory",
+           torch.cuda.max_memory_allocated() / 2**30, "GiB")
+
+
+def phase_pq():
+    """10a: flat PQ (full_bench.py:134-145) at 512-d x 10,000 with
+    refine_k 512 and 0, then at 100,000 rows and Q=1024; B3 held bit-equal
+    at N=100,000 and adc_decode_topk against adc_scan_topk.  Returns the
+    launch counts."""
+    from vector_db_torch.api.config import PqConfig
+    from vector_db_torch.index.pq import PqIndex
+    from vector_db_torch.ops import adc
+    from vector_db_torch.ops import kernels as kn
+
+    counts = {name: 0 for name in KERNELS}
+    rows, queries, gt = index_corpus(N_INDEX_SMALL, DIM)
+    reset_launches()
+    ix, took = loaded(PqIndex(DIM, N_INDEX_SMALL, "l2", PqConfig(**CFG_PQ),
+                              device=DEVICE), rows)
+    timing(f"phase 10a pq {DIM}-d x {N_INDEX_SMALL} train+encode", took, "s")
+    index_cell("10a pq 10k refine 512", ix, queries, gt, "pq")
+    ix.config.refine_k = 0
+    index_cell("10a pq 10k pure ADC", ix, queries, gt,
+               note=" (TPU reference 0.220)")
+    for name, c in read_launches("10a pq 10k",
+                                 must_launch=("pq_decode_recon_t",),
+                                 must_not=POOL_KERNELS).items():
+        counts[name] += c
+    del ix, rows
+    n = N_INDEX
+    rows = np_gaussian(n, DIM, 42)
+    queries = np_gaussian(NQ, DIM, 7)
+    gt = exact_ids(rows, queries)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ix, took = loaded(PqIndex(DIM, n, "l2", PqConfig(**CFG_PQ),
+                              device=DEVICE), rows)
+    timing(f"phase 10a pq {DIM}-d x {n} train+encode", took, "s")
+    ids, _ = ix.search_batch(queries, K)
+    say(f"phase 10a pq 100k refine 512: recall@10={recall(ids.tolist(), gt)} "
+        f"(Q={NQ}; no reference figure at this size)")
+    timing(f"phase 10a pq 100k index.search_batch time (Q={NQ}, k={K}, best "
+           "of 3)", host_s(lambda: ix.search_batch(queries, K)) * 1e3, "ms")
+    lat = sorted(host_s(lambda: ix.search_batch(queries[i:i + 1], K), reps=1)
+                 for i in range(20))
+    timing("phase 10a pq 100k Q=1 index time (median of 20)", lat[10] * 1e3,
+           "ms")
+    profile_search(f"10a pq 100k index.search_batch Q={NQ}",
+                   lambda: ix.search_batch(queries, K))
+    peak("10a pq 100k")
+    got = read_launches("10a pq 100k", must_launch=("pq_decode_recon_t",),
+                        must_not=POOL_KERNELS)
+    say(f"phase 10a pq 100k: pq_decode_recon_t launches on this path "
+        f"{got['pq_decode_recon_t']}")
+    for name, c in got.items():
+        counts[name] += c
+    # the kernel against its plain version at the index's N (not counted)
+    ct, cbt, cnorms = ix._fast_tables()
+    codes_t = ct[:, :n]
+    same = torch.equal(kn.pq_decode_recon_t(codes_t, cbt),
+                       kn.pq_decode_recon_t_plain(codes_t, cbt))
+    say(f"phase 10a pq_decode_recon_t at S=64, sd=8, K=256, N={n}: "
+        f"bit-equal to the plain version: {same}")
+    st = ix.store.state
+    q = queries[:NQ_INDEX]
+    tables = adc.build_distance_tables(q[:, ix.perm], ix.codebooks)
+    scan_d, scan_i = adc.adc_scan_topk(tables, ix.codes, st.valid, 128)
+    dec_d, dec_i = adc.adc_decode_topk(q, ct, cbt, st.valid, 128,
+                                       code_norms=cnorms, perm=ix.perm)
+    rel = float(((dec_d - scan_d).abs() / scan_d.clamp(min=1e-6)).max())
+    shared = float((dec_i[:, :, None] == scan_i[:, None, :]).any(2)
+                   .float().mean())
+    say(f"phase 10a adc_decode_topk vs adc_scan_topk (Q={NQ_INDEX}, k=128, "
+        f"N={st.capacity}): max relative distance error={rel} (bar 2e-2) "
+        f"shared slots={shared}")
+    if not same or rel > 2e-2 or shared < 0.9:
+        raise RuntimeError("10a: the decode path disagrees")
+    return counts
+
+
+def phase_ivf_index():
+    """10b: IndexType.IVF at 128-d x 10,000 (full_bench.py:116-132, the
+    nprobe sweep) and 512-d x 100,000 under the default config, Q=256 and
+    Q=1.  Returns the (zero) launch counts."""
+    from vector_db_torch.api.config import IvfConfig
+    from vector_db_torch.index.ivf import IvfIndex
+
+    reset_launches()
+    rows, queries, gt = index_corpus(N_INDEX_SMALL, DIM_HNSW_SMALL)
+    ix, took = loaded(IvfIndex(DIM_HNSW_SMALL, N_INDEX_SMALL, "l2",
+                               IvfConfig(num_clusters=100, num_probes=10),
+                               device=DEVICE), rows)
+    timing("phase 10b ivf 128-d x 10k train", took, "s")
+    tpu = {5: 0.729, 10: 0.920, 20: 0.988, 50: 0.995}
+    for nprobe in IVF_NPROBES:
+        ix.config.num_probes = nprobe
+        index_cell(f"10b ivf 128-d x 10k nprobe={nprobe}", ix, queries, gt,
+                   "ivf" if nprobe == 10 else None,
+                   "" if nprobe == 10 else f" (TPU reference {tpu[nprobe]})")
+    del ix
+    rows, queries, gt = index_corpus(N_INDEX, DIM)
+    torch.cuda.reset_peak_memory_stats()
+    ix, took = loaded(IvfIndex(DIM, N_INDEX, "l2", IvfConfig(),
+                               device=DEVICE), rows)
+    timing("phase 10b ivf 512-d x 100k default config train", took, "s")
+    members, max_len, over = ix._member_table()
+    nprobe = ix.config.num_probes
+    say(f"phase 10b ivf 512-d x 100k: {members.shape[0]} clusters, member "
+        f"table {tuple(members.shape)}, overflow {int((over >= 0).sum())}, "
+        f"candidate slots a query {nprobe * max_len + over.shape[0]}")
+    index_cell("10b ivf 512-d x 100k", ix, queries, gt,
+               note=" (no reference figure)")
+    for qn in (NQ_INDEX, 1):
+        profile_search(f"10b ivf 512-d x 100k index.search_batch Q={qn}",
+                       lambda: ix.search_batch(queries[:qn], K))
+    peak("10b ivf 512-d x 100k")
+    return read_launches("10b ivf", must_not=tuple(KERNELS))
+
+
+def phase_lsh():
+    """10c: IndexType.LSH with LshConfig(backfill=False)
+    (full_bench.py:197-242): 512-d x 100,000 isotropic, 128-d x 10,000,
+    512-d x 100,000 spectral.  Returns the (zero) launch counts."""
+    from vector_db_torch.api.config import LshConfig
+    from vector_db_torch.index.lsh import LshIndex
+
+    reset_launches()
+    for key, n, dim, spectral in (("lsh 512 iso", N_INDEX, DIM, False),
+                                  ("lsh 128", N_INDEX_SMALL, DIM_HNSW_SMALL,
+                                   False),
+                                  ("lsh 512 spectral", N_INDEX, DIM, True)):
+        label = f"10c {key}"
+        rows, queries, gt = index_corpus(n, dim, spectral)
+        torch.cuda.reset_peak_memory_stats()
+        ix, took = loaded(LshIndex(dim, n, "l2", LshConfig(backfill=False),
+                                   device=DEVICE), rows)
+        timing(f"phase {label} build", took, "s")
+        index_cell(label, ix, queries, gt, key)
+        st = ix.stats()
+        say(f"phase {label}: calibrated tables={st['num_tables']} "
+            f"bits={st['num_bits']} radius={st['hamming_radius']}; short "
+            f"rows (backfill off) {st['backfill_rows']} in "
+            f"{st['backfill_queries']} queries")
+        profile_search(f"{label} index.search_batch Q={NQ_INDEX}",
+                       lambda: ix.search_batch(queries, K))
+        peak(label)
+        del ix, rows
+    return read_launches("10c lsh", must_not=tuple(KERNELS))
+
+
+def phase_annoy():
+    """10d: IndexType.ANNOY (full_bench.py:285-311): 128-d x 10,000 with
+    backfill off and on, 512-d x 100,000 with backfill off.  Returns the
+    (zero) launch counts."""
+    from vector_db_torch.api.config import AnnoyConfig
+    from vector_db_torch.index import annoy
+
+    reset_launches()
+    for key, n, dim in (("annoy 128", N_INDEX_SMALL, DIM_HNSW_SMALL),
+                        ("annoy 512", N_INDEX, DIM)):
+        label = f"10d {key}"
+        rows, queries, gt = index_corpus(n, dim)
+        torch.cuda.reset_peak_memory_stats()
+        ix, took = loaded(annoy.AnnoyIndex(dim, n, "l2",
+                                           AnnoyConfig(backfill=False),
+                                           device=DEVICE), rows)
+        timing(f"phase {label} host build ({ix.config.num_trees} trees, "
+               f"max depth {ix._max_depth})", took, "s")
+        index_cell(label, ix, queries, gt, key)
+        beam = ix.beam()
+        chunk = annoy.descend_rows(ix.config.num_trees, beam, dim)
+        # NQ_INDEX is a power of two: the batch has no pad rows
+        timing(f"phase {label} descent (Q={NQ_INDEX}, beam {beam}, "
+               f"{-(-NQ_INDEX // chunk)} chunks of {chunk} queries, best "
+               "of 3)", cuda_ms(lambda: ix.candidates(queries)), "ms")
+        cand = ix.candidates(queries)
+        distinct = torch.sort(cand, dim=1)[0]
+        distinct = ((distinct[:, 1:] != distinct[:, :-1]) &
+                    (distinct[:, 1:] >= 0)).sum(1).float().mean()
+        say(f"phase {label}: candidate slots a query {cand.shape[1]}, "
+            f"distinct rows a query {float(distinct)}")
+        profile_search(f"{label} index.search_batch Q={NQ_INDEX}",
+                       lambda: ix.search_batch(queries, K))
+        peak(label)
+        if key == "annoy 128":
+            ix.config.backfill = True
+            rec = recall(ix.search_batch(queries, K)[0].tolist(), gt)
+            say(f"phase {label} backfill on: recall@10={rec}")
+        del ix, rows, cand
+    return read_launches("10d annoy", must_not=tuple(KERNELS))
+
+
+def phase_facade_types():
+    """10e: the four types through VectorDatabase with a storage path
+    (add, delete, search, close, reopen: the same ids), then the
+    text-search example at its default sizes.  Returns the launch
+    counts."""
+    from vector_db_torch import (AnnoyConfig, IndexType, IvfConfig,
+                                 LshConfig, PqConfig, VectorDatabase)
+    from vector_db_torch.examples import text_search_example
+
+    counts = {name: 0 for name in KERNELS}
+    configs = {"pq": PqConfig(num_subspaces=16), "ivf": IvfConfig(),
+               "lsh": LshConfig(), "annoy": AnnoyConfig()}
+    rows, queries, _ = index_corpus(N_INDEX_SMALL, DIM_HNSW_SMALL)
+    for kind, cfg in configs.items():
+        label = f"10e facade {kind}"
+        path = os.path.join(WORK, f"facade_{kind}")
+        shutil.rmtree(path, ignore_errors=True)
+        reset_launches()
+
+        def open_db():
+            return (VectorDatabase.builder().with_dimension(DIM_HNSW_SMALL)
+                    .with_max_elements(N_INDEX_SMALL)
+                    .with_index_type(IndexType(kind))
+                    .with_index_config(cfg)
+                    .with_storage_path(path).with_device(DEVICE).build())
+        t0 = time.perf_counter()
+        db = open_db()
+        db.add_batch(range(N_INDEX_SMALL - 1000), rows[:-1000])
+        db.rebuild_index()
+        db.add_batch(range(N_INDEX_SMALL - 1000, N_INDEX_SMALL), rows[-1000:])
+        for vid in range(0, N_INDEX_SMALL, 7):
+            db.delete_vector(vid)
+        before = result_ids(db.search_batch(queries, K))
+        if any(i % 7 == 0 for row in before for i in row):
+            raise RuntimeError(f"{label}: a deleted id was returned")
+        db.close()
+        db = open_db()
+        after = result_ids(db.search_batch(queries, K))
+        size = db.size()
+        db.close()
+        timing(f"phase {label} add, delete, search, close, reopen",
+               time.perf_counter() - t0, "s")
+        say(f"phase {label}: {size} rows after the reopen, ids identical: "
+            f"{after == before}")
+        if after != before or size != N_INDEX_SMALL - -(-N_INDEX_SMALL // 7):
+            raise RuntimeError(f"{label}: the reopened database differs")
+        for name, c in read_launches(
+                label, must_launch=("pq_decode_recon_t",) if kind == "pq"
+                else (), must_not=POOL_KERNELS).items():
+            counts[name] += c
+    reset_launches()
+    t0 = time.perf_counter()
+    table = text_search_example.main(["--device", DEVICE])
+    timing("phase 10e text_search_example.main() (1536-d x 1000 phrases, "
+           "100 queries, seven types)", time.perf_counter() - t0, "s")
+    for row in table:
+        say(f"phase 10e example {row['index']}: top1={row['top1']} "
+            f"top5={row['top5']} search {row['search_ms']} ms/query")
+    if len(table) != 7 or table[0]["top5"] < 0.9:
+        raise RuntimeError("10e: the example's exact scan lost its targets")
+    for name, c in read_launches("10e example",
+                                 must_launch=("pq_decode_recon_t",),
+                                 must_not=POOL_KERNELS).items():
+        counts[name] += c
+    return counts
+
+
+def phase_indexes():
+    """10: PQ, IVF, LSH and Annoy; returns the launch counts."""
+    counts = {name: 0 for name in KERNELS}
+    t_start = time.perf_counter()
+    for part in (phase_pq, phase_ivf_index, phase_lsh, phase_annoy,
+                 phase_facade_types):
+        t0 = time.perf_counter()
+        for name, c in part().items():
+            counts[name] += c
+        torch.cuda.empty_cache()
+        timing(f"phase 10 {part.__name__} took", time.perf_counter() - t0, "s")
+    timing("phase 10 took", time.perf_counter() - t_start, "s")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -2348,7 +2716,7 @@ def main():
     # its paths and reads them just after
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),
                    phase_ivf(), phase_ivf_10m(), phase_adc_modes(),
-                   phase_pca(), phase_graph()):
+                   phase_pca(), phase_graph(), phase_indexes()):
         for name, c in counts.items():
             entries[name]["launches"] += c
     for name, entry in entries.items():

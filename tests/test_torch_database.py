@@ -1,8 +1,10 @@
 """The port's VectorDatabase facade (vector_db_torch/api/database.py):
-copies of the reference's CRUD and persistence cases for BRUTE, HNSW and
-HNSWPQ, checkpoints written by the reference loading into the port, and the
-package's independence from JAX."""
+copies of the reference's CRUD and persistence cases for all seven index
+types, the factory's routing and default configurations against the
+reference's, churn cycles, checkpoints written by the reference loading
+into the port, and the package's independence from JAX."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -14,11 +16,12 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import vector_db_tpu as ref_vdb  # noqa: E402
-from vector_db_torch import (CompressionConfig, HnswConfig,  # noqa: E402
-                             HnswPqConfig, IndexType, SearchResult,
+from vector_db_torch import (AnnoyConfig, CompressionConfig,  # noqa: E402
+                             HnswConfig, HnswPqConfig, IndexType, IvfConfig,
+                             LshConfig, PqConfig, SearchResult,
                              VectorDatabase)
 
-KINDS = [IndexType.BRUTE, IndexType.HNSW, IndexType.HNSWPQ]
+KINDS = list(IndexType)
 
 
 def make_db(kind, path=None, dim=10, max_elements=1000):
@@ -189,11 +192,110 @@ def test_hnsw_with_compression_routes_to_hnswpq():
     assert plain.index.kind == "hnsw" and plain.index.config.m == 32
 
 
-def test_unported_index_types_raise():
-    for kind in (IndexType.PQ, IndexType.IVF, IndexType.LSH,
-                 IndexType.ANNOY):
-        with pytest.raises(NotImplementedError, match="A11"):
-            make_db(kind)
+@pytest.mark.parametrize("kind", KINDS)
+def test_index_types_route_with_the_reference_defaults(kind):
+    """Each type builds the reference's index kind with a default
+    configuration equal to the reference's."""
+    port = (VectorDatabase.builder().with_dimension(24)
+            .with_max_elements(256).with_index_type(kind)
+            .with_device("cpu").build())
+    ref = (ref_vdb.VectorDatabase.builder().with_dimension(24)
+           .with_max_elements(256).with_index_type(kind.value).build())
+    assert port.index.kind == ref.index.kind == kind.value
+    if kind is not IndexType.BRUTE:
+        assert dataclasses.asdict(port.index.config) == \
+            dataclasses.asdict(ref.index.config)
+
+
+def test_pq_compression_routes_to_pq_with_effective_subspaces():
+    for kind in (IndexType.PQ, IndexType.HNSW):
+        db = (VectorDatabase.builder().with_dimension(24)
+              .with_max_elements(256).with_index_type(kind)
+              .with_compression(CompressionConfig.pq_config(16))
+              .with_device("cpu").build())
+        assert db.index.kind == "pq"
+        assert db.index.config.num_subspaces == \
+            CompressionConfig.pq_config(16).effective_subspaces(24) == 12
+
+
+CHURN = [
+    (IndexType.PQ, PqConfig(num_subspaces=4, num_centroids=16)),
+    (IndexType.IVF, IvfConfig(num_clusters=8, num_probes=8)),
+    (IndexType.LSH, LshConfig(num_tables=6, num_bits=8)),
+    (IndexType.ANNOY, AnnoyConfig(num_trees=4, leaf_size=8)),
+]
+
+
+@pytest.mark.parametrize("kind,cfg", CHURN, ids=[c[0].value for c in CHURN])
+def test_churn_cycles(kind, cfg):
+    """tests/test_churn.py's cycles (add a wave, delete a third of the
+    oldest, rebuild every other cycle) on the port."""
+    dim = 12
+    db = (VectorDatabase.builder().with_dimension(dim).with_max_elements(512)
+          .with_index_type(kind).with_index_config(cfg).with_device("cpu")
+          .build())
+    live: dict[int, np.ndarray] = {}
+    next_id = 0
+    r = np.random.default_rng(42)
+    for cycle in range(4):
+        vecs = r.standard_normal((60, dim)).astype(np.float32)
+        ids = list(range(next_id, next_id + 60))
+        assert len(db.add_batch(ids, vecs)) == 60
+        live.update(zip(ids, vecs))
+        next_id += 60
+        victims = sorted(live)[:20]
+        for v in victims:
+            assert db.delete_vector(v)
+            del live[v]
+        if cycle % 2 == 1:
+            db.rebuild_index()
+        assert db.size() == len(live)
+        for vid, vec in list(live.items())[:10]:
+            np.testing.assert_allclose(db.get_vector(vid).values, vec,
+                                       rtol=1e-6)
+            res = [x.id for x in db.search(vec, 5)]
+            assert res and all(i in live for i in res)
+        for v in victims[:5]:
+            assert db.get_vector(v) is None
+    db.close()
+
+
+REF_CONFIGS = {
+    IndexType.PQ: ("PqConfig", dict(num_subspaces=4)),
+    IndexType.IVF: ("IvfConfig", dict(num_clusters=16, num_probes=4)),
+    IndexType.LSH: ("LshConfig", {}),
+    IndexType.ANNOY: ("AnnoyConfig", dict(num_trees=4, leaf_size=8)),
+}
+
+
+@pytest.mark.parametrize("kind", list(REF_CONFIGS), ids=lambda k: k.value)
+def test_reference_checkpoint_of_each_new_type_opens(kind, rng,
+                                                     tmp_store_path):
+    """A database the reference built, rebuilt, trimmed and closed opens
+    in the port's facade with the same size and answers."""
+    vecs = rng.standard_normal((1200, 16)).astype(np.float32)
+    queries = rng.standard_normal((16, 16)).astype(np.float32)
+    name, cfg = REF_CONFIGS[kind]
+    ref = (ref_vdb.VectorDatabase.builder().with_dimension(16)
+           .with_max_elements(2000).with_index_type(kind.value)
+           .with_index_config(getattr(ref_vdb, name)(**cfg))
+           .with_storage_path(tmp_store_path).build())
+    ref.add_batch(range(1200), vecs)
+    ref.rebuild_index()
+    for vid in range(0, 1200, 9):
+        ref.delete_vector(vid)
+    want = [[r.id for r in row] for row in ref.search_batch(queries, 10)]
+    ref.close()
+    port_cfg = {IndexType.PQ: PqConfig, IndexType.IVF: IvfConfig,
+                IndexType.LSH: LshConfig, IndexType.ANNOY: AnnoyConfig}[kind]
+    port = (VectorDatabase.builder().with_dimension(16)
+            .with_max_elements(2000).with_index_type(kind)
+            .with_index_config(port_cfg(**cfg))
+            .with_storage_path(tmp_store_path).with_device("cpu").build())
+    assert port.index.kind == kind.value and port.size() == 1200 - 134
+    got = [[r.id for r in row] for row in port.search_batch(queries, 10)]
+    assert np.mean(np.asarray(got) == np.asarray(want)) >= 0.99
+    port.close()
 
 
 def test_similarity_formula():

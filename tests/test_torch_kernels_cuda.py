@@ -513,3 +513,37 @@ def test_adc_decode_topk_launches_the_decode_kernel():
     assert bool(valid[dec_i.long()].all())
     onehot_d, _ = adc.adc_scan_topk(tables, codes, valid, 32, impl="onehot")
     assert torch.allclose(onehot_d, scan_d, rtol=2e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_pq_index_on_card_matches_the_cpu():
+    """A flat PqIndex on the card, loaded with a CPU index's codebooks,
+    codes and rows, searches through the decode kernel (B3) and returns
+    the CPU index's ids (>= 99% shared: the card's product takes bf16
+    queries, the CPU's f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import numpy as np
+
+    from vector_db_torch.api.config import PqConfig
+    from vector_db_torch.index.pq import PqIndex
+
+    r = np.random.default_rng(6)
+    rows = (r.standard_normal((3000, 64)) * (np.arange(64) + 1.0) ** -0.5
+            ).astype(np.float32)
+    queries = rows[:40] + 0.05 * r.standard_normal((40, 64)).astype(np.float32)
+    for refine_k in (0, 128):
+        cfg = PqConfig(num_subspaces=16, training_iterations=5,
+                       refine_k=refine_k)
+        cpu = PqIndex(64, 4096, "l2", cfg, device="cpu")
+        cpu.add_batch(range(3000), rows)
+        cpu.build()
+        card = PqIndex(64, 4096, "l2", cfg, device="cuda")
+        card.load_state_arrays(cpu.state_arrays())
+        before = tk.pq_decode_recon_t.launches
+        got, _ = card.search_batch(queries, 10)
+        assert tk.pq_decode_recon_t.launches > before
+        want, _ = cpu.search_batch(queries, 10)
+        shared = np.mean([len(set(a) & set(b)) / 10
+                          for a, b in zip(got, want)])
+        assert shared >= 0.99, (refine_k, shared)

@@ -4,8 +4,8 @@ counterpart of ``vector_db_tpu/api/database.py``).
 The same API, WAL and checkpoint format as the reference, with one
 addition: the device is explicit (``device=``, ``Builder.with_device``;
 default ``"cuda"``, which raises where CUDA is absent).  The index factory
-serves BRUTE, HNSW and HNSWPQ; the other index types raise
-``NotImplementedError`` naming ROADMAP A11.
+serves all seven index types (BRUTE, HNSW, HNSWPQ, PQ, IVF, LSH, ANNOY)
+with the reference's default configurations.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from ..core.types import SearchResult, Vector, make_results
 from ..index.base import VectorIndex
 from ..storage import checkpoint as ckpt
 from ..utils.locks import RWLock
-from .config import CompressionConfig, CompressionType, HnswPqConfig
+from .config import (AnnoyConfig, CompressionConfig, CompressionType,
+                     HnswPqConfig, IvfConfig, LshConfig, PqConfig)
 
 FORMAT_VERSION = 1
 
@@ -87,8 +88,30 @@ def _create_index(index_type: IndexType, dim: int, capacity: int,
             cfg = HnswPqConfig(num_subspaces=sub,
                                training_iterations=compression.training_iterations)
         return HnswPqIndex(dim, capacity, metric, cfg, device=device)
-    raise NotImplementedError(
-        f"index type {index_type.value!r} is not ported yet: ROADMAP A11")
+    if index_type == IndexType.PQ:
+        from ..index.pq import PqIndex
+
+        cfg = index_config
+        if cfg is None:
+            cfg = PqConfig(num_subspaces=compression.effective_subspaces(dim)
+                           if compression.enabled else 8)
+        return PqIndex(dim, capacity, metric, cfg, device=device)
+    if index_type == IndexType.IVF:
+        from ..index.ivf import IvfIndex
+
+        return IvfIndex(dim, capacity, metric, index_config or IvfConfig(),
+                        device=device)
+    if index_type == IndexType.LSH:
+        from ..index.lsh import LshIndex
+
+        return LshIndex(dim, capacity, metric, index_config or LshConfig(),
+                        device=device)
+    if index_type == IndexType.ANNOY:
+        from ..index.annoy import AnnoyIndex
+
+        return AnnoyIndex(dim, capacity, metric,
+                          index_config or AnnoyConfig(), device=device)
+    raise ValueError(f"unsupported index type: {index_type}")
 
 
 class VectorDatabase:

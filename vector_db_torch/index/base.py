@@ -14,6 +14,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.distance import blocked_knn
+
 
 def pow2(n: int) -> int:
     """Next power of two (>=1)."""
@@ -210,6 +212,29 @@ def as_queries(queries, dim: int, device: torch.device) -> torch.Tensor:
     if q.ndim != 2 or q.shape[1] != dim:
         raise ValueError(f"expected [*, {dim}] queries, got {tuple(q.shape)}")
     return q
+
+
+def backfill_short_rows(index, padded: torch.Tensor, q_n: int, k_eff: int,
+                        k_pad: int, dists: torch.Tensor, slots: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Result rows a candidate index (LSH, Annoy) left short, -1 among the
+    first ``k_eff`` slots of a real query: counted in the index's
+    ``_backfill_rows`` / ``_backfill_queries``, and filled from the exact
+    scan unless ``index.config.backfill`` is False.  Returns (dists,
+    slots)."""
+    miss = (slots[:q_n, :k_eff] < 0).cpu().numpy()
+    if not miss.any():
+        return dists, slots
+    index._backfill_rows += int(miss.sum())
+    index._backfill_queries += int(miss.any(axis=1).sum())
+    if not index.config.backfill:
+        return dists, slots
+    st = index.store.state
+    fd, fs = blocked_knn(padded, st.vectors, st.valid, k_pad,
+                         metric=index.metric, b_norms=st.norms,
+                         block_n=min(8192, st.capacity))
+    miss_all = slots < 0
+    return torch.where(miss_all, fd, dists), torch.where(miss_all, fs, slots)
 
 
 def to_host_results(q_n: int, k: int, k_eff: int, ids: torch.Tensor,

@@ -25,6 +25,9 @@ VALID_METRICS = (METRIC_L2, METRIC_COSINE)
 
 #: largest [Q, N] f32 distance matrix blocked_knn_fast scores in one pass
 FULL_ROW_BYTES = 512 * 1024 * 1024
+#: bytes of the [Q, block, d] f32 rows one re-rank block gathers, where the
+#: caller sizes its blocks by bytes (rerank_columns)
+RERANK_BLOCK_BYTES = 1 << 28
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -215,6 +218,14 @@ def bf16_pool_scan(q: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
         top_v, top_i = merge_topk(top_v, top_i, vals.to(torch.float32),
                                   idx.to(torch.int32) + start, pool)
     return top_i
+
+
+def rerank_columns(q_n: int, dim: int, least: int = 1) -> int:
+    """Candidate columns a re-rank block of ``q_n`` queries holds under
+    RERANK_BLOCK_BYTES of gathered f32 rows, and at least ``least``: a
+    small batch takes few wide blocks (few launches), a large one the
+    caller's usual width."""
+    return max(least, RERANK_BLOCK_BYTES // max(1, 4 * q_n * dim))
 
 
 def blocked_rerank(q: torch.Tensor, base: torch.Tensor, cand: torch.Tensor,
