@@ -182,7 +182,33 @@ name and power limit):
                   vector_db_torch/examples/text_search_example.main() at
                   its default sizes on the card (seven index types).
 
-Every path of phases 4-10 runs with all kernel launch counts set to 0 just
+ 11. the sharded tier (vector_db_torch/parallel/sharded.py, ShardedDatabase,
+               one controller; the shards are logical shards of the card):
+               a. the raw tier, 1,048,576 x 512 gaussian rows, Q=1024 and
+                  Q=1: on a mesh of one shard search -> fused
+                  (fused_int8_pool must launch, recall@10 >= 0.95), again
+                  with int8_epilogue="global" (fused_int8g_pool), train_pq
+                  (S=64, K=256) + search_flagship(refine=1024)
+                  (pq_decode_recon_t), fit_pca(128) + search_pca(256), and
+                  a CRUD round (1% removed, 10,000 added: each found by its
+                  own vector, no removed id returned); on four shards of
+                  262,144 search -> exact (recall@10 >= 0.99, ids equal to
+                  the single-chip exact top-10 apart from distance ties) and
+                  search_fused (four fused_int8_pool launches a call);
+               b. the compressed tier with refine_residual and
+                  host_mirror=False on phase 6's corpus (9,961,472 rows by
+                  bulk_load_stream, its ground truth) over four shards:
+                  search -> fused (fused_packed_pool, >= 0.96),
+                  search_flagship (pq_decode_recon_t), search_pca, the exact
+                  int8 scan; save (payload_sharded) and load onto one shard
+                  with the seconds and the host RSS peak of each; the exact
+                  scan's ids and distances identical after the reload;
+               each search with its recall, host wall (best of 3), Q=1 time,
+               a profiled call (device ms, launches, idle) and the peak
+               device memory; flagship and pca floors are what this script
+               measured on an H100 less 0.01 (SHARDED_FLOORS).
+
+Every path of phases 4-11 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
 its time, its plain version's, its launches on the main path, its bound at
 the timed shape: the larger of its bytes over 3.35 TB/s and its operations
@@ -2694,6 +2720,303 @@ def phase_indexes():
     return counts
 
 
+
+# ------------------------------------------------------------ phase 11
+#: 11a: the raw tier at 2^20 rows; 11b: the Compressed 10M corpus of phase 6
+N_SHARDED = 1 << 20
+SHARDED_10M_CHUNKS = N_10M_CHUNKS
+#: recall@10 floors: the single-chip floors at the same sizes (exact, raw
+#: fused, compressed + residual fused); flagship and pca have no reference
+#: figure at these sizes: what this script measured on an H100 less 0.01
+SHARDED_FLOORS = {"exact": 0.99, "raw fused": 0.95, "compressed fused": 0.96,
+                  "raw flagship": 0.6070, "raw pca": 0.0538,
+                  "compressed flagship": 0.9898, "compressed pca": 0.9890}
+
+
+def sharded_cell(label, search, queries, gt, floor_key):
+    """Recall@10 of one Q=NQ batch through ``search`` (a ShardedDatabase
+    method), held to its floor; the host wall of the call (best of 3), the
+    Q=1 time (median of 10) and one profiled call's device split."""
+    ids = search(queries, K)[0]
+    hold_floor(label, recall(ids.tolist(), gt), SHARDED_FLOORS[floor_key])
+    timing(f"phase {label} index time (Q={NQ}, k={K}, host wall, best of 3)",
+           host_s(lambda: search(queries, K)) * 1e3, "ms")
+    lat = sorted(host_s(lambda: search(queries[i:i + 1], K), reps=1)
+                 for i in range(10))
+    timing(f"phase {label} Q=1 time (median of 10)", lat[5] * 1e3, "ms")
+    profile_search(f"{label} Q={NQ}", lambda: search(queries, K))
+    return ids
+
+
+def host_rss_gib():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def timed_host(label, fn):
+    """fn() with its synchronised seconds and the host's resident set
+    before it and at its peak (sampled every 10 ms by a thread)."""
+    import threading
+
+    before = peak_rss = host_rss_gib()
+    stop = threading.Event()
+
+    def sample():
+        nonlocal peak_rss
+        while not stop.wait(0.01):
+            peak_rss = max(peak_rss, host_rss_gib())
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    timing(f"phase {label} seconds", time.perf_counter() - t0, "s")
+    timing(f"phase {label} host RSS peak (sampled every 10 ms; "
+           f"{before} GiB before)", peak_rss, "GiB")
+    return out
+
+
+def sharded_raw(counts):
+    """11a: the raw tier at 2^20 x 512 on a mesh of one shard (fused: B2;
+    int8_epilogue="global": B7; train_pq + search_flagship: B3; fit_pca +
+    search_pca; a CRUD round), then on four logical shards of the card
+    (exact, held to the single-chip exact top-10; search_fused: B2 four
+    times a call)."""
+    from vector_db_torch.ops.distance import blocked_knn
+    from vector_db_torch.parallel import sharded as sh
+
+    n = N_SHARDED
+    gen = torch.Generator(device=DEVICE)
+    corpus = torch.randn(n, DIM, device=DEVICE, generator=gen.manual_seed(42))
+    queries = torch.randn(NQ, DIM, device=DEVICE,
+                          generator=gen.manual_seed(7))
+    ones = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    gt_d, gt_i = blocked_knn(queries, corpus, ones, K, block_n=131072)
+    gt = gt_i.cpu().tolist()
+    mesh1 = sh.make_mesh(devices=[DEVICE])
+
+    def add(c):
+        for name in counts:
+            counts[name] += c[name]
+
+    def ingest(mesh, capacity, **kw):
+        db = sh.ShardedDatabase(mesh, dim=DIM, capacity=capacity,
+                                num_subspaces=64, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.add_batch(np.arange(n), corpus)
+        torch.cuda.synchronize()
+        return db, time.perf_counter() - t0
+
+    def fused_db(epi, kernel):
+        label = f"11a raw mesh1 {epi}"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        db, took = ingest(mesh1, n + 16384, int8_epilogue=epi)
+        timing(f"phase {label} ingest (add_batch of {n} rows, {db.n_shards} "
+               f"shard of {db.per_shard})", took, "s")
+        sharded_cell(f"{label} search -> fused", db.search, queries, gt,
+                     "raw fused")
+        add(read_launches(label, must_launch=(kernel,)))
+        peak(label)
+        return db
+
+    db = fused_db("per_row", "fused_int8_pool")
+    label = "11a raw mesh1"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    timed_host(f"{label} train_pq (S=64, K=256, 10 iterations + encode)",
+               lambda: db.train_pq(num_centroids=256, iters=10))
+    sharded_cell(f"{label} search_flagship refine=1024",
+                 lambda q, k: db.search_flagship(q, k, refine=1024),
+                 queries, gt, "raw flagship")
+    add(read_launches(f"{label} flagship",
+                      must_launch=("pq_decode_recon_t",)))
+    timed_host(f"{label} fit_pca p=128", lambda: db.fit_pca(p=128))
+    sharded_cell(f"{label} search_pca select_r=256",
+                 lambda q, k: db.search_pca(q, k, select_r=256),
+                 queries, gt, "raw pca")
+    peak(f"{label} flagship + pca")
+    # CRUD: remove 1% of the rows, add 10,000 new ones
+    reset_launches()
+    gone = np.arange(0, n, 100)
+    new = torch.randn(10_000, DIM, device=DEVICE,
+                      generator=gen.manual_seed(43))
+    new_ids = np.arange(n, n + 10_000)
+
+    def crud():
+        for vid in gone.tolist():
+            db.remove(vid)
+        return db.add_batch(new_ids, new)
+    acc = timed_host(f"{label} CRUD (remove {gone.size}, add 10,000)", crud)
+    hits = float((db.search(new, 1)[0][:, 0] == new_ids).mean())
+    back = int(np.isin(db.search(corpus[gone[:NQ]], K)[0], gone).sum())
+    say(f"phase {label} CRUD: accepted {len(acc)}, rows {db.size()}, new "
+        f"rows found by their own vectors {hits}, removed ids returned "
+        f"{back}")
+    add(read_launches(f"{label} CRUD", must_launch=("fused_int8_pool",)))
+    if len(acc) != 10_000 or hits < 1.0 or back:
+        raise RuntimeError(f"{label}: CRUD round failed")
+    del db
+    fused_db("global", "fused_int8g_pool")  # dropped on return
+    torch.cuda.empty_cache()
+    label = "11a raw mesh4"
+    mesh4 = sh.make_mesh(devices=[DEVICE] * 4)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    db, took = ingest(mesh4, n)
+    timing(f"phase {label} ingest (add_batch of {n} rows, 4 shards of "
+           f"{db.per_shard})", took, "s")
+    if db.size() >= db.fused_threshold * db.n_shards:
+        raise RuntimeError(f"{label}: search would not take the exact scan")
+    ids = sharded_cell(f"{label} search -> exact", db.search, queries, gt,
+                       "exact")
+    d = db.search(queries, K)[1]
+    same = ids == gt_i.cpu().numpy()
+    rows = ~same.all(1)
+    tied = np.allclose(np.sort(d[rows], 1), gt_d.cpu().numpy()[rows],
+                       rtol=1e-5, atol=1e-4)
+    say(f"phase {label}: ids equal the single-chip blocked_knn top-10 at "
+        f"{same.mean()} of positions; {int(rows.sum())} queries differ, "
+        f"their distances equal within 1e-5: {tied}")
+    if same.mean() < 0.999 or not tied:
+        raise RuntimeError(f"{label}: exact search differs from one chip")
+    add(read_launches(label, must_not=POOL_KERNELS))
+    reset_launches()
+    sharded_cell(f"{label} search_fused", db.search_fused, queries, gt,
+                 "raw fused")
+    got = read_launches(f"{label} search_fused",
+                        must_launch=("fused_int8_pool",))
+    add(got)
+    reset_launches()
+    db.search_fused(queries, K)
+    one = read_launches(f"{label} one search_fused call")["fused_int8_pool"]
+    if one != 4:
+        raise RuntimeError(f"{label}: {one} B2 launches a call, not 4")
+    peak(label)
+    del db, corpus
+    torch.cuda.empty_cache()
+
+
+def sharded_compressed(counts):
+    """11b: the Compressed 10M corpus on four logical shards, compressed +
+    residual with host_mirror=False, by bulk_load_stream: search (fused:
+    B4 on each shard), search_flagship (B3), search_pca, the exact int8
+    scan; save (payload_sharded) and load onto one shard, the exact scan's
+    ids and distances the same."""
+    from vector_db_torch.parallel import sharded as sh
+
+    n = N_10M_CHUNK * SHARDED_10M_CHUNKS
+    queries = torch.randn(
+        NQ, DIM, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(7)) * spectrum()
+    known = GT_10M["gt"] if SHARDED_10M_CHUNKS == N_10M_CHUNKS else None
+    work = {"seconds": 0.0}
+    label = "11b compressed mesh4"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    db = sh.ShardedDatabase(sh.make_mesh(devices=[DEVICE] * 4), dim=DIM,
+                            capacity=n, num_subspaces=64, raw_store=False,
+                            refine_residual=True, host_mirror=False)
+    t0 = time.perf_counter()
+    rows = db.bulk_load_stream(
+        stream_spectral(queries, work, SHARDED_10M_CHUNKS, known),
+        num_centroids=256, iters=10)
+    torch.cuda.synchronize()
+    timing(f"phase {label} ingest (bulk_load_stream of {rows} rows, 4 "
+           f"shards of {db.per_shard}: train + pack + residual + encode; "
+           "generation and ground truth excluded)",
+           time.perf_counter() - t0 - work["seconds"], "s")
+    gt = work["gt"]
+    if rows != n or hasattr(db, "_h_packed"):
+        raise RuntimeError(f"{label}: {rows} rows, or a host payload")
+
+    def add(c):
+        for name in counts:
+            counts[name] += c[name]
+
+    add(read_launches(f"{label} ingest"))
+    reset_launches()
+    sharded_cell(f"{label} search -> fused", db.search, queries, gt,
+                 "compressed fused")
+    add(read_launches(f"{label} fused", must_launch=("fused_packed_pool",)))
+    reset_launches()
+    sharded_cell(f"{label} search_flagship refine=1024",
+                 lambda q, k: db.search_flagship(q, k, refine=1024),
+                 queries, gt, "compressed flagship")
+    add(read_launches(f"{label} flagship",
+                      must_launch=("pq_decode_recon_t",)))
+    reset_launches()
+    timed_host(f"{label} fit_pca p=64", lambda: db.fit_pca(p=64))
+    sharded_cell(f"{label} search_pca select_r=512",
+                 lambda q, k: db.search_pca(q, k, select_r=512),
+                 queries, gt, "compressed pca")
+    add(read_launches(f"{label} pca", must_not=tuple(KERNELS)))
+    peak(label)
+    # the exact int8 scan of both levels (the route below the threshold),
+    # whose answer does not depend on the slot layout
+    db.fused_threshold = 1 << 62
+    before = sharded_cell(f"{label} exact int8 scan", db.search, queries, gt,
+                          "exact")
+    before_d = db.search(queries, K)[1]
+    path = os.path.join(WORK, "sharded10m")
+    shutil.rmtree(path, ignore_errors=True)
+    timed_host(f"{label} save (payload_sharded)", lambda: db.save(path))
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    timing(f"phase {label} checkpoint bytes", size, "B")
+    del db
+    torch.cuda.empty_cache()
+    label = "11b compressed load mesh1"
+    reset_launches()
+    db = timed_host(f"{label} load", lambda: sh.ShardedDatabase.load(
+        sh.make_mesh(devices=[DEVICE]), path, host_mirror=False))
+    shutil.rmtree(path, ignore_errors=True)
+    db.fused_threshold = 1 << 62
+    after, after_d = db.search(queries, K)
+    same = bool((after == before).all() and np.array_equal(after_d, before_d))
+    say(f"phase {label}: rows {db.size()}, exact int8 scan ids and "
+        f"distances identical after the reload: {same} (ids "
+        f"{float((after == before).mean())}, max |d| diff "
+        f"{float(np.abs(after_d - before_d).max())})")
+    if db.size() != n or not (after == before).all():
+        raise RuntimeError(f"{label}: the reloaded database differs")
+    del db.fused_threshold
+    sharded_cell(f"{label} search -> fused", db.search, queries, gt,
+                 "compressed fused")
+    add(read_launches(label, must_launch=("fused_packed_pool",)))
+    peak(label)
+    del db
+    torch.cuda.empty_cache()
+
+
+def phase_sharded():
+    """11: the sharded tier (vector_db_torch/parallel/sharded.py) on the
+    card; returns the launch counts of its paths."""
+    counts = {name: 0 for name in KERNELS}
+    t_start = time.perf_counter()
+    for part in (sharded_raw, sharded_compressed):
+        t0 = time.perf_counter()
+        part(counts)
+        timing(f"phase 11 {part.__name__} took", time.perf_counter() - t0,
+               "s")
+    timing("phase 11 took", time.perf_counter() - t_start, "s")
+    for name in ("fused_int8_pool", "fused_int8g_pool", "fused_packed_pool",
+                 "pq_decode_recon_t"):
+        if counts[name] == 0:
+            raise RuntimeError(f"phase 11 never launched {name}")
+    say(f"phase 11: kernel launches {json.dumps(counts)}")
+    return counts
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -2716,7 +3039,8 @@ def main():
     # its paths and reads them just after
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),
                    phase_ivf(), phase_ivf_10m(), phase_adc_modes(),
-                   phase_pca(), phase_graph(), phase_indexes()):
+                   phase_pca(), phase_graph(), phase_indexes(),
+                   phase_sharded()):
         for name, c in counts.items():
             entries[name]["launches"] += c
     for name, entry in entries.items():

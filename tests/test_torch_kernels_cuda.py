@@ -547,3 +547,96 @@ def test_pq_index_on_card_matches_the_cpu():
         shared = np.mean([len(set(a) & set(b)) / 10
                           for a, b in zip(got, want)])
         assert shared >= 0.99, (refine_k, shared)
+
+
+
+def _sharded_pool_case(name, dev, q, base, norms, valid, packed, scales,
+                       resid, rscales, k=10, pool=64, w=2048):
+    """One fused program of the sharded tier on four logical shards of
+    ``dev`` and on four CPU shards, with the CPU's conditioning: each
+    shard's pool on ``dev`` bit-equal to its plain version there, then the
+    merged results against the CPU shards'."""
+    from vector_db_torch.parallel import sharded as sh
+
+    cpu = torch.device("cpu")
+    meshes = sh.make_mesh(devices=[cpu] * 4), sh.make_mesh(devices=[dev] * 4)
+    if name == "int8":
+        cond_t = sh.sharded_cond_int8(meshes[0])(
+            *sh.shard_corpus(meshes[0], packed, scales, norms, valid))
+        kernel = tk.fused_packed_pool
+        stores = [sh.shard_corpus(m, packed, scales, norms, resid, rscales)
+                  for m in meshes]
+    else:
+        cond_t = getattr(sh, f"sharded_cond_{name}")(meshes[0])(
+            *sh.shard_corpus(meshes[0], base, norms, valid))
+        kernel = tk.fused_int8_pool if name == "raw8" else tk.fused_int8g_pool
+        stores = [sh.shard_corpus(m, base) for m in meshes]
+    conds = cond_t, [[t.to(dev) for t in col] for col in cond_t]
+    plain = getattr(tk, kernel.__name__ + "_plain")
+    cond, store = conds[1], stores[1]
+    for i in range(4):  # each shard's pool against its plain version
+        if name == "int8":
+            args = (store[0][i], cond[0][i], cond[1][i])
+        elif name == "raw8":
+            args = (cond[0][i], cond[1][i], cond[2][i])
+        else:
+            args = (cond[0][i], cond[1][i], cond[2][i][0], 2.0)
+        qc = (q - cond_t[-1][i][0]).to(dev)
+        got, want = kernel(qc, *args, w), plain(qc, *args, w)
+        assert torch.equal(got[0], want[0]), (name, i)
+        assert torch.equal(got[1], want[1]), (name, i)
+    out = []
+    for mesh, cond, store in zip(meshes, conds, stores):
+        qd = q.to(mesh.devices[0])
+        if name == "int8":
+            out.append(sh.sharded_fused_int8(mesh, k, pool, w, residual=True)(
+                qd, *store[:3], *cond, *store[3:]))
+        else:
+            prog = getattr(sh, f"sharded_fused_{name}")
+            out.append(prog(mesh, k, pool, w)(qd, store[0], *cond))
+    (want_d, want_i), (got_d, got_i) = out
+    same = got_i.cpu() == want_i
+    # the card's query scales may sit a ulp from the CPU's, which can move
+    # a candidate at the pool's edge
+    assert same.float().mean() >= 0.99, (name, same.float().mean())
+    # atol: f32 cancellation in |q|^2 + |v|^2 - 2 q.v at norms of ~256
+    torch.testing.assert_close(got_d.cpu()[same], want_d[same], rtol=1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sharded_fused_programs_on_card_match_cpu_shards():
+    """The sharded tier's three fused programs (``parallel/sharded.py``) on
+    four logical shards of the card against four CPU shards: each shard's
+    pool (B2, B7, B4) bit-equal to its plain version on the card, as the
+    single-chip pools are held (the query's int8 scale is computed on the
+    card, which divides by 127 as a product with its reciprocal), the
+    merged ids equal at >= 99% of positions and their refined distances
+    within f32 order; and the
+    row packing on the card bit-equal to the CPU's (which the CPU tests
+    hold to the reference's host numpy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from vector_db_torch.ops.distance import pack_int8_rows
+    from vector_db_torch.parallel import sharded as sh
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(3)
+    n, d = 4 * 8192, 128
+    base = torch.randn(n, d, generator=g) + 1.0
+    valid = torch.rand(n, generator=g) > 0.05
+    norms = (base * base).sum(1)
+    q = base[:64] + 0.05 * torch.randn(64, d, generator=g)
+    packed, scales = pack_int8_rows(base)
+    resid, rscales = sh.pack_resid(base, packed, scales)
+    on_card = pack_int8_rows(base.to(dev))
+    assert torch.equal(on_card[0].cpu(), packed)
+    assert torch.equal(on_card[1].cpu(), scales)
+    assert torch.equal(sh.pack_resid(base.to(dev), *on_card)[0].cpu(), resid)
+    for name, kernel in (("raw8", tk.fused_int8_pool),
+                         ("raw8g", tk.fused_int8g_pool),
+                         ("int8", tk.fused_packed_pool)):
+        before = kernel.launches
+        _sharded_pool_case(name, dev, q, base, norms, valid, packed, scales,
+                           resid, rscales)
+        assert kernel.launches == before + 8, name  # 4 held + 4 in the run

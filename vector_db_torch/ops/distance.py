@@ -263,7 +263,10 @@ def pack_int8_rows(base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``bitcast_convert_type``).  Requires d % 4 == 0.
     """
     n, d = base.shape
-    scale = torch.clamp(torch.amax(torch.abs(base), dim=1), min=1e-30) / 127.0
+    amax = torch.clamp(torch.amax(torch.abs(base), dim=1), min=1e-30)
+    # a true division on every device (CUDA divides by a Python scalar as
+    # a product with its reciprocal, one ulp off numpy's amax / 127)
+    scale = amax / torch.full_like(amax, 127.0)
     q8 = torch.clamp(torch.round(base / scale[:, None]), -127, 127
                      ).to(torch.int8)
     return q8.reshape(n, d // 4, 4).view(torch.int32).reshape(n, d // 4), scale
