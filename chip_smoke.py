@@ -207,8 +207,32 @@ name and power limit):
                a profiled call (device ms, launches, idle) and the peak
                device memory; flagship and pca floors are what this script
                measured on an H100 less 0.01 (SHARDED_FLOORS).
+ 12. the multi-process sharded path, the graft entry and the last examples:
+               a. vector_db_torch/examples/multiprocess_dcn.main over a
+                  file:// NCCL group of one rank holding 4 shards of the card
+                  (262,144 x 512 rows each, phase 11a's size): its ids and
+                  distances bit-equal to sharded_knn on the single-controller
+                  mesh [cuda:0] * 4 over the same rows; sharded_cond_raw8 +
+                  sharded_fused_raw8 over the spanning mesh (fused_int8_pool,
+                  four launches a call), its ids equal to the single
+                  controller's and recall@10 >= 0.95 against the exact
+                  search; host walls at Q=64 and Q=1024, a profiled call;
+               b. two ranks spawned (torch.multiprocessing) under a gloo
+                  group on the one card, 2 of 12a's shards each: every rank
+                  returns 12a's ids and distances (the example, exact,
+                  fused); host walls with the winners through host memory;
+               c. vector_db_torch/graft_entry: entry() (shapes (8, 8), valid
+                  ids), then dryrun_multichip(4) on [cuda:0] * 4 at the
+                  reference's own tiny shapes (fused_int8g_pool,
+                  fused_packed_pool and pq_decode_recon_t must launch);
+               d. vector_database_example at 10,000 x 128 (seven index types;
+                  pq_decode_recon_t must launch) and compression_example at
+                  10,000 x 512 (eight presets; pq_decode_recon_t and
+                  fused_packed_pool must launch), each table printed, BRUTE
+                  exact and every row at its floor (EXAMPLE_FLOORS: this
+                  script's first full run on an H100 less 0.01).
 
-Every path of phases 4-11 runs with all kernel launch counts set to 0 just
+Every path of phases 4-12 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
 its time, its plain version's, its launches on the main path, its bound at
 the timed shape: the larger of its bytes over 3.35 TB/s and its operations
@@ -3017,6 +3041,306 @@ def phase_sharded():
     say(f"phase 11: kernel launches {json.dumps(counts)}")
     return counts
 
+
+# ------------------------------------------------------------ phase 12
+#: 12a: the spanning mesh at phase 11a's size: 4 shards of 262,144 x 512
+SPAN_SHARDS, SPAN_PER_SHARD = 4, 262_144
+#: 12b: gloo ranks on the one card, each holding SPAN_SHARDS / SPAN_RANKS
+SPAN_RANKS = 2
+#: 12a/12b: raw fused recall@10 floor (phase 11a's, the single-chip one)
+SPAN_FUSED_FLOOR = 0.95
+#: 12d: recall@10 floors of the two examples' rows at their default sizes:
+#: this script's first full run on an H100 less 0.01 (no reference figure
+#: exists at these sizes); BRUTE must also be exact
+EXAMPLE_FLOORS = {
+    "vector_database": {"brute": 0.99, "hnsw": 0.94, "hnswpq": 0.99,
+                        "ivf": 0.988, "pq": 0.713, "lsh": 0.96,
+                        "annoy": 0.953},
+    "compression": {"uncompressed": 0.988, "recommended (dim/8, 32x)": 0.99,
+                    "high recall (dim/4, 16x)": 0.99,
+                    "high compression (dim/16, 64x)": 0.99,
+                    "memory-bound (adc_fast, 32x)": 0.99,
+                    "pca proxy (dim/8 dims + refine)": 0.99,
+                    "compressed store (no raw f32, 4x)": 0.981,
+                    "compressed + residual (2.5x)": 0.99},
+}
+
+
+def span_argv(url, rank, world, local, backend):
+    return ["--coordinator", url, "--num-processes", str(world),
+            "--process-id", str(rank), "--local-shards", str(local),
+            "--per-shard", str(SPAN_PER_SHARD), "--dim", str(DIM),
+            "--device", DEVICE, "--backend", backend]
+
+
+def span_programs(mesh, vectors, queries):
+    """The exact and the fused (B2) program over ``mesh`` and its sharded
+    ``vectors`` (all live; norms shard-local, as the example's): their
+    (dists, ids) at ``queries``, and the two programs as callables."""
+    from vector_db_torch.ops.distance import sq_norms
+    from vector_db_torch.ops.kernels import preserved_pool_width
+    from vector_db_torch.parallel import sharded as sh
+
+    valid = [torch.ones(v.shape[0], dtype=torch.bool, device=v.device)
+             for v in vectors]
+    norms = [sq_norms(v) for v in vectors]
+    cond = sh.sharded_cond_raw8(mesh)(vectors, norms, valid)
+    w = preserved_pool_width(SPAN_PER_SHARD)
+    exact = sh.sharded_knn(mesh, K)
+    fused = sh.sharded_fused_raw8(mesh, K, 64, w)
+
+    def run_exact(q):
+        return exact(q, vectors, valid, norms)
+
+    def run_fused(q):
+        return fused(q, vectors, *cond)
+    return run_exact(queries), run_fused(queries), run_exact, run_fused
+
+
+def span_queries(n):
+    rng = np.random.default_rng(7)
+    return torch.from_numpy(
+        rng.standard_normal((n, DIM)).astype(np.float32)).to(DEVICE)
+
+
+def as_np(pair):
+    return tuple(t.cpu().numpy() for t in pair)
+
+
+def span_rank(rank, url, out_path):
+    """12b: one gloo rank on the card (spawned): the example, then the
+    exact and fused programs at Q=1024 over its own shards (the example's
+    ``local_corpus``) with their host walls; saved to ``out_path`` +
+    rank."""
+    import torch.distributed as dist
+
+    from vector_db_torch.examples import multiprocess_dcn as dcn
+    from vector_db_torch.ops import kernels as kn
+    from vector_db_torch.parallel import sharded as sh
+
+    torch.cuda.set_device(0)
+    local = SPAN_SHARDS // SPAN_RANKS
+    try:
+        d, idx = dcn.main(span_argv(url, rank, SPAN_RANKS, local, "gloo"))
+        mesh = sh.make_mesh(devices=[DEVICE] * local, group=dist.group.WORLD)
+        vectors = dcn.local_corpus(mesh, SPAN_PER_SHARD, DIM)[0]
+        q = span_queries(NQ)
+        exact, fused, run_exact, run_fused = span_programs(mesh, vectors, q)
+        walls = [host_s(lambda: as_np(run(q))) for run in (run_exact,
+                                                           run_fused)]
+        np.savez(f"{out_path}{rank}.npz", d=d, idx=idx,
+                 exact_d=exact[0].cpu().numpy(),
+                 exact_i=exact[1].cpu().numpy(),
+                 fused_d=fused[0].cpu().numpy(),
+                 fused_i=fused[1].cpu().numpy(), walls=np.asarray(walls),
+                 b2=np.asarray(kn.fused_int8_pool.launches))
+    finally:
+        dist.destroy_process_group()
+
+
+def span_single_rank(counts):
+    """12a: the example over a file:// NCCL group of one rank holding 4
+    shards of the card (2^20 x 512 rows), held bit for bit to the
+    single-controller mesh over the same rows (generated globally, split
+    by shard_corpus); the fused program (B2) over the same spanning mesh,
+    its ids equal to the single controller's; recall against the exact
+    search, host walls at Q=64 and Q=1024, a profiled call of each.
+    Returns 12a's results for 12b."""
+    import torch.distributed as dist
+
+    from vector_db_torch.examples import multiprocess_dcn as dcn
+    from vector_db_torch.parallel import sharded as sh
+
+    label = "12a nccl world 1"
+    os.makedirs(WORK, exist_ok=True)
+    rdzv = os.path.join(WORK, "rdzv12a")
+    if os.path.exists(rdzv):
+        os.remove(rdzv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    d, idx = dcn.main(span_argv(f"file://{rdzv}", 0, 1, SPAN_SHARDS, "nccl"))
+    torch.cuda.synchronize()
+    timing(f"phase {label} multiprocess_dcn.main ({SPAN_SHARDS} shards of "
+           f"{SPAN_PER_SHARD} x {DIM}, rows generated on the host)",
+           time.perf_counter() - t0, "s")
+    try:
+        span = sh.make_mesh(devices=[DEVICE] * SPAN_SHARDS,
+                            group=dist.group.WORLD)
+        single = sh.make_mesh(devices=[DEVICE] * SPAN_SHARDS)
+        say(f"phase {label}: backend {dist.get_backend()}, rank "
+            f"{span.rank} of {span.world}, global shards "
+            f"{span.global_shards}, local {span.local_shards}")
+        rows = torch.from_numpy(np.concatenate(
+            [dcn.shard_rows(s, SPAN_PER_SHARD, DIM)
+             for s in range(SPAN_SHARDS)])).to(DEVICE)
+        (span_rows,) = sh.shard_process_local(span, rows)
+        (single_rows,) = sh.shard_corpus(single, rows)
+        del rows
+        q64, q = span_queries(dcn.NQ), span_queries(NQ)
+        exact, fused, run_exact, run_fused = span_programs(span, span_rows, q)
+        s_exact64, _f, _e, s_run_fused = span_programs(single, single_rows,
+                                                       q64)
+        same = (np.array_equal(d, s_exact64[0].cpu().numpy())
+                and np.array_equal(idx, s_exact64[1].cpu().numpy()))
+        say(f"phase {label}: the example's ids and distances equal the "
+            f"single-controller sharded_knn bit for bit: {same}")
+        if not same:
+            raise RuntimeError(f"{label}: the spanning mesh differs")
+        s_fused = s_run_fused(q)
+        ids_same = torch.equal(fused[1], s_fused[1])
+        say(f"phase {label}: fused ids equal the single controller's: "
+            f"{ids_same}; distances equal: "
+            f"{torch.equal(fused[0], s_fused[0])}")
+        if not ids_same:
+            raise RuntimeError(f"{label}: fused ids differ")
+        del single_rows, s_run_fused, _e
+        gt = exact[1].cpu().tolist()
+        hold_floor(f"{label} fused (Q={NQ}) against the exact search",
+                   recall(fused[1].cpu().tolist(), gt), SPAN_FUSED_FLOOR)
+        for name, run in (("exact", run_exact), ("fused", run_fused)):
+            for qq in (q64, q):
+                timing(f"phase {label} {name} host wall (Q={qq.shape[0]}, "
+                       f"k={K}, best of 3)",
+                       host_s(lambda: as_np(run(qq))) * 1e3, "ms")
+            profile_search(f"{label} {name} Q={NQ}", lambda: run(q))
+        for name, c in read_launches(label, must_launch=(
+                "fused_int8_pool",)).items():
+            counts[name] += c
+        reset_launches()
+        run_fused(q)
+        one = read_launches(f"{label} one fused call")["fused_int8_pool"]
+        counts["fused_int8_pool"] += one
+        if one != SPAN_SHARDS:
+            raise RuntimeError(f"{label}: {one} B2 launches a call")
+        peak(label)
+        result = dict(d=d, idx=idx, exact=as_np(exact), fused=as_np(fused))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return result
+
+
+def span_two_ranks(counts, want):
+    """12b: two gloo ranks spawned on the one card, each holding 2 of 12a's
+    4 shards: every rank returns 12a's ids and distances for the example,
+    the exact and the fused program; the winners cross through host
+    memory."""
+    import torch.multiprocessing as mp
+
+    label = "12b gloo world 2"
+    rdzv = os.path.join(WORK, "rdzv12b")
+    if os.path.exists(rdzv):
+        os.remove(rdzv)
+    out = os.path.join(WORK, "rank12b_")
+    t0 = time.perf_counter()
+    mp.spawn(span_rank, args=(f"file://{rdzv}", out), nprocs=SPAN_RANKS,
+             join=True)
+    timing(f"phase {label} spawn to join (two ranks: CUDA init, rows, the "
+           "example, both programs timed)", time.perf_counter() - t0, "s")
+    for r in range(SPAN_RANKS):
+        got = np.load(f"{out}{r}.npz")
+        same = [np.array_equal(got[a], w) for a, w in (
+            ("d", want["d"]), ("idx", want["idx"]),
+            ("exact_d", want["exact"][0]), ("exact_i", want["exact"][1]),
+            ("fused_d", want["fused"][0]), ("fused_i", want["fused"][1]))]
+        say(f"phase {label} rank {r}: equal to 12a (example d, ids; exact "
+            f"d, ids; fused d, ids): {same}; B2 launches "
+            f"{int(got['b2'])}")
+        if not all(same[:4]) or not same[5]:
+            raise RuntimeError(f"{label}: rank {r} differs from 12a")
+        for name, wall in zip(("exact", "fused"), got["walls"]):
+            timing(f"phase {label} rank {r} {name} host wall (Q={NQ}, "
+                   f"k={K}, best of 3, winners through host memory)",
+                   wall * 1e3, "ms")
+        counts["fused_int8_pool"] += int(got["b2"])
+        os.remove(f"{out}{r}.npz")
+    if counts["fused_int8_pool"] == 0:
+        raise RuntimeError(f"{label}: the ranks never launched B2")
+
+
+def span_graft_entry(counts):
+    """12c: graft_entry.entry() on the card, then dryrun_multichip(4) on
+    [cuda:0] * 4 (the reference's own tiny shapes): B7, B4 and B3 must
+    launch."""
+    from vector_db_torch import graft_entry as ge
+
+    label = "12c graft entry"
+    reset_launches()
+    t0 = time.perf_counter()
+    fn, args = ge.entry(device=DEVICE)
+    d, ext = fn(*args)
+    ok = (tuple(d.shape) == (8, 8) and tuple(ext.shape) == (8, 8)
+          and bool(((ext >= 0) & (ext < args[4].shape[0])).all()))
+    say(f"phase {label}: entry() on {args[0].device}: shapes "
+        f"{tuple(d.shape)} {tuple(ext.shape)}, valid ids {ok}")
+    if not ok:
+        raise RuntimeError(f"{label}: entry() gave wrong results")
+    ge.dryrun_multichip(4, device=DEVICE)
+    torch.cuda.synchronize()
+    timing(f"phase {label} entry + dryrun_multichip(4)",
+           time.perf_counter() - t0, "s")
+    for name, c in read_launches(label, must_launch=(
+            "fused_int8g_pool", "fused_packed_pool",
+            "pq_decode_recon_t")).items():
+        counts[name] += c
+
+
+def hold_example(label, rows, key, floors):
+    """BRUTE exact; every row at or above its floor."""
+    if [row[key] for row in rows] != list(floors):
+        raise RuntimeError(f"{label}: rows {[row[key] for row in rows]}")
+    for row in rows:
+        name, rec = row[key], row["recall"]
+        if name == "brute" and rec != 1.0:
+            raise RuntimeError(f"{label}: BRUTE recall {rec}")
+        hold_floor(f"{label} row {name!r}", rec, floors[name])
+
+
+def span_examples(counts):
+    """12d: the two table examples at their default sizes on the card."""
+    from vector_db_torch.examples import compression_example as ce
+    from vector_db_torch.examples import vector_database_example as vde
+
+    for label, mod, key, floors, must in (
+            ("12d vector_database_example (10,000 x 128)", vde, "index",
+             EXAMPLE_FLOORS["vector_database"], ("pq_decode_recon_t",)),
+            ("12d compression_example (10,000 x 512)", ce, "preset",
+             EXAMPLE_FLOORS["compression"],
+             ("pq_decode_recon_t", "fused_packed_pool"))):
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = mod.main(["--device", DEVICE])
+        timing(f"phase {label} took", time.perf_counter() - t0, "s")
+        hold_example(label, rows, key, floors)
+        for name, c in read_launches(label, must_launch=must).items():
+            counts[name] += c
+
+
+def phase_span():
+    """12: the multi-process sharded path, the graft entry and the two
+    examples on the card; returns the launch counts of its paths."""
+    counts = {name: 0 for name in KERNELS}
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    want = span_single_rank(counts)
+    timing("phase 12a took", time.perf_counter() - t0, "s")
+    for part, arg in ((span_two_ranks, want), (span_graft_entry, None),
+                      (span_examples, None)):
+        t0 = time.perf_counter()
+        part(counts, *(() if arg is None else (arg,)))
+        timing(f"phase 12 {part.__name__} took", time.perf_counter() - t0,
+               "s")
+    timing("phase 12 took", time.perf_counter() - t_start, "s")
+    for name in ("fused_int8_pool", "fused_int8g_pool", "fused_packed_pool",
+                 "pq_decode_recon_t"):
+        if counts[name] == 0:
+            raise RuntimeError(f"phase 12 never launched {name}")
+    say(f"phase 12: kernel launches {json.dumps(counts)}")
+    return counts
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -3040,7 +3364,7 @@ def main():
     for counts in (phase_100k(), phase_1m(), phase_10m(), phase_membound(),
                    phase_ivf(), phase_ivf_10m(), phase_adc_modes(),
                    phase_pca(), phase_graph(), phase_indexes(),
-                   phase_sharded()):
+                   phase_sharded(), phase_span()):
         for name, c in counts.items():
             entries[name]["launches"] += c
     for name, entry in entries.items():

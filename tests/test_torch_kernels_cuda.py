@@ -640,3 +640,48 @@ def test_sharded_fused_programs_on_card_match_cpu_shards():
         _sharded_pool_case(name, dev, q, base, norms, valid, packed, scales,
                            resid, rscales)
         assert kernel.launches == before + 8, name  # 4 held + 4 in the run
+
+
+@pytest.mark.cuda
+def test_spanning_mesh_of_one_rank_matches_the_single_controller(tmp_path):
+    """Four shards of the card over a mesh that spans an NCCL group of one
+    rank (the one-card case of a multi-card deployment: the merge's
+    winners go through ``all_gather_into_tensor``) against the
+    single-controller mesh of the same four shards: the exact and the
+    fused program (B2, launched once a shard) give identical ids and
+    distances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL and the kernels)")
+    import torch.distributed as dist
+
+    from vector_db_torch.parallel import sharded as sh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        meshes = (sh.make_mesh(devices=[dev] * 4, group=dist.group.WORLD),
+                  sh.make_mesh(devices=[dev] * 4))
+        assert meshes[0].global_shards == meshes[1].global_shards == 4
+        g = torch.Generator(device="cuda").manual_seed(5)
+        n_s, d = 8192, 128
+        base = torch.randn(4 * n_s, d, device=dev, generator=g)
+        valid = torch.rand(4 * n_s, device=dev, generator=g) > 0.05
+        norms = (base * base).sum(1)
+        q = base[:64] + 0.05 * torch.randn(64, d, device=dev, generator=g)
+        w = tk.preserved_pool_width(n_s)
+        outs = []
+        for mesh in meshes:
+            b, v, nr = sh.shard_corpus(mesh, base, valid, norms)
+            exact = sh.sharded_knn(mesh, 10)(q, b, v, nr)
+            cond = sh.sharded_cond_raw8(mesh)(b, nr, v)
+            before = tk.fused_int8_pool.launches
+            fused = sh.sharded_fused_raw8(mesh, 10, 64, w)(q, b, *cond)
+            torch.cuda.synchronize()
+            assert tk.fused_int8_pool.launches == before + 4
+            outs.append(exact + fused)
+        for got, want in zip(*outs):
+            assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

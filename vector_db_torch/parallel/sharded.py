@@ -1,19 +1,29 @@
 """The sharded tier: a corpus split over a mesh of devices (the counterpart
 of ``vector_db_tpu/parallel/sharded.py``).
 
-One controller drives every shard, as the reference's ``ShardedDatabase``
-does: one process, one id map, one slot allocator, numpy metadata mirrors.
-A :class:`Mesh` is a tuple of ``torch.device``s (repeats allowed: eight
-``cpu`` entries are the tests' eight shards, four ``cuda:0`` entries four
-logical shards on one card), and a *sharded array* is a list of per-shard
-tensors, piece ``i`` on ``mesh.devices[i]``.  The reference's ``shard_map``
-collectives become per-shard calls plus a step on ``mesh.devices[0]``:
+A :class:`Mesh` is a tuple of ``torch.device``s, one a shard (repeats
+allowed: eight ``cpu`` entries are the tests' eight shards, four ``cuda:0``
+entries four logical shards on one card), and a *sharded array* is a list
+of per-shard tensors, piece ``i`` on ``mesh.devices[i]``.  The reference's
+``shard_map`` collectives become per-shard calls plus a step on
+``mesh.devices[0]``:
 
   * ``all_gather`` + ``top_k``: the shards' [Q, k'] results copied to the
     first device, laid out shard-major, one stable selection
     (:func:`_merge_topk`: ties go to the earlier shard and position, as
     ``lax.top_k``'s do);
   * ``psum``: the per-shard partial sums added in shard order there.
+
+A mesh may span processes, as a ``shard_map`` mesh does under
+``jax.distributed``: given a ``torch.distributed`` process group, its
+``devices`` are this rank's L local shards, rank r holding the global
+shards r*L .. r*L + L - 1 of ``global_shards`` = world * L.  The programs
+then gather the ranks' stacked winners in rank order (the global
+shard-major layout) and all-reduce the k-means partials; corpus rows never
+cross.  NCCL moves CUDA tensors (one rank a card); under gloo the winners
+and partials cross through host memory.  Every rank gets the same
+(replicated) result.  :class:`ShardedDatabase` stays single-controller, as
+the reference's does.
 
 Every per-shard call runs under ``torch.cuda.device(shard_device)`` on a
 card.  The pool selects are exact where the reference uses
@@ -25,11 +35,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.device import resolve_device
 from ..index import hnsw_pq
@@ -61,20 +72,91 @@ PROJECT_ROWS = 131072
 
 @dataclass(frozen=True)
 class Mesh:
-    """The shard axis: one device per shard, repeats allowed."""
+    """The shard axis.  ``devices``: this process's shards, one device each
+    (repeats allowed).  Without a ``group`` they are every shard; with one,
+    each of the group's ``world`` ranks holds ``local_shards`` of them, rank
+    ``rank`` the global shards from ``first_shard`` on."""
 
     devices: tuple
+    group: Optional[object] = field(default=None, compare=False)
+    rank: int = 0
+    world: int = 1
+
+    @property
+    def local_shards(self) -> int:
+        """Shards this process holds (``len(devices)``)."""
+        return len(self.devices)
+
+    @property
+    def global_shards(self) -> int:
+        """Shards of the whole mesh, over every rank."""
+        return self.world * len(self.devices)
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """The global shard count, as a JAX mesh's ``size``."""
+        return self.global_shards
+
+    @property
+    def first_shard(self) -> int:
+        """Global index of local shard 0 (``jax.lax.axis_index`` of it)."""
+        return self.rank * len(self.devices)
 
 
-def make_mesh(n_shards: Optional[int] = None, devices=None) -> Mesh:
+def _backend(group) -> str:
+    """The group's backend: ``nccl`` or ``gloo``; raises on any other."""
+    name = str(dist.get_backend(group)).lower()
+    if name not in ("nccl", "gloo"):
+        raise ValueError(f"process group backend {name!r}: the sharded "
+                         "programs take nccl or gloo")
+    return name
+
+
+def _gather_ranks(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order, [world, *t.shape], on
+    ``t``'s device (``t[None]`` without a group).  NCCL gathers on the card;
+    gloo gathers no CUDA tensor, so under it ``t`` crosses through host
+    memory."""
+    if mesh.group is None:
+        return t[None]
+    t = t.contiguous()
+    if _backend(mesh.group) == "nccl":
+        out = torch.empty((mesh.world, *t.shape), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t, group=mesh.group)
+        return out
+    host = t.cpu()
+    parts = [torch.empty_like(host) for _ in range(mesh.world)]
+    dist.all_gather(parts, host, group=mesh.group)
+    return torch.stack(parts).to(t.device)
+
+
+def _sum_ranks(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``t`` added (an ``all_reduce``; ``t`` itself without a
+    group), on ``t``'s device; ``t`` is not written."""
+    if mesh.group is None:
+        return t
+    if _backend(mesh.group) == "nccl":
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=mesh.group)
+        return out
+    host = t.cpu().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(host, group=mesh.group)
+    return host.to(t.device)
+
+
+def make_mesh(n_shards: Optional[int] = None, devices=None,
+              group=None) -> Mesh:
     """A 1-D mesh: ``devices`` as given (``[torch.device("cpu")] * 8`` on
     the host, ``[cuda:0] * 4`` for four logical shards on one card), else
     every visible CUDA device; raises without one.  ``n_shards`` keeps the
-    first that many."""
+    first that many.
+
+    With a ``torch.distributed`` process ``group`` (NCCL or gloo) the
+    devices are this rank's local shards and the mesh spans the group's
+    ranks.  Every rank must hold the same number of them, as
+    ``jax.make_array_from_process_local_data`` requires on a 1-D mesh; a
+    collective checks it, so every rank of the group must call this."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -87,7 +169,19 @@ def make_mesh(n_shards: Optional[int] = None, devices=None) -> Mesh:
         if n_shards > len(devices):
             raise ValueError(f"{n_shards} shards, {len(devices)} devices")
         devices = devices[:n_shards]
-    return Mesh(tuple(devices))
+    if group is None:
+        return Mesh(tuple(devices))
+    if _backend(group) == "nccl" and any(d.type != "cuda" for d in devices):
+        raise ValueError("an nccl group moves CUDA tensors: its shards must "
+                         "be CUDA devices (use gloo for host shards)")
+    mesh = Mesh(tuple(devices), group, dist.get_rank(group),
+                dist.get_world_size(group))
+    counts = _gather_ranks(mesh, torch.tensor(
+        [len(devices)], device=devices[0])).flatten().tolist()
+    if len(set(counts)) != 1:
+        raise ValueError(f"ranks hold unequal local shard counts {counts}: "
+                         "every rank must hold the same number")
+    return mesh
 
 
 def _on(dev: torch.device):
@@ -111,18 +205,28 @@ def _rep(x, i: int, dev: torch.device):
 
 
 def shard_corpus(mesh: Mesh, *arrays) -> tuple[list, ...]:
-    """Split each array's leading axis into ``mesh.size`` equal pieces, one
-    on each mesh device (the axis must divide, as under ``shard_map``)."""
+    """Split each global array's leading axis into ``mesh.global_shards``
+    equal pieces (the axis must divide, as under ``shard_map``) and keep
+    this process's: global piece ``first_shard + i`` on ``devices[i]``."""
     out = []
     for a in arrays:
         a = torch.as_tensor(a)
-        if a.shape[0] % mesh.size:
+        if a.shape[0] % mesh.global_shards:
             raise ValueError(f"{a.shape[0]} rows do not split over "
-                             f"{mesh.size} shards")
-        n = a.shape[0] // mesh.size
-        out.append([a[i * n:(i + 1) * n].to(dev).contiguous()
-                    for i, dev in enumerate(mesh.devices)])
+                             f"{mesh.global_shards} shards")
+        n = a.shape[0] // mesh.global_shards
+        out.append([a[g * n:(g + 1) * n].to(dev).contiguous()
+                    for g, dev in enumerate(mesh.devices, mesh.first_shard)])
     return tuple(out)
+
+
+def shard_process_local(mesh: Mesh, *arrays) -> tuple[list, ...]:
+    """This process's rows only (the counterpart of
+    ``jax.make_array_from_process_local_data``): each array's leading axis,
+    the rows of global shards ``first_shard`` .. ``first_shard + L - 1`` in
+    order, split into ``local_shards`` equal pieces, one on each device."""
+    local = Mesh(mesh.devices)
+    return shard_corpus(local, *arrays)
 
 
 def replicate(mesh: Mesh, *arrays) -> tuple[list, ...]:
@@ -132,14 +236,18 @@ def replicate(mesh: Mesh, *arrays) -> tuple[list, ...]:
 
 
 def _merge_topk(mesh: Mesh, local_d, local_e, k: int):
-    """The winners-only merge: each shard's [Q, k'] (dists, ids) copied to
-    ``mesh.devices[0]``, laid out shard-major per query ([Q, S*k'], as the
-    reference's ``moveaxis(all_gather(...), 0, 1).reshape``), and the k
-    smallest taken by a stable sort, so ties go to the earlier shard and
-    position as ``lax.top_k``'s do.  Non-finite results get id -1."""
+    """The winners-only merge: each local shard's [Q, k'] (dists, ids)
+    stacked on ``mesh.devices[0]``, the ranks' stacks gathered in rank order
+    (the global [S, Q, k'], as the reference's ``all_gather``), laid out
+    shard-major per query ([Q, S*k'], as its ``moveaxis(...).reshape``), and
+    the k smallest taken by a stable sort, so ties go to the earlier shard
+    and position as ``lax.top_k``'s do; every rank takes the same selection.
+    Non-finite results get id -1."""
     dev0 = mesh.devices[0]
-    d_all = torch.stack([d.to(dev0) for d in local_d])       # [S, Q, k']
-    e_all = torch.stack([e.to(dev0) for e in local_e])
+    d_all = _gather_ranks(mesh, torch.stack(
+        [d.to(dev0) for d in local_d])).flatten(0, 1)         # [S, Q, k']
+    e_all = _gather_ranks(mesh, torch.stack(
+        [e.to(dev0) for e in local_e])).flatten(0, 1)
     s, qn, kk = d_all.shape
     d_flat = d_all.transpose(0, 1).reshape(qn, s * kk)
     e_flat = e_all.transpose(0, 1).reshape(qn, s * kk)
@@ -150,9 +258,11 @@ def _merge_topk(mesh: Mesh, local_d, local_e, k: int):
                              torch.full_like(out_e, -1))
 
 
-def _global(slots: torch.Tensor, shard: int, n_s: int) -> torch.Tensor:
-    """Shard-local slots to global slot ids (-1 stays -1)."""
-    return torch.where(slots >= 0, slots + shard * n_s,
+def _global(mesh: Mesh, slots: torch.Tensor, i: int,
+            n_s: int) -> torch.Tensor:
+    """Local shard ``i``'s slots to global slot ids (-1 stays -1), by its
+    global index (the reference's ``axis_index``)."""
+    return torch.where(slots >= 0, slots + (mesh.first_shard + i) * n_s,
                        torch.full_like(slots, -1))
 
 
@@ -194,34 +304,37 @@ def sharded_knn(mesh: Mesh, k: int, metric: str = "l2"):
             d, idx = blocked_knn(qi, base[i], valid[i], k, metric,
                                  b_norms=norms[i],
                                  block_n=min(EXACT_BLOCK_N, max(n_s, 1)))
-            return d, _global(idx, i, n_s)
+            return d, _global(mesh, idx, i, n_s)
         return _search_shards(mesh, k, q, local)
     return fn
 
 
 def dp_knn(mesh: Mesh, k: int, metric: str = "l2"):
-    """Query-sharded exact kNN: the queries split over the shards (Q must
-    divide by the shard count), the corpus replicated.
+    """Query-sharded exact kNN: the queries split over the global shards (Q
+    must divide by their count), the corpus replicated; the ranks' rows of
+    results gathered in rank order.
 
     fn: (q [Q, d], base, valid, norms (replicated)) -> (dists [Q, k], slot
     ids [Q, k]) on the first device."""
 
     def fn(q, base, valid, norms):
         q = torch.as_tensor(q, dtype=torch.float32)
-        if q.shape[0] % mesh.size:
+        if q.shape[0] % mesh.global_shards:
             raise ValueError(f"{q.shape[0]} queries do not split over "
-                             f"{mesh.size} shards")
-        m = q.shape[0] // mesh.size
+                             f"{mesh.global_shards} shards")
+        m = q.shape[0] // mesh.global_shards
         ds, ix = [], []
         for i, dev in _shards(mesh):
             b = _rep(base, i, dev)
-            d, idx = blocked_knn(q[i * m:(i + 1) * m].to(dev), b,
+            g = mesh.first_shard + i
+            d, idx = blocked_knn(q[g * m:(g + 1) * m].to(dev), b,
                                  _rep(valid, i, dev), k, metric,
                                  b_norms=_rep(norms, i, dev),
                                  block_n=min(EXACT_BLOCK_N, max(b.shape[0], 1)))
             ds.append(d.to(mesh.devices[0]))
             ix.append(idx.to(mesh.devices[0]))
-        return torch.cat(ds), torch.cat(ix)
+        return (_gather_ranks(mesh, torch.cat(ds)).flatten(0, 1),
+                _gather_ranks(mesh, torch.cat(ix)).flatten(0, 1))
     return fn
 
 
@@ -244,7 +357,7 @@ def sharded_knn_int8(mesh: Mesh, k: int, metric: str = "l2",
                 b_norms=norms[i], block_n=min(EXACT_BLOCK_N, max(n_s, 1)),
                 resid=resid[i] if residual else None,
                 rscales=rscales[i] if residual else None)
-            return d, _global(idx, i, n_s)
+            return d, _global(mesh, idx, i, n_s)
         return _search_shards(mesh, k, q, local)
     return fn
 
@@ -282,12 +395,13 @@ def _lloyd_partials(rows, n: int, cb: torch.Tensor, w=None):
 
 
 def _psum(mesh: Mesh, parts):
-    """The shards' partials added in shard order on the first device."""
+    """The local shards' partials added in shard order on the first device,
+    then the ranks' sums added (an ``all_reduce``)."""
     dev0 = mesh.devices[0]
     total = parts[0].to(dev0)
     for p in parts[1:]:
         total = total + p.to(dev0)
-    return total
+    return _sum_ranks(mesh, total)
 
 
 def sharded_kmeans_step(mesh: Mesh):
@@ -443,7 +557,7 @@ def sharded_fused_raw8(mesh: Mesh, k: int, pool: int, w: int,
             cand = _pool_select_cand(qi, cvec[i][0], metric, fused_int8_pool,
                                      (base8[i], off[i], ssc[i]), pool, w)
             d, slots = blocked_rerank(qi, base[i], cand, k, metric, rb=pool)
-            return d, _global(slots, i, base[i].shape[0])
+            return d, _global(mesh, slots, i, base[i].shape[0])
         return _search_shards(mesh, k, q, local)
     return fn
 
@@ -463,7 +577,7 @@ def sharded_fused_raw8g(mesh: Mesh, k: int, pool: int, w: int,
                                      (base8[i], off[i], sv[i][0], sgn),
                                      pool, w)
             d, slots = blocked_rerank(qi, base[i], cand, k, metric, rb=pool)
-            return d, _global(slots, i, base[i].shape[0])
+            return d, _global(mesh, slots, i, base[i].shape[0])
         return _search_shards(mesh, k, q, local)
     return fn
 
@@ -490,7 +604,7 @@ def sharded_fused_int8(mesh: Mesh, k: int, pool: int, w: int,
                 qi, packed[i], scales[i], cand, k, metric, rb=pool,
                 b_norms=norms[i], resid=resid[i] if residual else None,
                 rscales=rscales[i] if residual else None)
-            return d, _global(slots, i, packed[i].shape[0])
+            return d, _global(mesh, slots, i, packed[i].shape[0])
         return _search_shards(mesh, k, q, local)
     return fn
 
@@ -725,9 +839,15 @@ class ShardedDatabase:
         ``codebooks`` were trained under (pass ``np.arange(dim)`` for
         codebooks trained without one: codebooks of a default-config index
         live in permuted space)."""
+        if mesh.group is not None:
+            raise ValueError(
+                "ShardedDatabase is single-controller (one process holds the "
+                "id map, the slot allocator and the metadata mirrors), as the "
+                "reference's is: a mesh that spans processes runs the sharded "
+                "programs (sharded_knn, sharded_fused_raw8, ...) only")
         self.mesh = mesh
         self.metric = metric
-        self.n_shards = mesh.size
+        self.n_shards = mesh.global_shards
         self._devices = list(mesh.devices)
         if vectors is not None:
             n, dim = vectors.shape
