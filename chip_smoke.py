@@ -232,7 +232,56 @@ name and power limit):
                   exact and every row at its floor (EXAMPLE_FLOORS: this
                   script's first full run on an H100 less 0.01).
 
-Every path of phases 4-12 runs with all kernel launch counts set to 0 just
+ 13. the reference's cross-cutting suites (tests/test_oracle_fuzz.py,
+               test_robustness.py, test_round2_fixes.py-test_round5_fixes.py,
+               test_native_storage.py) at 100k x 512 through the kernels:
+               a. CRUD against a float64 oracle (plain torch on the card)
+                  after churn: add 100,000 -> delete 10,000 -> re-add 2,000
+                  of the deleted ids (1,024 of them x10, past 1% of the
+                  live rows, so the global shadow's clip rebuild runs) ->
+                  reload (close, then build from the storage path) -> add
+                  20,000 -> delete 10,000 on five databases (raw L2 and raw
+                  cosine on the flagship's gaussian rows, compressed and
+                  compressed + residual on the same, raw L2 with nlist 256
+                  on the memory-bound spectral rows); after every step
+                  1,024 noisy copies of live rows (sigma 0.01) and 16
+                  single queries in each mode: scan_pallas_int8 per-row
+                  L2 and cosine (fused_int8_pool), global
+                  (fused_int8g_pool), scan_pallas (fused_raw_pool) and
+                  compressed + residual (fused_packed_pool) by the
+                  exact-set rule of test_oracle_fuzz.py:24-51 over the pool
+                  the search scored, with the rule over the whole live set
+                  printed (a 2,048-bucket pool keeps one row of ~50), the
+                  raw stores' distances equal to the oracle's; compressed
+                  (fused_packed_pool), adc_fast (pq_decode_recon_t), fused
+                  (fused_adc_pool) and scan_ivf at nprobe 32
+                  (fused_ivf_pool) at PERF.md's floor and at a fresh
+                  build's recall less 0.01; no dead id, no -1, ascending
+                  distances; after the last step the raw shadows against
+                  the store requantized under their cached conditioning,
+                  and each kernel against its plain version at the
+                  arguments of its mode's last search;
+               b. 1, 2, 4 and 8 threads x 4 search_batch calls bit-equal to
+                  one thread (raw scan_pallas_int8, compressed +
+                  residual), then a writer (add_batch of 1,000, 500
+                  delete_vector, rebuild_index) racing 4 searchers, again
+                  with one searcher on a CUDA stream of its own: every row
+                  sorted, free of -1 and of ids deleted before its search
+                  began, every added id first for its own vector;
+               c. two children (durability "flush" and "fsync") build a
+                  CUDA VectorDatabase with a storage path, take 100,000
+                  rows by add_batch, 1,000 add_vector and 100
+                  delete_vector, print each acknowledged op and SIGKILL
+                  themselves; reopened on the card, every acknowledged add
+                  is there (get_vector bit-equal, first for its own
+                  vector) and no acknowledged delete;
+               d. IndexType.HNSW at 4,096 x 128 with flush_min=512 and
+                  flush_chunk=256, batches of 256: no add_batch connects
+                  more than flush_chunk rows, every pending row is first
+                  for its own vector, recall@10 within 0.02 of full
+                  flushes.
+
+Every path of phases 4-13 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
 its time, its plain version's, its launches on the main path, its bound at
 the timed shape: the larger of its bytes over 3.35 TB/s and its operations
@@ -242,6 +291,7 @@ call computes the same function, else null), and as the last line
 script exits non-zero without that line; so does a machine without CUDA.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -3340,6 +3390,859 @@ def phase_span():
     return counts
 
 
+# ---------------------------------------------------------------- phase 13
+#: 13a: bench.py's two 100k x 512 corpora, the flagship's gaussian rows
+#: (bench.py:36-46) and the memory-bound spectral rows (bench.py:148-166),
+#: each mode on the corpus of its PERF.md section 2 floor
+N_CROSS = 100_000
+CAP_CROSS = 131_072
+CROSS_DELETE, CROSS_READD, CROSS_ADD = 10_000, 2_000, 20_000
+#: re-added rows scaled x10: more than 1% of the live rows then clip against
+#: the global shadow's scale, so its clip rebuild runs
+CROSS_WIDE = 1_024
+CROSS_SINGLE = 16
+#: checkpoints only at the reload step (close + build): the WAL carries every
+#: op in between; 13c runs the default interval
+CROSS_FLUSH = 1 << 30
+CROSS_DBS = {  # name -> (corpus, metric, HnswPqConfig fields)
+    "gauss": ("gauss", "l2", dict(CFG)),
+    "cosine": ("gauss", "cosine", dict(CFG, search_mode="scan_pallas_int8")),
+    "packed": ("gauss", "l2", dict(CFG, raw_store=False,
+                                   search_mode="scan_pallas_int8")),
+    "resid": ("gauss", "l2", dict(CFG, raw_store=False, refine_residual=True,
+                                  search_mode="scan_pallas_int8")),
+    "spectral": ("spectral", "l2", dict(CFG, nlist=256, nprobe=32)),
+}
+#: (label, database, config fields set for the search, kernel, exact, floor)
+#: floors: PERF.md section 2 (raw exhaustive modes 0.95, compressed
+#: scan_pallas_int8 0.96, memory-bound adc_fast and fused 0.96, scan_ivf 0.93)
+CROSS_MODES = (
+    ("per_row l2", "gauss", dict(search_mode="scan_pallas_int8",
+                                 int8_epilogue="per_row"),
+     "fused_int8_pool", True, 0.95),
+    ("global l2", "gauss", dict(search_mode="scan_pallas_int8",
+                                int8_epilogue="global"),
+     "fused_int8g_pool", True, 0.95),
+    ("scan_pallas l2", "gauss", dict(search_mode="scan_pallas",
+                                     int8_epilogue="per_row"),
+     "fused_raw_pool", True, 0.95),
+    ("per_row cosine", "cosine", {}, "fused_int8_pool", True, 0.95),
+    ("compressed", "packed", {}, "fused_packed_pool", False, 0.96),
+    ("compressed + residual", "resid", {}, "fused_packed_pool", True, 0.96),
+    ("adc_fast", "spectral", dict(search_mode="adc_fast", adc_pool="approx"),
+     "pq_decode_recon_t", False, 0.96),
+    ("adc_fast fused", "spectral", dict(search_mode="adc_fast",
+                                        adc_pool="fused"),
+     "fused_adc_pool", False, 0.96),
+    ("scan_ivf", "spectral", dict(search_mode="scan_ivf"), "fused_ivf_pool",
+     False, 0.93),
+)
+#: 13b: thread counts, calls a thread, and the writer's race
+CROSS_THREADS = (1, 2, 4, 8)
+RACE_ADDS, RACE_DELETES = 1_000, 500
+#: 13c: the crash child's writes after its add_batch
+CRASH_ADDS, CRASH_DELETES = 1_000, 100
+#: 13d: phase 9's sequential-insert shape, TestBoundedFlush's checks
+FLUSH_MIN, FLUSH_CHUNK, FLUSH_BATCH = 512, 256, 256
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside do not count toward the path's: the checks'
+    own calls (a kernel against its plain version, fresh builds)."""
+    from vector_db_torch.ops import kernels as kn
+
+    saved = {name: getattr(kn, name).launches for name in KERNELS}
+    try:
+        yield
+    finally:
+        for name, c in saved.items():
+            getattr(kn, name).launches = c
+
+
+@contextlib.contextmanager
+def spying(targets):
+    """Wrap each (module, name): every call runs as before and its
+    arguments and result are kept in ``seen[name]`` (the last call's)."""
+    seen, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            seen[_name] = (a, kw, out)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, spy)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def kernel_sites():
+    """The (module, name) of every kernel call on the index path."""
+    import vector_db_torch.index.hnsw_pq as hp
+    import vector_db_torch.ops.adc as adc
+    import vector_db_torch.ops.ivf_scan as ivs
+
+    return ([(hp, n) for n in ("fused_int8_pool", "fused_int8g_pool",
+                               "fused_packed_pool", "fused_raw_pool")]
+            + [(adc, "pq_decode_recon_t"), (adc, "fused_adc_pool"),
+               (ivs, "fused_ivf_pool")])
+
+
+class Oracle:
+    """The live set as the oracle sees it: rows by external id on the card,
+    distances in float64 by plain torch (not the port's blocked_knn)."""
+
+    def __init__(self, n_ids):
+        self.rows = torch.zeros(n_ids, DIM, device=DEVICE)
+        self.alive = torch.zeros(n_ids, dtype=torch.bool, device=DEVICE)
+
+    def copy(self):
+        other = Oracle(0)
+        other.rows, other.alive = self.rows.clone(), self.alive.clone()
+        return other
+
+    def put(self, ids, rows):
+        self.rows[ids] = rows
+        self.alive[ids] = True
+
+    def drop(self, ids):
+        self.alive[ids] = False
+
+    def live_ids(self):
+        return torch.nonzero(self.alive).flatten()
+
+    def dist(self, q, metric):
+        """[Q, ids] float64 distances, +inf at dead ids."""
+        q64, r64 = q.double(), self.rows.double()
+        if metric == "cosine":
+            qn = q64 / q64.norm(dim=1, keepdim=True).clamp(min=1e-300)
+            rn = r64 / r64.norm(dim=1, keepdim=True).clamp(min=1e-300)
+            d = 1.0 - qn @ rn.T
+        else:
+            d = ((q64 * q64).sum(1)[:, None] + (r64 * r64).sum(1)[None, :]
+                 - 2.0 * (q64 @ r64.T)).clamp_(min=0.0)
+        return d.masked_fill_(~self.alive[None, :], float("inf"))
+
+
+def as_arrays(rows):
+    """SearchResult rows -> (ids [Q, K] int64, dists [Q, K] f64) on the
+    card, -1 / +inf where a row is short."""
+    ids = torch.full((len(rows), K), -1, dtype=torch.long)
+    dists = torch.full((len(rows), K), float("inf"), dtype=torch.float64)
+    for i, row in enumerate(rows):
+        if row:
+            ids[i, :len(row)] = torch.tensor([r.id for r in row])
+            dists[i, :len(row)] = torch.tensor([r.distance for r in row],
+                                               dtype=torch.float64)
+    return ids.to(DEVICE), dists.to(DEVICE)
+
+
+def tie_band(d, k):
+    """Per row of a [Q, c] f64 matrix: (kth, eps) of the reference's
+    oracle (test_oracle_fuzz.py:24-51): eps = 1e-4 (1 + |kth|)."""
+    kth = torch.topk(d, k, dim=1, largest=False).values[:, -1]
+    return kth, 1e-4 * (1.0 + kth.abs())
+
+
+def exact_set(ids, d_got, d_pool, n_live):
+    """The exact-set rule per query: ``must`` (strictly inside the top-k by
+    more than eps) in the result, the result inside ``ok`` (within eps of
+    the k-th), k distinct ids (or every live one).  ``d_got`` [Q, K] is the
+    oracle's distance of each returned id (+inf for -1 or an id outside the
+    pool), ``d_pool`` [Q, c] the oracle's distances over the set the result
+    must be exact on.  Returns a [Q] bool."""
+    k = min(K, n_live)
+    kth, eps = tie_band(d_pool, k)
+    n_must = (d_pool < (kth - eps)[:, None]).sum(1)
+    got = ids[:, :k]
+    srt = torch.sort(got, dim=1).values
+    distinct = (srt[:, 1:] != srt[:, :-1]).all(1) if k > 1 else \
+        torch.ones_like(kth, dtype=torch.bool)
+    inside = (d_got[:, :k] <= (kth + eps)[:, None]).all(1)
+    has_must = (d_got[:, :k] < (kth - eps)[:, None]).sum(1) == n_must
+    return (got >= 0).all(1) & distinct & inside & has_must
+
+
+def hold_rows(label, ids, dists, oracle):
+    """No dead ids, no -1 (k ids a row), distances ascending."""
+    live = oracle.alive[ids.clamp(min=0)] & (ids >= 0)
+    sorted_ok = bool((dists[:, 1:] >= dists[:, :-1]).all())
+    if not bool(live.all()) or not sorted_ok:
+        raise RuntimeError(f"{label}: {int((~live).sum())} dead or missing "
+                           f"ids, ascending distances {sorted_ok}")
+
+
+def hold_exact(label, ids, dists, d_full, cands, st_ids, oracle, slack):
+    """The exact modes: the exact-set rule over the pool the search scored
+    (``cands``: its candidate slots, from the search itself) for every
+    query and, on a raw store (an f32 refine; ``slack`` [Q, K] its
+    rounding, else None), reported distances equal to the oracle's within
+    its eps plus that slack; the exact-set rule over the whole live set is
+    printed (a strided-bucket pool keeps one row of ~50 a bucket, so at
+    100k rows a neighbour can lose its bucket: the pool modes are exact
+    over their pool, the reference's at any size)."""
+    n_live = int(oracle.alive.sum())
+    d_got = d_full.gather(1, ids.clamp(min=0))
+    d_got = torch.where(ids >= 0, d_got, float("inf"))
+    dist_ok = slack is None or bool(
+        ((dists - d_got).abs() <= 1e-4 * (1.0 + d_got.abs()) + slack).all())
+    whole = exact_set(ids, d_got, d_full, n_live)
+    cand_ids = torch.where(cands >= 0, st_ids[cands.clamp(min=0).long()]
+                           .long(), -1)
+    d_pool = torch.where(cand_ids >= 0, d_full.gather(
+        1, cand_ids.clamp(min=0)), float("inf"))
+    in_pool = (ids[:, :, None] == cand_ids[:, None, :]).any(2)
+    pool_rule = exact_set(ids, torch.where(in_pool, d_got, float("inf")),
+                          d_pool, n_live)
+    say(f"phase {label}: exact over the pool {int(pool_rule.sum())}/"
+        f"{ids.shape[0]}, exact over the live set {int(whole.sum())}/"
+        f"{ids.shape[0]}, distances equal the oracle's "
+        f"{dist_ok if slack is not None else '(not an f32 refine)'}")
+    if not bool(pool_rule.all()) or not dist_ok:
+        raise RuntimeError(f"{label}: not exact over its pool")
+    return int(whole.sum())
+
+
+def f32_slack(q, ids, oracle, metric):
+    """The f32 refine's rounding of an L2 distance by the norm identity,
+    |q|^2 + |v|^2 - 2 q.v: a few ulps of |q|^2 + |v|^2 (cosine's distances
+    are of unit rows: none)."""
+    if metric != "l2":
+        return torch.zeros(ids.shape, dtype=torch.float64, device=DEVICE)
+    qn = (q.double() ** 2).sum(1)
+    vn = (oracle.rows[ids.clamp(min=0)].double() ** 2).sum(-1)
+    return 1e-5 * (qn[:, None] + vn)
+
+
+def cross_recall(ids, d_full):
+    gt = torch.topk(d_full, K, dim=1, largest=False).indices
+    return float((ids[:, :, None] == gt[:, None, :]).any(2).sum()) / (
+        K * ids.shape[0])
+
+
+def cross_queries(oracle, gen):
+    """1,024 noisy copies (sigma 0.01) of live rows, drawn anew."""
+    live = oracle.live_ids()
+    pick = live[torch.randint(0, live.numel(), (NQ,), device=DEVICE,
+                              generator=gen)]
+    return oracle.rows[pick] + 0.01 * torch.randn(
+        NQ, DIM, device=DEVICE, generator=gen)
+
+
+def cross_db(name, path):
+    from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
+
+    _, metric, cfg = CROSS_DBS[name]
+    return VectorDatabase(DIM, CAP_CROSS, IndexType.HNSWPQ, metric, path,
+                          index_config=HnswPqConfig(**cfg),
+                          flush_interval=CROSS_FLUSH, device=DEVICE)
+
+
+def cross_schedule():
+    """The reference's schedule scaled: per step (op, ids, gaussian rows,
+    spectral rows); re-added rows are new draws, CROSS_WIDE of them x10."""
+    g = torch.Generator(device=DEVICE).manual_seed(1301)
+    scale = spectrum()
+    live = torch.ones(N_CROSS + CROSS_ADD, dtype=torch.bool, device=DEVICE)
+    live[N_CROSS:] = False
+    deleted = []
+
+    def rows(n, wide=0):
+        gauss = torch.randn(n, DIM, device=DEVICE, generator=g)
+        gauss[:wide] *= 10.0
+        return gauss, torch.randn(n, DIM, device=DEVICE, generator=g) * scale
+
+    def victims():
+        ids = torch.nonzero(live).flatten()
+        out = ids[torch.randperm(ids.numel(), device=DEVICE,
+                                 generator=g)[:CROSS_DELETE]]
+        live[out] = False
+        deleted.append(out)
+        return out
+
+    steps = [("add", torch.arange(N_CROSS, device=DEVICE), *rows(N_CROSS))]
+    steps.append(("delete", victims(), None, None))
+    readd = deleted[0][:CROSS_READD]
+    live[readd] = True
+    steps.append(("re-add", readd, *rows(CROSS_READD, CROSS_WIDE)))
+    steps.append(("reload", None, None, None))
+    new = torch.arange(N_CROSS, N_CROSS + CROSS_ADD, device=DEVICE)
+    live[new] = True
+    steps.append(("add", new, *rows(CROSS_ADD)))
+    steps.append(("delete", victims(), None, None))
+    return steps
+
+
+def cross_apply(dbs, paths, op, ids, rows_by_corpus):
+    """One step on every database; returns the new handles after a
+    reload."""
+    for name, db in list(dbs.items()):
+        corpus = CROSS_DBS[name][0]
+        if op in ("add", "re-add"):
+            got = db.add_batch(ids.tolist(), rows_by_corpus[corpus])
+            if len(got) != ids.numel():
+                raise RuntimeError(f"13a {name}: {op} accepted {len(got)} "
+                                   f"of {ids.numel()}")
+        elif op == "delete":
+            for vid in ids.tolist():
+                if not db.delete_vector(vid):
+                    raise RuntimeError(f"13a {name}: delete {vid} refused")
+        else:
+            db.close()
+            dbs[name] = cross_db(name, paths[name])
+    torch.cuda.synchronize()
+
+
+def fresh_index(name, oracle):
+    """An index built anew from the live set under the database's
+    config."""
+    from vector_db_torch import HnswPqConfig
+    from vector_db_torch.index.hnsw_pq import HnswPqIndex
+
+    _, metric, cfg = CROSS_DBS[name]
+    ids = oracle.live_ids()
+    rows = oracle.rows[ids]
+    index = HnswPqIndex(DIM, CAP_CROSS, metric, HnswPqConfig(**cfg),
+                        device=DEVICE)
+    if cfg.get("raw_store", True):
+        index.bulk_load(ids.tolist(), rows)
+    else:
+        step = 32_768
+        index.bulk_load_stream((ids[s:s + step].tolist(), rows[s:s + step])
+                               for s in range(0, ids.numel(), step))
+    return index
+
+
+def set_mode(index, fields):
+    for key, value in fields.items():
+        setattr(index.config, key, value)
+
+
+def cross_check(step, dbs, oracles, gens, last):
+    """Every mode after one step: the exact modes by the exact-set rule over
+    their pool and the oracle's distances, the approximate ones at their
+    floor and at a fresh build's recall less 0.01; no dead ids, no -1,
+    ascending distances everywhere.  On the last step, returns the
+    arguments each kernel got in its mode's batch search (Q=1,024)."""
+    import vector_db_torch.index.hnsw_pq as hp
+
+    queries = {c: cross_queries(o, gens[c]) for c, o in oracles.items()}
+    fresh, captured, dist = {}, {}, {}
+    for label, name, fields, kernel, exact, floor in CROSS_MODES:
+        t0 = time.perf_counter()
+        db = dbs[name]
+        corpus, metric, _ = CROSS_DBS[name]
+        oracle, q = oracles[corpus], queries[corpus]
+        set_mode(db.index, fields)
+        with spying([(hp, "_pool_select_cand")] + kernel_sites()) as seen:
+            ids, dists = as_arrays(db.search_batch(q, K))
+            cands = seen.get("_pool_select_cand", (None, None, None))[2]
+            if last:
+                captured[label] = dict(seen)
+            singles, single_cands = [], []
+            for i in range(CROSS_SINGLE):
+                singles.append(db.search(q[i], K))
+                if exact:
+                    single_cands.append(seen["_pool_select_cand"][2][:1])
+        s_ids, s_dists = as_arrays(singles)
+        if metric == "l2":  # the facade reports the L2 distance, not its square
+            dists, s_dists = dists.square(), s_dists.square()
+        if (corpus, metric) not in dist:
+            dist[corpus, metric] = oracle.dist(q, metric)
+        d_full = dist[corpus, metric]
+        d_single = d_full[:CROSS_SINGLE]
+        tag = f"13a {label} after {step}"
+        hold_rows(tag, ids, dists, oracle)
+        hold_rows(tag + " (single queries)", s_ids, s_dists, oracle)
+        rec = cross_recall(ids, d_full)
+        note = ""
+        if exact:
+            st_ids = db.index.store.state.ids
+            slack = (f32_slack(q, ids, oracle, metric)
+                     if db.index.store.raw else None)
+            hold_exact(tag, ids, dists, d_full, cands, st_ids, oracle, slack)
+            hold_exact(tag + " (single queries)", s_ids, s_dists, d_single,
+                       torch.cat(single_cands), st_ids, oracle,
+                       None if slack is None else f32_slack(
+                           q[:CROSS_SINGLE], s_ids, oracle, metric))
+            hold_floor(tag, rec, floor)
+        else:
+            if name not in fresh:
+                with uncounted():
+                    fresh[name] = fresh_index(name, oracle)
+            set_mode(fresh[name], fields)
+            with uncounted():
+                f_ids = torch.as_tensor(fresh[name].search_batch(q, K)[0],
+                                        device=DEVICE).long()
+            f_rec = cross_recall(f_ids, d_full)
+            note = f" (a fresh build: {f_rec})"
+            hold_floor(tag, rec, max(floor, f_rec - 0.01), note)
+        say(f"phase {tag}: single queries recall@10="
+            f"{cross_recall(s_ids, d_single)}")
+        timing(f"phase {tag} checked (Q={NQ} + {CROSS_SINGLE} single)",
+               time.perf_counter() - t0, "s")
+    del fresh, dist
+    torch.cuda.empty_cache()
+    return captured
+
+
+def hold_global_rebuild(db, before):
+    """The re-add's wide rows clipped against the global shadow's scale
+    past 1% of the live rows: the search rebuilt it (a new, wider sv)."""
+    base8, off, sv, sgn, cvec = db.index._scan8g_shadow()
+    sv1 = float(sv)
+    say(f"phase 13a global shadow: sv {before} -> {sv1} after the re-add, "
+        f"clipped since the rebuild {db.index._scan8g_clipped}")
+    if not (sv1 > 2 * before and db.index._scan8g_clipped == 0):
+        raise RuntimeError("13a: the clip rebuild of the global shadow did "
+                           "not run")
+
+
+def hold_shadows(db, label):
+    """The churned raw-store shadows against the store requantized whole
+    under their cached conditioning: the int8 rows and the bf16 rows equal,
+    the offsets within 1e-5 relative (a product with the centering, whose
+    summation order may differ by batch)."""
+    import vector_db_torch.index.hnsw_pq as hp
+
+    idx = db.index
+    st = idx.store.state
+    n, d = st.vectors.shape
+    metric = idx.metric
+    checks = {}
+    if idx._scan8_cache is not None:
+        base8, off, sc, cvec = idx._scan8_cache[1]
+        r8, off_s, sc_s = hp._quantize_shadow_rows(
+            st.vectors, st.norms, st.valid, cvec, idx._scan8_aux, metric)
+        checks["per_row"] = (
+            torch.equal(base8[:n, :d][st.valid], r8[st.valid])
+            and torch.equal(sc[:n][st.valid], sc_s[st.valid]), off[:n], off_s)
+    if idx._scan8g_cache is not None:
+        base8, off, sv, _, cvec = idx._scan8g_cache[1]
+        r8, off_s, _ = hp._quantize_global_rows(
+            st.vectors, st.norms, st.valid, cvec, idx._scan8g_aux, sv, metric)
+        checks["global"] = (torch.equal(base8[:n, :d][st.valid], r8[st.valid]),
+                            off[:n], off_s)
+    if idx._scan16_cache is not None:
+        base16, off, sc, cvec = idx._scan16_cache[1]
+        off_s, sc_s = hp._condition16_rows(
+            st.vectors, st.norms, st.valid, cvec, idx._scan16_aux, metric)
+        checks["bf16"] = (torch.equal(base16[:n, :d][st.valid],
+                                      st.vectors[st.valid].to(torch.bfloat16))
+                          and torch.equal(sc[:n][st.valid], sc_s[st.valid]),
+                          off[:n], off_s)
+    for kind, (rows_equal, off, off_s) in checks.items():
+        fin = torch.isfinite(off_s)
+        same_dead = torch.equal(torch.isfinite(off), fin)
+        err = float(((off - off_s).abs()[fin]
+                     / (1.0 + off_s.abs()[fin])).max())
+        say(f"phase 13a {label} {kind} shadow against the store requantized: "
+            f"rows equal {rows_equal}, dead slots equal {same_dead}, offsets "
+            f"max relative error {err}")
+        if not (rows_equal and same_dead and err <= 1e-5):
+            raise RuntimeError(f"13a {label}: the {kind} shadow is stale")
+
+
+def hold_churned_kernels(captured):
+    """Each kernel of phase 13 against its plain version at the arguments
+    of its mode's last search after the last step (the live, churned
+    shadows and tables); returns the largest errors."""
+    from vector_db_torch.ops import kernels as kn
+
+    errs = {}
+    with uncounted():
+        for label, name, _, kernel, _, _ in CROSS_MODES:
+            a, kw, _ = captured[label][kernel]
+            tag = f"phase 13a {label}: {kernel} on the churned shadow"
+            if kernel in ("fused_int8_pool", "fused_int8g_pool",
+                          "fused_packed_pool"):
+                err = hold_s8_pool(tag, getattr(kn, kernel)(*a, **kw),
+                                   getattr(kn, kernel + "_plain")(*a, **kw))
+            elif kernel == "fused_raw_pool":
+                q, base16, off, sc, w = a
+                err = hold_float_pool(
+                    tag, kn.fused_raw_pool(*a), kn.fused_raw_pool_plain(*a),
+                    lambda s: kn.raw_pool_terms(q, base16, off, sc, s),
+                    kn.pool_width(w))
+            elif kernel == "fused_adc_pool":
+                q, codes, cbt, norms, w = a
+                err = hold_float_pool(
+                    tag, kn.fused_adc_pool(*a), kn.fused_adc_pool_plain(*a),
+                    lambda s: kn.adc_pool_terms(q, codes, cbt, norms, s),
+                    kn.pool_width(w))
+            elif kernel == "pq_decode_recon_t":
+                got, want = kn.pq_decode_recon_t(*a), \
+                    kn.pq_decode_recon_t_plain(*a)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                err = max_abs_err(got, want)
+                say(f"{tag} out={tuple(got.shape)} bit_equal={same} "
+                    f"max_abs_err={err}")
+                if not same:
+                    raise RuntimeError(f"{tag}: differs from plain")
+            else:  # fused_ivf_pool: bit-equal on the rows the merge reads
+                err = hold_ivf(tag, a[:5], *a[5:9])
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    return errs
+
+
+def cross_crud():
+    """13a: the schedule on five databases, every mode held after every
+    step; then the churned shadows and kernels.  Returns (the databases,
+    the oracles, the kernels' largest errors)."""
+    steps = cross_schedule()
+    paths = {name: os.path.join(WORK, f"db13_{name}") for name in CROSS_DBS}
+    for p in paths.values():
+        shutil.rmtree(p, ignore_errors=True)
+    dbs = {name: cross_db(name, p) for name, p in paths.items()}
+    # ids: the schedule's, then the two races' adds (13b)
+    oracles = {c: Oracle(N_CROSS + CROSS_ADD + 2 * RACE_ADDS)
+               for c in ("gauss", "spectral")}
+    gens = {c: torch.Generator(device=DEVICE).manual_seed(1302 + i)
+            for i, c in enumerate(oracles)}
+    sv_before = None
+    for i, (op, ids, gauss, spec) in enumerate(steps):
+        t0 = time.perf_counter()
+        if op == "re-add":
+            sv_before = float(dbs["gauss"].index._scan8g_cache[1][2])
+        cross_apply(dbs, paths, op, ids, {"gauss": gauss,
+                                          "spectral": spec})
+        if op in ("add", "re-add"):
+            oracles["gauss"].put(ids, gauss)
+            oracles["spectral"].put(ids, spec)
+        elif op == "delete":
+            for o in oracles.values():
+                o.drop(ids)
+        live = int(oracles["gauss"].alive.sum())
+        sizes = {name: db.size() for name, db in dbs.items()}
+        timing(f"phase 13a step {i} {op} on five databases (live {live})",
+               time.perf_counter() - t0, "s")
+        if any(s != live for s in sizes.values()):
+            raise RuntimeError(f"13a after {op}: sizes {sizes} != {live}")
+        captured = cross_check(f"step {i} {op}", dbs, oracles, gens,
+                               i == len(steps) - 1)
+        if op == "re-add":
+            hold_global_rebuild(dbs["gauss"], sv_before)
+    for name in ("gauss", "cosine"):
+        hold_shadows(dbs[name], name)
+    errs = hold_churned_kernels(captured)
+    return dbs, oracles, errs
+
+
+def cross_threads(db, label, queries):
+    """13b: 1, 2, 4 and 8 threads, four search_batch calls each, every
+    answer bit-equal to one thread's."""
+    import concurrent.futures
+
+    def answer():
+        return [[(r.id, r.distance) for r in row]
+                for row in db.search_batch(queries, K)]
+
+    want = answer()
+    for threads in CROSS_THREADS:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+            got = list(ex.map(lambda _: answer(), range(4 * threads)))
+        took = time.perf_counter() - t0
+        same = all(g == want for g in got)
+        say(f"phase 13b {label}: {threads} threads x 4 search_batch "
+            f"(Q={NQ}) bit-equal to one thread: {same}")
+        timing(f"phase 13b {label} {threads} threads x 4 calls",
+               took, "s")
+        if not same:
+            raise RuntimeError(f"13b {label}: {threads} threads differ")
+
+
+def cross_race(db, label, oracle, gen, first_id, side_stream):
+    """13b: one writer (add_batch of 1,000, 500 delete_vector, rebuild_index)
+    against 4 searchers, with ``side_stream`` one of them under a CUDA
+    stream of its own: every row sorted, free of -1 and of ids deleted
+    before its search began; afterwards each added id first for its own
+    vector."""
+    import concurrent.futures
+
+    new_ids = torch.arange(first_id, first_id + RACE_ADDS, device=DEVICE)
+    new_rows = torch.randn(RACE_ADDS, DIM, device=DEVICE, generator=gen)
+    live = oracle.live_ids()
+    victims = live[torch.randperm(live.numel(), device=DEVICE,
+                                  generator=gen)[:RACE_DELETES]]
+    # queries: the victims' own rows and other live rows, barely moved
+    others = live[torch.randint(0, live.numel(), (NQ - RACE_DELETES,),
+                                device=DEVICE, generator=gen)]
+    queries = oracle.rows[torch.cat([victims, others])] + 1e-3 * torch.randn(
+        NQ, DIM, device=DEVICE, generator=gen)
+    deleted, done = [], []
+
+    def writer():
+        db.add_batch(new_ids.tolist(), new_rows)
+        for vid in victims.tolist():
+            db.delete_vector(vid)
+            deleted.append(vid)
+        db.rebuild_index()
+        done.append(True)
+        return 0
+
+    def searcher(own_stream):
+        stream = torch.cuda.Stream() if own_stream else None
+        bad = 0
+        calls = 0
+        with (torch.cuda.stream(stream) if own_stream
+              else contextlib.nullcontext()):
+            while not done or calls < 4:
+                gone = set(deleted[:len(deleted)])
+                for row in db.search_batch(queries, K):
+                    ids = [r.id for r in row]
+                    dist = [r.distance for r in row]
+                    bad += (len(ids) != K or -1 in ids
+                            or any(b < a for a, b in zip(dist, dist[1:]))
+                            or bool(gone.intersection(ids)))
+                calls += 1
+        return bad, calls
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+        w = ex.submit(writer)
+        s = [ex.submit(searcher, side_stream and i == 0) for i in range(4)]
+        w.result()
+        results = [f.result() for f in s]
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    oracle.put(new_ids, new_rows)
+    oracle.drop(victims)
+    found = [row[0].id for row in db.search_batch(new_rows, 1)]
+    first = sum(f == v for f, v in zip(found, new_ids.tolist()))
+    kind = "one searcher on its own stream" if side_stream else \
+        "default stream"
+    say(f"phase 13b {label} race ({kind}): bad rows per searcher "
+        f"{[b for b, _ in results]}, searches {[c for _, c in results]}, "
+        f"added ids first for their own vector {first}/{RACE_ADDS}, "
+        f"rows {db.size()}")
+    timing(f"phase 13b {label} race ({kind})", took, "s")
+    if any(b for b, _ in results) or first != RACE_ADDS \
+            or db.size() != int(oracle.alive.sum()):
+        raise RuntimeError(f"13b {label}: the race ({kind}) gave a wrong "
+                           "answer")
+
+
+def cross_concurrency(dbs, oracles):
+    """13b on the raw scan_pallas_int8 database and the compressed +
+    residual one."""
+    gen = torch.Generator(device=DEVICE).manual_seed(1303)
+    set_mode(dbs["gauss"].index, CROSS_MODES[0][2])
+    for label, name in (("raw scan_pallas_int8", "gauss"),
+                        ("compressed + residual", "resid")):
+        cross_threads(dbs[name], label, cross_queries(oracles[name], gen))
+    first = N_CROSS + CROSS_ADD
+    for side in (False, True):
+        for label, name in (("raw scan_pallas_int8", "gauss"),
+                            ("compressed + residual", "resid")):
+            # each database's own oracle: the two diverge in the race
+            cross_race(dbs[name], label, oracles[name], gen, first, side)
+        first += RACE_ADDS
+
+
+CRASH_CHILD = """
+import os, sys
+sys.path.insert(0, {repo!r})
+import torch
+from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
+
+g = torch.Generator(device="cuda").manual_seed({seed})
+rows = torch.randn({n}, {dim}, device="cuda", generator=g)
+more = torch.randn({adds}, {dim}, device="cuda", generator=g)
+db = VectorDatabase({dim}, {cap}, IndexType.HNSWPQ, "l2", {path!r},
+                     index_config=HnswPqConfig(**{cfg!r}),
+                     durability={durability!r}, device="cuda")
+out = sys.stdout
+acked = db.add_batch(range({n}), rows)
+out.write("B %d\\n" % len(acked)); out.flush()
+for i in range({adds}):
+    if db.add_vector({n} + i, more[i]):
+        out.write("A %d\\n" % ({n} + i)); out.flush()
+for vid in range(0, {n}, {n} // {deletes}):
+    if db.delete_vector(vid):
+        out.write("D %d\\n" % vid); out.flush()
+os.kill(os.getpid(), 9)
+"""
+
+
+def cross_crash(counts):
+    """13c: a child builds a CUDA VectorDatabase with a storage path under
+    ``flush`` and one under ``fsync`` (the two at once), takes 100,000 rows
+    by add_batch, 1,000 add_vector and 100 delete_vector, printing each
+    acknowledged op, and SIGKILLs itself; the reopened database holds every
+    acknowledged add (get_vector bit-equal, first for its own vector) and
+    none of the acknowledged deletes."""
+    from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
+
+    cfg = dict(CFG, search_mode="scan_pallas_int8")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    for dur in ("flush", "fsync"):
+        path = os.path.join(WORK, f"db13c_{dur}")
+        shutil.rmtree(path, ignore_errors=True)
+        script = CRASH_CHILD.format(
+            repo=repo, seed=1304, n=N_CROSS, adds=CRASH_ADDS,
+            deletes=CRASH_DELETES, dim=DIM, cap=CAP_CROSS, path=path, cfg=cfg,
+            durability=dur)
+        procs[dur] = (path, subprocess.Popen(
+            [sys.executable, "-c", script], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = {dur: (path, *p.communicate(timeout=600), p.returncode)
+            for dur, (path, p) in procs.items()}
+    timing("phase 13c two crash children (CUDA init, 100,000 + 1,000 adds, "
+           "100 deletes, SIGKILL)", time.perf_counter() - t0, "s")
+    g = torch.Generator(device=DEVICE).manual_seed(1304)
+    rows = torch.randn(N_CROSS, DIM, device=DEVICE, generator=g)
+    more = torch.randn(CRASH_ADDS, DIM, device=DEVICE, generator=g)
+    for dur, (path, out, err, rc) in outs.items():
+        if rc != -9:
+            raise RuntimeError(f"13c {dur}: child exit {rc}:\n{err[-3000:]}")
+        batch, adds, dels = 0, [], []
+        for line in out.splitlines():
+            op, val = line.split()
+            if op == "B":
+                batch = int(val)
+            elif op == "A":
+                adds.append(int(val))
+            else:
+                dels.append(int(val))
+        want = torch.cat([rows, more])
+        live = torch.zeros(N_CROSS + CRASH_ADDS, dtype=torch.bool,
+                           device=DEVICE)
+        live[:batch] = True
+        live[torch.tensor(adds, device=DEVICE, dtype=torch.long)] = True
+        live[torch.tensor(dels, device=DEVICE, dtype=torch.long)] = False
+        reset_launches()
+        t0 = time.perf_counter()
+        db = VectorDatabase(DIM, CAP_CROSS, IndexType.HNSWPQ, "l2", path,
+                            index_config=HnswPqConfig(**cfg), device=DEVICE)
+        torch.cuda.synchronize()
+        timing(f"phase 13c {dur} reopen on the card (checkpoint + WAL)",
+               time.perf_counter() - t0, "s")
+        ids = torch.nonzero(live).flatten()
+        host = want.cpu().numpy()
+        t0 = time.perf_counter()
+        equal = all(np.array_equal(db.get_vector(v).values, host[v])
+                    for v in ids.tolist())
+        gone = all(db.get_vector(v) is None for v in dels)
+        timing(f"phase 13c {dur} get_vector of every acknowledged add "
+               f"({ids.numel()})", time.perf_counter() - t0, "s")
+        first = 0
+        for s in range(0, ids.numel(), 8192):
+            chunk = ids[s:s + 8192]
+            got = db.search_batch(want[chunk], 1)
+            first += sum(row[0].id == v for row, v in zip(got, chunk.tolist()))
+        say(f"phase 13c {dur}: acknowledged batch {batch}, adds {len(adds)}, "
+            f"deletes {len(dels)}; reopened rows {db.size()} (want "
+            f"{ids.numel()}), every add bit-equal {equal}, every delete "
+            f"absent {gone}, first for its own vector {first}/{ids.numel()}")
+        if not (db.size() == ids.numel() and equal and gone
+                and first == ids.numel() and batch == N_CROSS):
+            raise RuntimeError(f"13c {dur}: an acknowledged op was lost")
+        for name, c in read_launches(f"13c {dur}", must_launch=(
+                "fused_int8_pool",)).items():
+            counts[name] += c
+        db.close()
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def cross_bounded_flush():
+    """13d: IndexType.HNSW at 4,096 x 128 with flush_min=512 and
+    flush_chunk=256, rows in batches of 256: each add_batch connects at
+    most flush_chunk rows, every pending row is first for its own vector
+    (the exact overlay), and the chunked graph's recall@10 is within 0.02
+    of the same index's with full flushes."""
+    from vector_db_torch import HnswConfig
+    from vector_db_torch.index.hnsw import HnswIndex
+
+    n, dim = N_STREAM, DIM_HNSW_SMALL
+    corpus = gaussian(n, dim, 1305)
+    queries = corpus[:NQ] + 0.05 * gaussian(NQ, dim, 1306)
+    gt = exact_ids(corpus, queries)
+    recs, worst = {}, 0
+    for label, chunk in (("chunked", FLUSH_CHUNK), ("full", 0)):
+        t0 = time.perf_counter()
+        index = HnswIndex(dim, n, "l2", HnswConfig(
+            flush_min=FLUSH_MIN, flush_chunk=chunk), device=DEVICE)
+        for s in range(0, n, FLUSH_BATCH):
+            before = int((index.graph.levels >= 0).sum())
+            index.add_batch(range(s, s + FLUSH_BATCH),
+                            corpus[s:s + FLUSH_BATCH])
+            grew = int((index.graph.levels >= 0).sum()) - before
+            if chunk:
+                worst = max(worst, grew)
+                if grew > chunk:
+                    raise RuntimeError(f"13d: one add_batch connected {grew}"
+                                       f" rows > flush_chunk {chunk}")
+            slots = torch.as_tensor([index.store.slot_of(i)
+                                     for i in range(s + FLUSH_BATCH)],
+                                    device=DEVICE)
+            pend = torch.nonzero(index.graph.levels[slots] < 0).flatten()
+            if pend.numel():
+                got, _ = index.search_batch(corpus[pend], 1)
+                if not np.array_equal(got[:, 0], pend.cpu().numpy()):
+                    raise RuntimeError("13d: a pending row is not first for "
+                                       "its own vector")
+        pending = index.stats()["pending_inserts"]
+        index.flush_pending()
+        took = time.perf_counter() - t0
+        recs[label] = recall(index.search_batch(queries, K)[0].tolist(), gt)
+        say(f"phase 13d {label} flush: largest rows connected by one "
+            f"add_batch {worst if chunk else '-'}, pending before the last "
+            f"flush {pending}, recall@10={recs[label]}")
+        timing(f"phase 13d HNSW {dim}-d x {n} {label} flushes "
+               f"(batches of {FLUSH_BATCH})", took, "s")
+    hold_floor("13d chunked flush", recs["chunked"], recs["full"] - 0.02,
+               " (full flushes' less 0.02)")
+
+
+def phase_crosscut():
+    """13: the reference's cross-cutting suites on the card (see the module
+    docstring); returns the launch counts of its paths and the kernels'
+    largest errors on the churned shadows."""
+    counts = {name: 0 for name in KERNELS}
+    t_start = time.perf_counter()
+    reset_launches()
+    t0 = time.perf_counter()
+    dbs, oracles, errs = cross_crud()
+    timing("phase 13a took", time.perf_counter() - t0, "s")
+    for name, c in read_launches("13a", must_launch=tuple(
+            {m[3] for m in CROSS_MODES})).items():
+        counts[name] += c
+    reset_launches()
+    t0 = time.perf_counter()
+    # the race changes the two databases apart: an oracle each
+    cross_concurrency(dbs, {"gauss": oracles["gauss"],
+                            "resid": oracles["gauss"].copy()})
+    timing("phase 13b took", time.perf_counter() - t0, "s")
+    for name, c in read_launches("13b", must_launch=(
+            "fused_int8_pool", "fused_packed_pool")).items():
+        counts[name] += c
+    for db in dbs.values():
+        db.close()
+    del dbs, oracles
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cross_crash(counts)
+    timing("phase 13c took", time.perf_counter() - t0, "s")
+    reset_launches()
+    t0 = time.perf_counter()
+    cross_bounded_flush()
+    timing("phase 13d took", time.perf_counter() - t0, "s")
+    read_launches("13d", must_not=tuple(KERNELS))
+    timing("phase 13 took", time.perf_counter() - t_start, "s")
+    say(f"phase 13: kernel launches {json.dumps(counts)}")
+    return counts, errs
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3367,6 +4270,11 @@ def main():
                    phase_sharded(), phase_span()):
         for name, c in counts.items():
             entries[name]["launches"] += c
+    counts, errs = phase_crosscut()
+    for name, c in counts.items():
+        entries[name]["launches"] += c
+    for name, err in errs.items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
     for name, entry in entries.items():
         if entry["launches"] == 0 and name not in NO_INDEX_CALLER:
             raise RuntimeError(f"the main path never launched {name}")

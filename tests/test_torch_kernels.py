@@ -9,6 +9,8 @@ epilogue can differ only in the last ulp where XLA-CPU fuses a
 multiply-add.  The decode is a gather and a round to bf16: bit-equal.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -114,6 +116,80 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
         tk._Library().get()
+
+
+def test_concurrent_first_calls_load_once(monkeypatch):
+    """Eight threads making a process's first kernel call together: one
+    build and load, and every thread gets that one handle."""
+    import threading
+    import time
+
+    lib = tk._Library()
+    calls = []
+    handle = object()
+
+    def slow_load():
+        calls.append(threading.get_ident())
+        time.sleep(0.2)
+        lib.lib = handle
+
+    monkeypatch.setattr(lib, "_load", slow_load)
+    start = threading.Barrier(8)
+    got = [None] * 8
+
+    def first_call(i):
+        start.wait(timeout=30)
+        got[i] = lib.get()
+
+    threads = [threading.Thread(target=first_call, args=(i,))
+               for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1
+    assert all(h is handle for h in got)
+
+
+def test_build_names_are_unique_per_thread(monkeypatch, tmp_path):
+    """Two threads building the same sources at once write distinct object
+    files: the names carry the pid and the thread id."""
+    import threading
+
+    import torch.utils.cpp_extension as ext
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("")
+    monkeypatch.setattr(ext, "CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "kernels")
+    both = threading.Barrier(2)
+    names = {}
+
+    class Stop(Exception):
+        pass
+
+    def popen(cmd, **kw):
+        # both threads are inside a build here, so their idents differ
+        names[threading.get_ident()] = cmd[cmd.index("-o") + 1]
+        both.wait(timeout=30)
+        raise Stop
+
+    monkeypatch.setattr(tk.subprocess, "Popen", popen)
+
+    def build():
+        with pytest.raises(Stop):
+            tk._Library().get()
+
+    threads = [threading.Thread(target=build) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(set(names.values())) == 2
+    assert all(f".{os.getpid()}.{ident}.o" in n for ident, n in names.items())
 
 
 def test_unsupported_device_raises():

@@ -685,3 +685,78 @@ def test_spanning_mesh_of_one_rank_matches_the_single_controller(tmp_path):
             assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_search_on_a_side_stream_waits_for_the_shadow_it_reads():
+    """Two readers of one database: A, on the default stream behind tens of
+    ms of queued work, rebuilds the int8 shadow (the rows it covers were
+    just added); B, in another thread whose current stream is one of its
+    own, searches as soon as A has released the cache.  The facade runs
+    both on the default stream (``core/device.on_default_stream``), so B's
+    pool reads the shadow A built, and every new row is first for its own
+    vector in both answers.  (Ordered by nothing, B's pool read the shadow
+    before the default stream had written it.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (streams and the kernels)")
+    import threading
+
+    from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n, extra, d = 20_000, 9_000, 128
+    rows = torch.randn(n + extra, d, device="cuda", generator=g)
+    db = (VectorDatabase.builder().with_dimension(d)
+          .with_max_elements(n + extra).with_index_type(IndexType.HNSWPQ)
+          .with_index_config(HnswPqConfig(num_subspaces=16,
+                                          search_mode="scan_pallas_int8"))
+          .with_device("cuda").build())
+    db.add_batch(range(n), rows[:n])
+    db.search_batch(rows[:8], 5)
+    # past max(8192, capacity / 8) rows: the next search rebuilds whole
+    db.add_batch(range(n, n + extra), rows[n:])
+    torch.cuda.synchronize()
+    a = torch.randn(4096, 4096, device="cuda", generator=g)
+    out = torch.empty_like(a)
+    side = torch.cuda.Stream()
+    idx = db.index
+    build = idx._scan8_shadow
+    built, b_done = threading.Event(), threading.Event()
+    answers = {}
+
+    def shadow():
+        value = build()
+        if threading.current_thread().name == "A":
+            built.set()
+            b_done.wait(60)
+        return value
+
+    idx._scan8_shadow = shadow
+    queries = rows[n:n + 256]
+
+    def reader_a():
+        torch.cuda.set_device(a.device)
+        for _ in range(16):  # tens of ms queued on the default stream
+            torch.mm(a, a, out=out)
+        answers["A"] = db.search_batch(queries, 1)
+
+    def reader_b():
+        built.wait(60)
+        try:
+            with torch.cuda.stream(side):
+                answers["B"] = db.search_batch(queries, 1)
+        finally:
+            b_done.set()
+
+    threads = [threading.Thread(target=reader_a, name="A"),
+               threading.Thread(target=reader_b, name="B")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    want = list(range(n, n + 256))
+    for name in ("A", "B"):
+        got = [row[0].id if row else -1 for row in answers[name]]
+        assert got == want, (name, sum(x == y for x, y in zip(got, want)))
+    db.close()

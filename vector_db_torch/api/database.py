@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import on_default_stream, resolve_device
 from ..core.types import SearchResult, Vector, make_results
 from ..index.base import VectorIndex
 from ..storage import checkpoint as ckpt
@@ -31,20 +31,22 @@ FORMAT_VERSION = 1
 
 
 def _reads(fn):
-    """Concurrent-reader facade method (utils/locks.RWLock)."""
+    """Concurrent-reader facade method (utils/locks.RWLock), its device work
+    on the device's default stream (core/device.on_default_stream)."""
     @functools.wraps(fn)
     def wrapper(self, *a, **k):
-        with self._rw.read():
+        with self._rw.read(), on_default_stream(self.device):
             return fn(self, *a, **k)
     return wrapper
 
 
 def _writes(fn):
     """Exclusive-writer facade method: the store is written in place, so
-    a write must never overlap a search or another write."""
+    a write must never overlap a search or another write, on the host or
+    on the card (the default stream, as for the readers)."""
     @functools.wraps(fn)
     def wrapper(self, *a, **k):
-        with self._rw.write():
+        with self._rw.write(), on_default_stream(self.device):
             return fn(self, *a, **k)
     return wrapper
 
@@ -466,14 +468,27 @@ class VectorDatabase:
         return True
 
     def _reconcile_wal(self) -> int:
-        """Bring the index in line with the WAL's live set.  Returns the
-        number of applied mutations (adds + deletes)."""
+        """Bring the index in line with the WAL's live set and rows.
+        Returns the number of applied mutations (adds + deletes).
+
+        An id in both whose row differs was deleted and added again after
+        the checkpoint: the WAL holds its last write, so it is replaced
+        (the reference keeps the checkpoint's row)."""
         if self._engine is None:
             return 0
         wal_ids, wal_vecs = self._engine.load(self.max_elements)
         wal_set = {int(i) for i in wal_ids}
-        index_set = set(self.index.store.ids())
+        store = self.index.store
+        index_set = set(store.ids())
         applied = 0
+        both = [i for i, vid in enumerate(wal_ids) if int(vid) in index_set]
+        if both:
+            have = store.rows([store.slot_of(int(wal_ids[i]))
+                               for i in both]).cpu().numpy()
+            stale = np.flatnonzero((have != wal_vecs[both]).any(axis=1))
+            for j in stale:
+                self.index.remove(int(wal_ids[both[j]]))
+                index_set.discard(int(wal_ids[both[j]]))
         missing = [i for i, vid in enumerate(wal_ids) if int(vid) not in index_set]
         if missing:
             self.index.add_batch([int(wal_ids[i]) for i in missing],
@@ -486,7 +501,7 @@ class VectorDatabase:
 
     def close(self) -> None:
         """Checkpoint (with a storage path) and close."""
-        with self._rw.write():
+        with self._rw.write(), on_default_stream(self.device):
             if self._closed:
                 return
             if self.storage_path:

@@ -7,6 +7,8 @@ without it raises, and tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,31 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}: cuda or cpu")
     return dev
+
+
+@contextlib.contextmanager
+def on_default_stream(device: torch.device):
+    """Run the enclosed work on ``device``'s default stream, after the work
+    the caller's current stream holds so far, and make the caller's stream
+    wait for it at the end.
+
+    The database writes its store and refreshes its caches in place, so a
+    search must run after every write acknowledged before it began: on one
+    stream the card keeps that order, whatever stream the calling thread
+    has made current (a search on a stream of its own otherwise reads rows
+    and masks the default stream has not written yet).  A no-op on the CPU
+    and for a caller already on the default stream."""
+    if device.type != "cuda":
+        yield
+        return
+    caller = torch.cuda.current_stream(device)
+    default = torch.cuda.default_stream(device)
+    if caller == default:
+        yield
+        return
+    default.wait_stream(caller)
+    try:
+        with torch.cuda.stream(default):
+            yield
+    finally:
+        caller.wait_stream(default)

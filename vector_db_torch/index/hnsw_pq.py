@@ -105,6 +105,14 @@ RECON_NORM_CHUNK = 1 << 19
 COARSE_BLOCK_ELEMS = 1 << 26
 
 
+class _DirtyRecord(list):
+    """Arrays of store slots written since a cache was built, with their
+    running row count (summing the arrays at every write made a run of
+    single-row writes quadratic in its length)."""
+
+    rows = 0
+
+
 class HnswPqIndex(DeferInsertMixin, VectorIndex):
     kind = "hnswpq"
 
@@ -215,12 +223,12 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         # incremental refresh: [] = none, None = unknown -> full rebuild.
         # _fast_dirty records re-encoded slots and has one writer,
         # _encode_slots (removals touch no code).
-        self._scan8_dirty: Optional[list] = []
-        self._scan8g_dirty: Optional[list] = []
-        self._scan16_dirty: Optional[list] = []
-        self._pack_dirty: Optional[list] = []
-        self._fast_dirty: Optional[list] = []
-        self._ivf_dirty: Optional[list] = []
+        self._scan8_dirty: Optional[list] = _DirtyRecord()
+        self._scan8g_dirty: Optional[list] = _DirtyRecord()
+        self._scan16_dirty: Optional[list] = _DirtyRecord()
+        self._pack_dirty: Optional[list] = _DirtyRecord()
+        self._fast_dirty: Optional[list] = _DirtyRecord()
+        self._ivf_dirty: Optional[list] = _DirtyRecord()
         # concurrent searches must not both refresh a cache in place; an
         # RLock: the scan_ivf layout reads the scan shadows under it
         self._cache_lock = threading.RLock()
@@ -235,8 +243,10 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         rec = getattr(self, attr)
         if rec is None:
             return
-        rec.append(np.asarray(slots, np.int64).ravel())
-        if sum(a.size for a in rec) > max(8192, self.store.capacity // 8):
+        arr = np.asarray(slots, np.int64).ravel()
+        rec.append(arr)
+        rec.rows += arr.size
+        if rec.rows > max(8192, self.store.capacity // 8):
             setattr(self, attr, None)
 
     def _note_row_mutation(self, slots: np.ndarray) -> None:
@@ -253,8 +263,8 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         """Consume a record: its unique slots on the device, or None when
         it is empty or void (the caller then rebuilds)."""
         rec = getattr(self, attr)
-        setattr(self, attr, [])
-        if not rec:
+        setattr(self, attr, _DirtyRecord())
+        if not rec or sum(a.size for a in rec) == 0:
             return None
         return torch.as_tensor(np.unique(np.concatenate(rec)),
                                device=self.device)
@@ -808,7 +818,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             self._ivf_cache = None  # free the old grid first
             lay = self._build_ivf_layout()
             self._ivf_cache = (self.store.version, lay)
-            self._ivf_dirty = []
+            self._ivf_dirty = _DirtyRecord()
             self._ivf_overlay = np.empty(0, np.int64)
             self._ivf_overlay_dev = None
             return lay

@@ -41,6 +41,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -65,17 +66,25 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 # ------------------------------------------------------------------- build
 class _Library:
-    """The kernels' shared library, built once per process and source hash."""
+    """The kernels' shared library, built once per process and source hash.
+
+    The first callers of :meth:`get` may be several threads of a server at
+    once: a lock makes one of them build and load, the others wait for its
+    handle.  Build files carry the pid and the thread id, so processes
+    sharing a checkout never write the same object file either."""
 
     def __init__(self):
         self.lib: Optional[ctypes.CDLL] = None
         self.path: Optional[Path] = None
         self.build_log = ""
         self.build_seconds = 0.0
+        self._lock = threading.Lock()
 
     def get(self) -> ctypes.CDLL:
         if self.lib is None:
-            self._load()
+            with self._lock:
+                if self.lib is None:
+                    self._load()
         return self.lib
 
     def _load(self) -> None:
@@ -96,9 +105,10 @@ class _Library:
                     "nvcc not found (CUDA_HOME is unset or has no bin/nvcc); "
                     "the CUDA kernels cannot be built")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+            tag = (f"{digest.hexdigest()[:16]}.{os.getpid()}"
+                   f".{threading.get_ident()}")
             objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            tmp = out.with_suffix(f".{tag}.tmp")
             flags = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                      "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
             t0 = time.perf_counter()
