@@ -280,8 +280,17 @@ name and power limit):
                   more than flush_chunk rows, every pending row is first
                   for its own vector, recall@10 within 0.02 of full
                   flushes.
+ 14. the flagship benchmark: vector_db_torch.bench.main([]) in-process at
+               its defaults (bench.py's configuration: 512-d x 100,000
+               gaussian rows, 64 x 8-bit subspaces, Q=1024, k=10; the
+               memory-bound adc_fast on the spectral rows), its JSON line
+               printed as "bench: {...}"; recall_at_10 >= 0.99 and
+               adc_fast_recall_at_10 >= 0.96 (PERF.md section 2);
+               pq_decode_recon_t launched, and bit-equal to its plain
+               version on the last decode of the bench's memory-bound
+               search ([64, 100,096] codes, the capacity rounded to 128).
 
-Every path of phases 4-13 runs with all kernel launch counts set to 0 just
+Every path of phases 4-14 runs with all kernel launch counts set to 0 just
 before it and read just after.  Then a JSON line of the kernels (each with
 its time, its plain version's, its launches on the main path, its bound at
 the timed shape: the larger of its bytes over 3.35 TB/s and its operations
@@ -292,6 +301,7 @@ script exits non-zero without that line; so does a machine without CUDA.
 """
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -4243,6 +4253,50 @@ def phase_crosscut():
     return counts, errs
 
 
+def phase_bench():
+    """14: ``vector_db_torch.bench.main([])`` in-process at its defaults
+    (bench.py's flagship, 512-d x 100,000, Q=1024); its JSON line printed
+    as ``bench: {...}``, its recalls held to PERF.md section 2's floors,
+    pq_decode_recon_t launched and bit-equal to its plain version on the
+    last decode of the bench's memory-bound loop.  Returns the launch
+    counts and B3's largest error."""
+    import vector_db_torch.ops.adc as adc
+    from vector_db_torch import bench
+    from vector_db_torch.ops import kernels as kn
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    reset_launches()
+    with spying([(adc, "pq_decode_recon_t")]) as seen, \
+            contextlib.redirect_stdout(out):
+        result = bench.main([])
+    counts = read_launches("14 bench", must_launch=("pq_decode_recon_t",),
+                           must_not=tuple(n for n in KERNELS
+                                          if n != "pq_decode_recon_t"))
+    line = out.getvalue().strip().splitlines()[-1]
+    say(f"bench: {line}")
+    if json.loads(line) != result:
+        raise RuntimeError("14: the bench's last line is not its result")
+    hold_floor("14 bench recall_at_10", result["recall_at_10"], 0.99)
+    hold_floor("14 bench adc_fast_recall_at_10",
+               result["adc_fast_recall_at_10"], 0.96)
+    (codes_t, cbt), _, got = seen["pq_decode_recon_t"]
+    want = kn.pq_decode_recon_t_plain(codes_t, cbt)
+    same = torch.equal(got, want)
+    err = max_abs_err(got, want)
+    say(f"phase 14 bench decode: codes_t {tuple(codes_t.shape)} cbt "
+        f"{tuple(cbt.shape)} bit_equal={same} max_abs_err={err}")
+    # the store's capacity is the row count rounded up to 128
+    if codes_t.shape[0] != DIM // 8 or not N_FLAGSHIP <= codes_t.shape[1] < (
+            N_FLAGSHIP + 128) or tuple(cbt.shape) != (DIM, 256) or not same:
+        raise RuntimeError("14: pq_decode_recon_t at the bench's shape is "
+                           "not bit-equal to its plain version")
+    del seen, got, want
+    torch.cuda.empty_cache()
+    timing("phase 14 took", time.perf_counter() - t0, "s")
+    return counts, err
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4275,6 +4329,11 @@ def main():
         entries[name]["launches"] += c
     for name, err in errs.items():
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+    counts, err = phase_bench()
+    for name, c in counts.items():
+        entries[name]["launches"] += c
+    entries["pq_decode_recon_t"]["max_abs_err"] = max(
+        entries["pq_decode_recon_t"]["max_abs_err"], err)
     for name, entry in entries.items():
         if entry["launches"] == 0 and name not in NO_INDEX_CALLER:
             raise RuntimeError(f"the main path never launched {name}")
