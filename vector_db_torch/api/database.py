@@ -24,6 +24,7 @@ from ..core.types import SearchResult, Vector, make_results
 from ..index.base import VectorIndex
 from ..storage import checkpoint as ckpt
 from ..utils.locks import RWLock
+from ..utils.stats import GLOBAL, span, timed
 from .config import (AnnoyConfig, CompressionConfig, CompressionType,
                      HnswPqConfig, IvfConfig, LshConfig, PqConfig)
 
@@ -38,6 +39,20 @@ def _reads(fn):
         with self._rw.read(), on_default_stream(self.device):
             return fn(self, *a, **k)
     return wrapper
+
+
+def _search_call(root: str):
+    """A search method: as :func:`_reads`, inside the span ``root``, the
+    call's root (utils/stats), so that the lock and the stream guard count
+    as the facade's time."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *a, **k):
+            with span(root), self._rw.read(), \
+                    on_default_stream(self.device):
+                return fn(self, *a, **k)
+        return wrapper
+    return deco
 
 
 def _writes(fn):
@@ -308,9 +323,10 @@ class VectorDatabase:
         self._check_open()
         if not hasattr(self.index, "bulk_load"):
             raise ValueError(f"index kind {self.index.kind!r} has no bulk_load")
-        accepted = self.index.bulk_load(ids, vectors)
-        if accepted and self.storage_path:
-            self._save_unlocked()
+        with span("ingest.bulk_load", wait=self.device):
+            accepted = self.index.bulk_load(ids, vectors)
+            if accepted and self.storage_path:
+                self._save_unlocked()
         return accepted
 
     @_writes
@@ -324,9 +340,10 @@ class VectorDatabase:
         if not hasattr(self.index, "bulk_load_stream"):
             raise ValueError(
                 f"index kind {self.index.kind!r} has no bulk_load_stream")
-        n = self.index.bulk_load_stream(chunks)
-        if n and self.storage_path:
-            self._save_unlocked()
+        with span("ingest.bulk_load", wait=self.device):
+            n = self.index.bulk_load_stream(chunks)
+            if n and self.storage_path:
+                self._save_unlocked()
         return n
 
     @_reads
@@ -346,27 +363,29 @@ class VectorDatabase:
         return ok
 
     # ---------------------------------------------------------------- search
-    @_reads
+    @_search_call("facade.search")
     def search(self, query, k: int) -> list[SearchResult]:
         """k-NN search for one query."""
         self._check_open()
         q = torch.as_tensor(query, dtype=torch.float32)
         if tuple(q.shape) != (self.dimension,):
             raise ValueError(f"query must have dimension {self.dimension}")
-        ids, dists = self.index.search(q, k)
-        return make_results(ids.tolist(), dists.tolist(), self.metric)
+        with span("index.search"):
+            ids, dists = self.index.search(q, k)
+        with span("facade.results"):
+            return make_results(ids.tolist(), dists.tolist(), self.metric)
 
-    @_reads
+    @_search_call("facade.search_batch")
     def search_batch(self, queries, k: int) -> list[list[SearchResult]]:
         """Batched k-NN (numpy array or tensor of [Q, dim] queries)."""
         self._check_open()
-        from ..utils.stats import GLOBAL, timed
-
-        with timed("search_batch"):
+        with timed("search_batch", span_name="index.search"):
             ids, dists = self.index.search_batch(queries, k)
         GLOBAL.bump("queries", ids.shape[0])
-        return [make_results(ids[q].tolist(), dists[q].tolist(), self.metric)
-                for q in range(ids.shape[0])]
+        with span("facade.results"):
+            return [make_results(ids[q].tolist(), dists[q].tolist(),
+                                 self.metric)
+                    for q in range(ids.shape[0])]
 
     # ------------------------------------------------------------------ state
     @_reads
@@ -376,8 +395,6 @@ class VectorDatabase:
 
     def metrics(self) -> dict:
         """Process-wide operation counters/latencies."""
-        from ..utils.stats import GLOBAL
-
         return GLOBAL.snapshot()
 
     @_writes

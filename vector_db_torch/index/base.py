@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.distance import blocked_knn
+from ..utils.stats import span
 
 
 def pow2(n: int) -> int:
@@ -243,12 +244,15 @@ def to_host_results(q_n: int, k: int, k_eff: int, ids: torch.Tensor,
     """Shape a device result into host [q_n, k] arrays.  With
     ``slots_to_ids`` (the store's ids tensor) ``ids`` holds slots and is
     mapped to external ids on the device first; either way one transfer
-    per array brings back only the [Q, k] result."""
-    if slots_to_ids is not None:
-        ids = torch.where(ids >= 0, slots_to_ids[ids.clamp(min=0).long()],
-                          torch.full_like(ids, -1))
-    out_ids = np.full((q_n, k), -1, np.int32)
-    out_d = np.full((q_n, k), np.inf, np.float32)
-    out_ids[:, :k_eff] = ids[:q_n, :k_eff].cpu().numpy()
-    out_d[:, :k_eff] = dists[:q_n, :k_eff].cpu().numpy()
-    return out_ids, out_d
+    per array brings back only the [Q, k] result (the span
+    ``index.fetch``, which holds the wait for the answers)."""
+    with span("index.fetch"):
+        if slots_to_ids is not None:
+            ids = torch.where(ids >= 0,
+                              slots_to_ids[ids.clamp(min=0).long()],
+                              torch.full_like(ids, -1))
+        out_ids = np.full((q_n, k), -1, np.int32)
+        out_d = np.full((q_n, k), np.inf, np.float32)
+        out_ids[:, :k_eff] = ids[:q_n, :k_eff].cpu().numpy()
+        out_d[:, :k_eff] = dists[:q_n, :k_eff].cpu().numpy()
+        return out_ids, out_d

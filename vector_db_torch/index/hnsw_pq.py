@@ -82,6 +82,7 @@ from ..ops.kernels import (IVF_PW, LANES, fused_int8_pool, fused_int8g_pool,
                            pq_decode_recon_t, preserved_pool_width)
 from ..ops.topk import merge_topk
 from ..ops.kmeans import kmeans_fit, kmeans_fit_blocked, subspace_kmeans_fit
+from ..utils.stats import span
 from .base import (DeferInsertMixin, VectorIndex, as_queries,
                    pad_queries_pow2, pow2, to_host_results)
 from .hnsw import (fix_entry_after_unlink, graph_from_host, graph_to_host,
@@ -382,26 +383,29 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             raise ValueError(
                 f"first chunk must hold >= {self.config.num_centroids} "
                 f"training rows, got {n}")
-        sample = data
-        if n > self.config.training_samples:
-            rng = np.random.default_rng(self.seed)
-            pick = np.sort(rng.choice(n, self.config.training_samples,
-                                      replace=False))
-            sample = data[torch.as_tensor(pick, device=data.device)]
-        self._fit_codebooks(sample)
-        self._fit_proxy(sample)
-        if self.config.nlist == 0 and self.config.search_mode == "scan_ivf":
-            self.config.nlist = ivf_scan.auto_ivf_geometry(
-                self.store.capacity, winners=self.config.ivf_winners)[0]
-        if self.config.nlist > 0:
-            nlist = min(self.config.nlist, max(1, n // 8))
-            full = normalize_rows(data) if self.metric == "cosine" else data
-            if n > max(256 * nlist, 262144):
-                rng = np.random.default_rng(self.seed + 7)
-                pick = np.sort(rng.choice(n, max(256 * nlist, 262144),
+        with span("ingest.train", wait=self.device):
+            sample = data
+            if n > self.config.training_samples:
+                rng = np.random.default_rng(self.seed)
+                pick = np.sort(rng.choice(n, self.config.training_samples,
                                           replace=False))
-                full = full[torch.as_tensor(pick, device=data.device)]
-            self._set_coarse(self._coarse_kmeans(full, nlist))
+                sample = data[torch.as_tensor(pick, device=data.device)]
+            self._fit_codebooks(sample)
+            self._fit_proxy(sample)
+            if self.config.nlist == 0 \
+                    and self.config.search_mode == "scan_ivf":
+                self.config.nlist = ivf_scan.auto_ivf_geometry(
+                    self.store.capacity, winners=self.config.ivf_winners)[0]
+            if self.config.nlist > 0:
+                nlist = min(self.config.nlist, max(1, n // 8))
+                full = (normalize_rows(data) if self.metric == "cosine"
+                        else data)
+                if n > max(256 * nlist, 262144):
+                    rng = np.random.default_rng(self.seed + 7)
+                    pick = np.sort(rng.choice(n, max(256 * nlist, 262144),
+                                              replace=False))
+                    full = full[torch.as_tensor(pick, device=data.device)]
+                self._set_coarse(self._coarse_kmeans(full, nlist))
 
     def _fit_codebooks(self, data: torch.Tensor) -> None:
         """Per-subspace k-means++ on training rows (normalized under
@@ -472,16 +476,17 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         + 7) and, under any other mode, assigns every live row."""
         if self.store.size() < self.config.num_centroids:
             return False
-        live = np.flatnonzero(self.store.state.valid.cpu().numpy())
-        sample = live
-        if sample.size > self.config.training_samples:
-            rng = np.random.default_rng(self.seed)
-            sample = rng.choice(sample, self.config.training_samples,
-                                replace=False)
-        rows = self.store.rows(np.sort(sample))
-        self._fit_codebooks(rows)
-        self._fit_proxy(rows)
-        del rows
+        with span("ingest.train", wait=self.device):
+            live = np.flatnonzero(self.store.state.valid.cpu().numpy())
+            sample = live
+            if sample.size > self.config.training_samples:
+                rng = np.random.default_rng(self.seed)
+                sample = rng.choice(sample, self.config.training_samples,
+                                    replace=False)
+            rows = self.store.rows(np.sort(sample))
+            self._fit_codebooks(rows)
+            self._fit_proxy(rows)
+            del rows
         self._encode_slots(live)
         if self.config.nlist == 0 and self.config.search_mode == "scan_ivf":
             self.config.nlist = ivf_scan.auto_ivf_geometry(
@@ -493,10 +498,11 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                 rng = np.random.default_rng(self.seed + 7)
                 rows = np.sort(rng.choice(rows, max(256 * nlist, 262144),
                                           replace=False))
-            full = self.store.rows(rows)
-            if self.metric == "cosine":
-                full = normalize_rows(full)  # the quantizer on the sphere
-            self._set_coarse(self._coarse_kmeans(full, nlist))
+            with span("ingest.train", wait=self.device):
+                full = self.store.rows(rows)
+                if self.metric == "cosine":
+                    full = normalize_rows(full)  # the quantizer on the sphere
+                self._set_coarse(self._coarse_kmeans(full, nlist))
             if self.config.search_mode != "scan_ivf":
                 # scan_ivf places rows by its own top-8 choices pass
                 self._assign_coarse(live)
@@ -618,13 +624,15 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             if cache is not None and self._scan8_aux is not None \
                     and slots is not None:
                 shadow = cache[1]
-                _update_scan8_shadow(*shadow[:3], st.vectors, st.norms,
-                                     st.valid, slots, shadow[3],
-                                     self._scan8_aux, self.metric)
+                with span("index.shadow", note="incremental"):
+                    _update_scan8_shadow(*shadow[:3], st.vectors, st.norms,
+                                         st.valid, slots, shadow[3],
+                                         self._scan8_aux, self.metric)
             else:
-                *shadow, self._scan8_aux = _build_scan8_shadow(
-                    st.vectors, st.norms, st.valid, self.metric,
-                    SHADOW_PAD_ROWS)
+                with span("index.shadow", note="whole"):
+                    *shadow, self._scan8_aux = _build_scan8_shadow(
+                        st.vectors, st.norms, st.valid, self.metric,
+                        SHADOW_PAD_ROWS)
             self._scan8_cache = (self.store.version, tuple(shadow))
             return self._scan8_cache[1]
 
@@ -646,16 +654,18 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                 or slots is None
             if not rebuild:
                 base8, off, sv, _, cvec = cache[1]
-                self._scan8g_clipped += _update_scan8g_shadow(
-                    base8, off, st.vectors, st.norms, st.valid, slots, cvec,
-                    self._scan8g_aux, sv, self.metric)
+                with span("index.shadow", note="incremental"):
+                    self._scan8g_clipped += _update_scan8g_shadow(
+                        base8, off, st.vectors, st.norms, st.valid, slots,
+                        cvec, self._scan8g_aux, sv, self.metric)
                 rebuild = self._scan8g_clipped > max(
                     64, 0.01 * self.store.size())
             if rebuild:
                 self._scan8g_cache = None  # free the old shadow first
-                *shadow, self._scan8g_aux = _build_scan8g_shadow(
-                    st.vectors, st.norms, st.valid, self.metric,
-                    SHADOW_PAD_ROWS)
+                with span("index.shadow", note="whole"):
+                    *shadow, self._scan8g_aux = _build_scan8g_shadow(
+                        st.vectors, st.norms, st.valid, self.metric,
+                        SHADOW_PAD_ROWS)
                 self._scan8g_clipped = 0
                 value = tuple(shadow)
             else:
@@ -677,15 +687,17 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             if cache is not None and self._scan16_aux is not None \
                     and slots is not None:
                 base16, off, sc, cvec = cache[1]
-                _update_scan16_shadow(base16, off, sc, st.vectors, st.norms,
-                                      st.valid, slots, cvec,
-                                      self._scan16_aux, self.metric)
+                with span("index.shadow", note="incremental"):
+                    _update_scan16_shadow(base16, off, sc, st.vectors,
+                                          st.norms, st.valid, slots, cvec,
+                                          self._scan16_aux, self.metric)
                 value = cache[1]
             else:
                 self._scan16_cache = None  # free the old shadow first
-                *shadow, self._scan16_aux = _build_scan16_shadow(
-                    st.vectors, st.norms, st.valid, self.metric,
-                    SHADOW_PAD_ROWS)
+                with span("index.shadow", note="whole"):
+                    *shadow, self._scan16_aux = _build_scan16_shadow(
+                        st.vectors, st.norms, st.valid, self.metric,
+                        SHADOW_PAD_ROWS)
                 value = tuple(shadow)
             self._scan16_cache = (self.store.version, value)
             return value
@@ -698,8 +710,11 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             st = self.store.state
             if self._scan8p_cache is None \
                     or self._scan8p_cache[0] != self.store.version:
-                self._scan8p_cache = (self.store.version, _build_scan8p_shadow(
-                    st.packed, st.scales, st.norms, st.valid, self.metric))
+                with span("index.shadow", note="whole"):
+                    self._scan8p_cache = (
+                        self.store.version, _build_scan8p_shadow(
+                            st.packed, st.scales, st.norms, st.valid,
+                            self.metric))
             return self._scan8p_cache[1]
 
     def _packed_refine_store(self) -> Optional[torch.Tensor]:
@@ -930,27 +945,30 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         return min(chunk - chunk % 128, max(capacity, 128))
 
     def search_batch(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        q = as_queries(queries, self.dim, self.device)
+        with span("index.copy_in"):
+            padded, q_n = pad_queries_pow2(
+                as_queries(queries, self.dim, self.device))
         st = self.store.state
         raw = self.store.raw
         n_live = self.store.size()
-        padded, q_n = pad_queries_pow2(q)
         k_eff = min(k, st.capacity)
         k_pad = min(pow2(k_eff), st.capacity)
         resid, rscales = self._int8_resid_store()
 
         if not self.trained or n_live <= k:
             # exact fallback until trained, and whenever every row is wanted
-            if raw:
-                dists, slots = blocked_knn(
-                    padded, st.vectors, st.valid, k_pad, metric=self.metric,
-                    b_norms=st.norms, block_n=min(8192, st.capacity))
-            else:
-                dists, slots = blocked_knn_int8(
-                    padded, st.packed, st.scales, st.valid, k_pad,
-                    metric=self.metric, b_norms=st.norms,
-                    block_n=min(262144, st.capacity), resid=resid,
-                    rscales=rscales)
+            with span("index.scan"):
+                if raw:
+                    dists, slots = blocked_knn(
+                        padded, st.vectors, st.valid, k_pad,
+                        metric=self.metric, b_norms=st.norms,
+                        block_n=min(8192, st.capacity))
+                else:
+                    dists, slots = blocked_knn_int8(
+                        padded, st.packed, st.scales, st.valid, k_pad,
+                        metric=self.metric, b_norms=st.norms,
+                        block_n=min(262144, st.capacity), resid=resid,
+                        rscales=rscales)
             return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
 
         mode = self.resolve_mode(n_live)
@@ -1003,10 +1021,12 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             if i8 is None:
                 raise ValueError("search_mode='scan_int8' needs "
                                  "raw_store=False or refine_store='int8'")
-            dists, slots = blocked_knn_int8(
-                padded, i8[0], i8[1], st.valid, k_pad, metric=self.metric,
-                b_norms=st.norms, block_n=min(262144, st.capacity),
-                resid=resid, rscales=rscales)
+            with span("index.scan"):
+                dists, slots = blocked_knn_int8(
+                    padded, i8[0], i8[1], st.valid, k_pad,
+                    metric=self.metric, b_norms=st.norms,
+                    block_n=min(262144, st.capacity), resid=resid,
+                    rscales=rscales)
             return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
         elif mode == "adc_fast":
             dists, ext = self._adc_fast(padded, k_pad, resid, rscales)
@@ -1656,12 +1676,14 @@ def _pool_select_cand(queries, center_vec, metric, pool_kernel, pool_args,
     kernel, and keep the ``pool`` best of the [Q, w] bucket winners with an
     exact top-k: candidate slots [Q, pool], -1 where empty.  (The
     reference selects with ``approx_max_k(recall_target=0.95)``.)"""
-    q = normalize_rows(queries) if metric == "cosine" else queries
-    qc = q - center_vec[None, :]
-    vals, idx = pool_kernel(qc, *pool_args, w)
-    nv, sel = torch.topk(vals, pool, dim=1, largest=False, sorted=True)
-    cand = torch.gather(idx, 1, sel)
-    return torch.where(torch.isfinite(nv), cand, torch.full_like(cand, -1))
+    with span("index.scan"):
+        q = normalize_rows(queries) if metric == "cosine" else queries
+        qc = q - center_vec[None, :]
+        vals, idx = pool_kernel(qc, *pool_args, w)
+        nv, sel = torch.topk(vals, pool, dim=1, largest=False, sorted=True)
+        cand = torch.gather(idx, 1, sel)
+        return torch.where(torch.isfinite(nv), cand,
+                           torch.full_like(cand, -1))
 
 
 def pallas_scan8p_refine(queries, packed, scales, norms, off, sc, center_vec,
@@ -1673,11 +1695,12 @@ def pallas_scan8p_refine(queries, packed, scales, norms, off, sc, center_vec,
     external ids [Q, k], -1 where empty)."""
     cand = _pool_select_cand(queries, center_vec, metric, fused_packed_pool,
                              (packed, off, sc), pool, w)
-    d, slots = blocked_rerank_int8(queries, packed, scales, cand, k, metric,
-                                   rb=pool, b_norms=norms, resid=resid,
-                                   rscales=rscales)
-    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
-                      torch.full_like(slots, -1).to(ids.dtype))
+    with span("index.refine"):
+        d, slots = blocked_rerank_int8(queries, packed, scales, cand, k,
+                                       metric, rb=pool, b_norms=norms,
+                                       resid=resid, rscales=rscales)
+        ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                          torch.full_like(slots, -1).to(ids.dtype))
     return d, ext
 
 
@@ -1685,9 +1708,10 @@ def _rerank_to_ids(queries, base, cand, ids, k, metric, rb):
     """Exact f32 re-rank of candidate slots [Q, R] (-1 ignored) in blocks
     of ``rb``, mapped to external ids: (dists [Q, k], ids [Q, k], -1
     where empty)."""
-    d, slots = blocked_rerank(queries, base, cand, k, metric, rb=rb)
-    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
-                      torch.full_like(slots, -1))
+    with span("index.refine"):
+        d, slots = blocked_rerank(queries, base, cand, k, metric, rb=rb)
+        ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                          torch.full_like(slots, -1))
     return d, ext
 
 
@@ -1726,18 +1750,20 @@ def bf16_scan_refine(queries, base, norms, valid, ids, k, metric, pool,
     ``block_n``-row blocks when given) + exact f32 re-rank of its ``pool``
     candidates: returns (dists [Q, k], external ids [Q, k], -1 where
     empty)."""
-    cand = bf16_pool_scan(queries, base, valid, pool, metric=metric,
-                          b_norms=norms, block_n=block_n)
+    with span("index.scan"):
+        cand = bf16_pool_scan(queries, base, valid, pool, metric=metric,
+                              b_norms=norms, block_n=block_n)
     return _rerank_to_ids(queries, base, cand, ids, k, metric, pool)
 
 
 def exact_scan_search(queries, base, norms, valid, ids, k, metric, block_n):
     """Exact f32 scan + external-id map: the flagship's search below the
     crossover."""
-    d, slots = blocked_knn_fast(queries, base, valid, k, metric=metric,
-                                b_norms=norms, block_n=block_n)
-    ext = torch.where(slots >= 0, ids[slots.clamp(min=0).long()],
-                      torch.full_like(slots, -1))
+    with span("index.scan"):
+        d, slots = blocked_knn_fast(queries, base, valid, k, metric=metric,
+                                    b_norms=norms, block_n=block_n)
+        ext = torch.where(slots >= 0, ids[slots.clamp(min=0).long()],
+                          torch.full_like(slots, -1))
     return d, ext
 
 
@@ -1793,11 +1819,12 @@ def pallas_ivf_refine_packed(queries, lay, packed, scales, norms, valid, ids,
     the pool runs ``ops/kernels.fused_ivf_pool``."""
     cand = _ivf_candidates_overlay(queries, lay, valid, overlay, metric,
                                    nprobe, p_cap, pool, winners)
-    d, slots = blocked_rerank_int8(queries, packed, scales, cand, k, metric,
-                                   b_norms=norms, resid=resid,
-                                   rscales=rscales)
-    ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
-                      torch.full_like(slots, -1).to(ids.dtype))
+    with span("index.refine"):
+        d, slots = blocked_rerank_int8(queries, packed, scales, cand, k,
+                                       metric, b_norms=norms, resid=resid,
+                                       rscales=rscales)
+        ext = torch.where(torch.isfinite(d), ids[slots.clamp(min=0).long()],
+                          torch.full_like(slots, -1).to(ids.dtype))
     return d, ext
 
 
