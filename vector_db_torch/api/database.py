@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core.device import on_default_stream, resolve_device
-from ..core.types import SearchResult, Vector, make_results
+from ..core.types import SearchResult, Vector, make_results_batch
 from ..index.base import VectorIndex
 from ..storage import checkpoint as ckpt
 from ..utils.locks import RWLock
@@ -373,7 +373,7 @@ class VectorDatabase:
         with span("index.search"):
             ids, dists = self.index.search(q, k)
         with span("facade.results"):
-            return make_results(ids.tolist(), dists.tolist(), self.metric)
+            return make_results_batch(ids[None], dists[None], self.metric)[0]
 
     @_search_call("facade.search_batch")
     def search_batch(self, queries, k: int) -> list[list[SearchResult]]:
@@ -383,9 +383,7 @@ class VectorDatabase:
             ids, dists = self.index.search_batch(queries, k)
         GLOBAL.bump("queries", ids.shape[0])
         with span("facade.results"):
-            return [make_results(ids[q].tolist(), dists[q].tolist(),
-                                 self.metric)
-                    for q in range(ids.shape[0])]
+            return make_results_batch(ids, dists, self.metric)
 
     # ------------------------------------------------------------------ state
     @_reads
