@@ -341,3 +341,104 @@ def test_threads_keep_their_own_calls():
             root = by_seq[s.parent]
             assert root.name == "root" + s.name[5:] and root.call == s.call
     check_nesting(spans)
+
+
+# ----------------------------------------- adc_fast: the codes-only search
+#: the memory-bound configuration's options, scaled down (64-d, 8 subspaces)
+MEMBOUND = dict(num_subspaces=8, training_samples=2000,
+                search_mode="adc_fast", adc_pool="approx", adc_select_r=128,
+                refine_store="bf16")
+M_DIM, M_N = 64, 6000
+ADC_STAGES = {"index.copy_in", "index.scan", "index.refine", "index.fetch"}
+
+
+@pytest.fixture(scope="module")
+def spectral():
+    rng = np.random.default_rng(11)
+    scale = (np.arange(M_DIM) + 1.0) ** -0.5
+    return ((rng.standard_normal((M_N, M_DIM)) * scale).astype(np.float32),
+            (rng.standard_normal((16, M_DIM)) * scale).astype(np.float32))
+
+
+def membound_db(spectral):
+    db = (VectorDatabase.builder().with_dimension(M_DIM)
+          .with_max_elements(M_N).with_index_type(IndexType.HNSWPQ)
+          .with_device("cpu").with_index_config(HnswPqConfig(**MEMBOUND))
+          .build())
+    db.bulk_load(np.arange(M_N), spectral[0])
+    return db
+
+
+def adc_counts(db):
+    c = db.metrics()["counts"]
+    return c.get("adc.decoded_rows", 0), c.get("adc.refined", 0)
+
+
+def test_adc_fast_stages_and_shadow_on_the_first_search(spectral):
+    db = membound_db(spectral)
+    assert db.index.resolve_mode(db.index.size()) == "adc_fast"
+    shadows = []
+    for _ in range(2):
+        stats.set_tracing(True)
+        db.search_batch(spectral[1], K)
+        stats.set_tracing(False)
+        spans, dropped = stats.take_spans()
+        assert dropped == 0
+        check_nesting(spans)
+        roots = [s for s in spans if s.parent is None]
+        assert [r.name for r in roots] == ["facade.search_batch"]
+        names = {s.seq: s.name for s in spans}
+        under = {}
+        for s in spans:
+            if s.parent is not None:
+                under.setdefault(names[s.parent], []).append(s.name)
+        assert sorted(under["facade.search_batch"]) == ["facade.results",
+                                                        "index.search"]
+        shadow = [s for s in spans if s.name == "index.shadow"]
+        assert set(under["index.search"]) - {"index.shadow"} == ADC_STAGES
+        assert len(under["index.search"]) == len(ADC_STAGES) + len(shadow)
+        shadows.append(sorted(s.note for s in shadow))
+    assert shadows == [["bf16_refine", "fast_tables"], []]
+
+
+@pytest.mark.parametrize("tracing", [True, False], ids=["on", "off"])
+def test_adc_counters_count_the_shapes(spectral, tracing):
+    """One call decodes every code column of the store's capacity once and
+    re-ranks the padded queries' pools of select_r; tracing or not."""
+    db = membound_db(spectral)
+    db.search_batch(spectral[1][:2], K)
+    before = adc_counts(db)
+    stats.set_tracing(tracing)
+    db.search_batch(spectral[1][:5], K)            # padded to 8
+    stats.set_tracing(False)
+    stats.take_spans()
+    decoded, refined = (a - b for a, b in zip(adc_counts(db), before))
+    assert decoded == db.index.store.capacity
+    assert refined == 8 * MEMBOUND["adc_select_r"]
+
+
+def test_adc_decoded_rows_sum_over_chunks(monkeypatch):
+    """Chunked, each chunk's columns count (the last one re-sliced to end
+    at N); the norm pass counts when the norms are not given; the fused
+    pool (one CUDA kernel that decodes in itself) counts none."""
+    from vector_db_torch.ops import adc
+
+    g = torch.Generator().manual_seed(3)
+    n, s, sd, k_c = 1000, 4, 4, 16
+    codes_t = torch.randint(0, k_c, (s, n), generator=g, dtype=torch.uint8)
+    cbt = torch.randn(s * sd, k_c, generator=g)
+    valid = torch.ones(n, dtype=torch.bool)
+    args = (torch.randn(4, s * sd, generator=g), codes_t, cbt, valid,
+            torch.randn(n, s * sd, generator=g), torch.arange(n), 5)
+    norms = adc.code_norms_from_codes(codes_t, cbt, valid)
+    monkeypatch.setattr(adc, "fused_adc_pool", lambda qb, ct, cb, mn, w: (
+        torch.zeros(qb.shape[0], w),
+        torch.zeros(qb.shape[0], w, dtype=torch.int32)))
+    for kw, want in ((dict(chunk_n=384, code_norms=norms), 3 * 384),
+                     (dict(chunk_n=0), 2 * n),
+                     (dict(pool_mode="fused", code_norms=norms), 0)):
+        before = stats.GLOBAL.counts.get("adc.decoded_rows", 0)
+        adc.adc_fast_search(*args, bucket=8, select_r=32,
+                            **{"pool_mode": "approx", **kw})
+        assert stats.GLOBAL.counts.get("adc.decoded_rows", 0) - before \
+            == want, kw

@@ -722,7 +722,8 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         current with the store (dirty rows repacked only), else None."""
         if self.config.refine_store != "bf16" or not self.store.raw:
             return None
-        return self._raw_refine_cache(lambda v: (pack_bf16_rows(v),))[0]
+        return self._raw_refine_cache(lambda v: (pack_bf16_rows(v),),
+                                      "bf16_refine")[0]
 
     def _int8_refine_store(self) -> Optional[tuple]:
         """(packed [cap, d/4] int32, scales [cap]) int8 refine rows, or
@@ -732,24 +733,26 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             return self.store.state.packed, self.store.state.scales
         if self.config.refine_store != "int8":
             return None
-        return self._raw_refine_cache(pack_int8_rows)
+        return self._raw_refine_cache(pack_int8_rows, "int8_refine")
 
-    def _raw_refine_cache(self, pack) -> tuple:
+    def _raw_refine_cache(self, pack, note: str) -> tuple:
         """A per-row packing of the raw store (``pack`` returns a tuple of
         [N, ...] tensors), kept current: the rows in _pack_dirty are
-        repacked in place, bit-identical to a full rebuild."""
+        repacked in place, bit-identical to a full rebuild.  A build or
+        repack is the span ``index.shadow`` noted ``note``."""
         with self._cache_lock:
             vecs = self.store.state.vectors
             cache = self._packed_cache
             if cache is not None and cache[0] == self.store.version:
                 return cache[1]
             slots = self._take_dirty("_pack_dirty")
-            if cache is not None and slots is not None:
-                for dst, src in zip(cache[1], pack(vecs[slots])):
-                    dst[slots] = src
-                value = cache[1]
-            else:
-                value = pack(vecs)
+            with span("index.shadow", note=note):
+                if cache is not None and slots is not None:
+                    for dst, src in zip(cache[1], pack(vecs[slots])):
+                        dst[slots] = src
+                    value = cache[1]
+                else:
+                    value = pack(vecs)
             self._packed_cache = (self.store.version, value)
             return value
 
@@ -776,25 +779,27 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         [cap]) for adc_fast, current with the codes.  Re-encoded slots are
         refreshed in place (_update_fast_tables); new codebooks or an
         unknown rewrite rebuild them, the norms in RECON_NORM_CHUNK-column
-        decode passes (never a [d, cap] reconstruction)."""
+        decode passes (never a [d, cap] reconstruction).  A build or refresh
+        is the span ``index.shadow`` noted ``fast_tables``."""
         with self._cache_lock:
             cache = self._fast_cache
             if cache is not None and cache[0] == self._codes_version \
                     and cache[1] is self.codebooks:
                 return cache[2:]
             slots = self._take_dirty("_fast_dirty")
-            if cache is not None and cache[1] is self.codebooks \
-                    and slots is not None:
-                ct, cbt, cnorms = cache[2:]
-                _update_fast_tables(ct, cnorms, self.codes, self.codebooks,
-                                    slots)
-            else:
-                self._fast_cache = None  # free the old tables first
-                ct = self.codes.T.contiguous()
-                cbt = adc.codebooks_to_cbt(self.codebooks)
-                cnorms = torch.cat([
-                    _recon_norms(ct[:, s:s + RECON_NORM_CHUNK], cbt)
-                    for s in range(0, ct.shape[1], RECON_NORM_CHUNK)])
+            with span("index.shadow", note="fast_tables"):
+                if cache is not None and cache[1] is self.codebooks \
+                        and slots is not None:
+                    ct, cbt, cnorms = cache[2:]
+                    _update_fast_tables(ct, cnorms, self.codes,
+                                        self.codebooks, slots)
+                else:
+                    self._fast_cache = None  # free the old tables first
+                    ct = self.codes.T.contiguous()
+                    cbt = adc.codebooks_to_cbt(self.codebooks)
+                    cnorms = torch.cat([
+                        _recon_norms(ct[:, s:s + RECON_NORM_CHUNK], cbt)
+                        for s in range(0, ct.shape[1], RECON_NORM_CHUNK)])
             self._fast_cache = (self._codes_version, self.codebooks, ct, cbt,
                                 cnorms)
             return self._fast_cache[2:]

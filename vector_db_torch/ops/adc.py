@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.stats import GLOBAL, span
 from .distance import (_bf16_mm, blocked_rerank, blocked_rerank_int8,
                        normalize_rows)
 from .kernels import fused_adc_pool, pq_decode_recon_t
@@ -275,58 +276,77 @@ def adc_fast_search(queries: torch.Tensor, codes_t: torch.Tensor,
     masks the slots earlier chunks covered (padding would copy the codes).
     ``select_r`` narrows a wider pool to its ``select_r`` best before the
     refine.  Returns (dists [Q, k], external ids [Q, k]) ascending.
+
+    The scoring and pooling are the span ``index.scan``, the re-rank and id
+    lookup ``index.refine``; ``utils/stats.GLOBAL`` counts the code columns
+    the decode kernel reconstructed (``adc.decoded_rows``) and the pool
+    slots re-ranked (``adc.refined``, Q x pool width), from shapes alone.
     """
     q_n = queries.shape[0]
     n = codes_t.shape[1]
-    # the scan runs in PQ space: normalized under cosine, then permuted
-    q_scan = normalize_rows(queries) if metric == "cosine" else queries
-    if perm is not None:
-        q_scan = q_scan[:, perm]
-    qb = q_scan.to(scan_dtype(queries.device)).contiguous()
-    masked_norms = code_norms_from_codes(codes_t, cbt, valid, code_norms)
+    with span("index.scan"):
+        # the scan runs in PQ space: normalized under cosine, then permuted
+        q_scan = normalize_rows(queries) if metric == "cosine" else queries
+        if perm is not None:
+            q_scan = q_scan[:, perm]
+        qb = q_scan.to(scan_dtype(queries.device)).contiguous()
+        masked_norms = code_norms_from_codes(codes_t, cbt, valid, code_norms)
 
-    if chunk_n <= 0 or chunk_n >= n:
-        if pool_mode == "approx" and select_r > 0:
-            # the ranked pool is already the top-select_r
-            bucket = max(1, -(-n * winners // select_r))
-        pool_vals, pool = _score_pool_chunk(qb, codes_t, cbt, masked_norms,
-                                            bucket, winners, pool_mode)
-    else:
-        if pool_mode == "approx" and select_r > 0:
-            # per-chunk ranked pools of 4x the chunk's expected share of the
-            # global top-select_r (floor 128), then one select below
-            n_chunks_est = max(1, -(-n // chunk_n))
-            r_chunk = min(select_r,
-                          max(128, -(-4 * select_r // n_chunks_est)))
-            bucket = max(1, -(-chunk_n * winners // r_chunk))
-        vals_l, pools_l = [], []
-        for c in range(-(-n // chunk_n)):
-            start = min(c * chunk_n, n - chunk_n)
-            mn = masked_norms[start:start + chunk_n]
-            if start < c * chunk_n:  # ragged last chunk: mask covered slots
-                mn = mn.clone()
-                mn[:c * chunk_n - start] = float("inf")
-            lv, local = _score_pool_chunk(
-                qb, codes_t[:, start:start + chunk_n], cbt, mn, bucket,
-                winners, pool_mode)
-            vals_l.append(lv)
-            pools_l.append(torch.where(local >= 0, local + start, local))
-        pool_vals, pool = torch.cat(vals_l, dim=1), torch.cat(pools_l, dim=1)
-    pool = torch.where(pool < n, pool, torch.full_like(pool, -1))
-    if 0 < select_r < pool.shape[1]:
-        pv = torch.where(pool >= 0, pool_vals, float("inf"))
-        _, sel = torch.topk(pv, select_r, dim=1, largest=False, sorted=True)
-        pool = torch.gather(pool, 1, sel)
+        if chunk_n <= 0 or chunk_n >= n:
+            if pool_mode == "approx" and select_r > 0:
+                # the ranked pool is already the top-select_r
+                bucket = max(1, -(-n * winners // select_r))
+            pool_vals, pool = _score_pool_chunk(
+                qb, codes_t, cbt, masked_norms, bucket, winners, pool_mode)
+            scored = n
+        else:
+            n_chunks = -(-n // chunk_n)
+            if pool_mode == "approx" and select_r > 0:
+                # per-chunk ranked pools of 4x the chunk's expected share of
+                # the global top-select_r (floor 128), then one select below
+                r_chunk = min(select_r,
+                              max(128, -(-4 * select_r // n_chunks)))
+                bucket = max(1, -(-chunk_n * winners // r_chunk))
+            vals_l, pools_l = [], []
+            for c in range(n_chunks):
+                start = min(c * chunk_n, n - chunk_n)
+                mn = masked_norms[start:start + chunk_n]
+                if start < c * chunk_n:  # ragged last chunk: mask covered
+                    mn = mn.clone()
+                    mn[:c * chunk_n - start] = float("inf")
+                lv, local = _score_pool_chunk(
+                    qb, codes_t[:, start:start + chunk_n], cbt, mn, bucket,
+                    winners, pool_mode)
+                vals_l.append(lv)
+                pools_l.append(torch.where(local >= 0, local + start, local))
+            pool_vals = torch.cat(vals_l, dim=1)
+            pool = torch.cat(pools_l, dim=1)
+            scored = n_chunks * chunk_n
+        pool = torch.where(pool < n, pool, torch.full_like(pool, -1))
+        if 0 < select_r < pool.shape[1]:
+            pv = torch.where(pool >= 0, pool_vals, float("inf"))
+            _, sel = torch.topk(pv, select_r, dim=1, largest=False,
+                                sorted=True)
+            pool = torch.gather(pool, 1, sel)
+    # code columns the decode kernel reconstructed: the norm pass, if any,
+    # and every scored chunk (the fused kernel decodes in itself)
+    decoded = (n if code_norms is None else 0) \
+        + (scored if pool_mode != "fused" else 0)
+    if decoded:
+        GLOBAL.bump("adc.decoded_rows", decoded)
+    GLOBAL.bump("adc.refined", q_n * pool.shape[1])
 
-    if int8_base is not None:
-        out_d, slots = blocked_rerank_int8(
-            queries, int8_base, int8_scales, pool, k, metric,
-            rb=rerank_block, b_norms=int8_norms, resid=int8_resid,
-            rscales=int8_rscales)
-    else:
-        out_d, slots = blocked_rerank(
-            queries, base if packed_base is None else packed_base, pool, k,
-            metric, rb=rerank_block)
-    ext = torch.where(torch.isfinite(out_d), ids[slots.clamp(min=0).long()],
-                      torch.full_like(slots, -1).to(ids.dtype))
+    with span("index.refine"):
+        if int8_base is not None:
+            out_d, slots = blocked_rerank_int8(
+                queries, int8_base, int8_scales, pool, k, metric,
+                rb=rerank_block, b_norms=int8_norms, resid=int8_resid,
+                rscales=int8_rscales)
+        else:
+            out_d, slots = blocked_rerank(
+                queries, base if packed_base is None else packed_base, pool,
+                k, metric, rb=rerank_block)
+        ext = torch.where(torch.isfinite(out_d),
+                          ids[slots.clamp(min=0).long()],
+                          torch.full_like(slots, -1).to(ids.dtype))
     return out_d, ext

@@ -35,8 +35,10 @@ call's root), ``facade.results`` (building the result objects),
 (the queries to the device and their padding), ``index.scan`` (the scan or
 pool and its select), ``index.refine`` (the exact re-rank of a pool),
 ``index.fetch`` (the answers to the host), ``index.shadow`` (a scan
-shadow built or refreshed, noted ``whole`` or ``incremental``),
-``ingest.bulk_load`` and ``ingest.train`` (the quantizers' fitting).  The
+shadow built or refreshed, noted ``whole`` or ``incremental``; adc_fast's
+decode tables, ``fast_tables``; a packed refine store of the raw rows,
+``bf16_refine`` or ``int8_refine``), ``ingest.bulk_load`` and
+``ingest.train`` (the quantizers' fitting).  The
 ``ingest.*`` spans wait for the device at their end while recording, so
 their length is the work's and not its enqueue; spans on the search path
 never wait.
@@ -107,7 +109,8 @@ class SpanRecord(NamedTuple):
     """One closed span: ``seq`` its sequence number, ``call`` the sequence
     number of its root, ``parent`` its parent's (None for a root), ``start``
     and ``end`` in ``time.perf_counter_ns()`` nanoseconds, ``note`` what the
-    span notes (``whole`` / ``incremental`` for ``index.shadow``)."""
+    span notes (which shadow, or ``whole`` / ``incremental``, for
+    ``index.shadow``)."""
 
     seq: int
     name: str
