@@ -3757,6 +3757,10 @@ def cross_check(step, dbs, oracles, gens, last):
                 captured[label] = dict(seen)
             singles, single_cands = [], []
             for i in range(CROSS_SINGLE):
+                if exact:
+                    # a graph replay runs no Python: with the graphs
+                    # dropped the call runs eagerly and the spy sees its pool
+                    db.index._q8.clear()
                 singles.append(db.search(q[i], K))
                 if exact:
                     single_cands.append(seen["_pool_select_cand"][2][:1])

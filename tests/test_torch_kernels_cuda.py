@@ -9,8 +9,10 @@ the rows the merge reads (and writing no other row), B1
 all six pools at rows of any width (516, 768, 1024, 1536 dims); and the
 plain-PyTorch paths on the card against the CPU: the graph build and search
 (``ops/hnsw_graph``), the chunked proxy scan (``ops/pca``), and
-``ops/adc.adc_decode_topk`` launching B3.  Every test is marked ``cuda``
-and skips without a card.  This file imports no JAX, so it runs on a machine
+``ops/adc.adc_decode_topk`` launching B3; the padded-8 search replayed from
+a CUDA graph (``index/q8graph.py``) bit-equal to its eager path, under
+writes and concurrent readers, its B2 launches seen by the profiler.  Every
+test is marked ``cuda`` and skips without a card.  This file imports no JAX, so it runs on a machine
 with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -760,3 +762,189 @@ def test_search_on_a_side_stream_waits_for_the_shadow_it_reads():
         got = [row[0].id if row else -1 for row in answers[name]]
         assert got == want, (name, sum(x == y for x, y in zip(got, want)))
     db.close()
+
+
+# ------------------------------------------- the padded-8 graph (q8graph)
+def _q8_index(mode, metric, n=20_000, d=128, seed=0):
+    """A trained raw-store HNSWPQ index on the card under ``mode``, its
+    rows, and spare rows for writes."""
+    from vector_db_torch.api.config import HnswPqConfig
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randn(n + 64, d, device="cuda", generator=g)
+    idx = hp.HnswPqIndex(d, n + 2048, metric, HnswPqConfig(
+        num_subspaces=16, search_mode=mode), device="cuda")
+    idx.bulk_load(range(n), rows[:n])
+    return idx, rows
+
+
+def _q8_eager(idx, q, k):
+    """The index's eager answer (its graphs set aside)."""
+    from vector_db_torch.index import q8graph
+
+    saved, idx._q8 = idx._q8, q8graph.Q8Graphs(idx.device)
+    try:
+        return idx.search_batch(q, k)
+    finally:
+        idx._q8 = saved
+
+
+def _q8_counts():
+    from vector_db_torch.utils.stats import GLOBAL
+
+    got = GLOBAL.snapshot()["counts"]
+    return {n: got.get(f"q8graph.{n}", 0)
+            for n in ("captures", "replays", "eager")}
+
+
+def _q8_same(got, want):
+    import numpy as np
+
+    return (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1].view(np.int32), want[1].view(np.int32)))
+
+
+def _q8_hold(idx, q, k, label):
+    """Three calls under one key (eager, capture and replay, replay), each
+    bit-equal to the eager path; returns how many of them replayed."""
+    want = _q8_eager(idx, q, k)
+    before = _q8_counts()["replays"]
+    for i in range(3):
+        got = idx.search_batch(q, k)
+        assert _q8_same(got, want), (label, i)
+    return _q8_counts()["replays"] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("mode", ["scan_exact", "scan_pallas_int8"])
+def test_q8_graph_replays_bit_equal_to_eager_through_writes(mode, metric):
+    """The captured modes replayed at Q = 1, 3 and 8 (host and device
+    queries) give the eager path's ids and distances bit for bit, and again
+    after an add, a delete, an update (in place: the same key) and the
+    store's reallocations (a reload and a whole shadow rebuild: new keys,
+    captured anew)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    idx, rows = _q8_index(mode, metric)
+    n = 20_000
+    for q_n in (1, 3, 8):
+        q = (rows[:q_n] + 0.01).cpu().numpy()
+        assert _q8_hold(idx, q, 10, f"Q={q_n}") >= 2
+    assert _q8_hold(idx, rows[5:8] + 0.01, 10, "device queries") >= 2
+    q = (rows[:3] + 0.01).cpu().numpy()
+    captures = _q8_counts()["captures"]
+    idx.add_batch([n], rows[n:n + 1])                          # add
+    assert _q8_hold(idx, q, 10, "add") == 3
+    top = int(idx.search_batch(q, 10)[0][0, 0])
+    assert idx.remove(top)                                     # delete
+    got = idx.search_batch(q, 10)
+    assert top not in got[0][0]
+    assert _q8_hold(idx, q, 10, "delete") == 3
+    assert idx.remove(n)                                       # update
+    idx.add_batch([n], (rows[1] + 0.001)[None])
+    assert int(idx.search_batch(q, 10)[0][1, 0]) == n
+    assert _q8_hold(idx, q, 10, "update") == 3
+    assert _q8_counts()["captures"] == captures  # writes in place: one key
+    idx.load_state_arrays(idx.state_arrays())                  # reload
+    assert len(idx._q8._graphs) == 0
+    assert _q8_hold(idx, q, 10, "reload") == 2
+    idx._note_store_rewrite()                                  # rebuild
+    idx.add_batch([n + 1], rows[n + 1:n + 2])
+    assert _q8_hold(idx, q, 10, "shadow rebuild") >= 2
+    # the reload's key, and the rebuilt shadow's (scan_exact reads none)
+    assert _q8_counts()["captures"] == captures + (
+        2 if mode == "scan_pallas_int8" else 1)
+
+
+@pytest.mark.cuda
+def test_q8_graph_concurrent_readers_get_their_eager_answers():
+    """Four threads of ``db.search`` at once on one database, two keys
+    (k = 10 and k = 5) shared between them: every answer equals its eager
+    answer, and the calls were replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    import sys
+    import threading
+
+    from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase
+    from vector_db_torch.index import q8graph
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, d = 20_000, 128
+    rows = torch.randn(n, d, device="cuda", generator=g)
+    db = (VectorDatabase.builder().with_dimension(d).with_max_elements(n)
+          .with_index_type(IndexType.HNSWPQ)
+          .with_index_config(HnswPqConfig(num_subspaces=16,
+                                          search_mode="scan_pallas_int8"))
+          .with_device("cuda").build())
+    db.bulk_load(range(n), rows)
+    qs = (rows[:64] + 0.01).cpu().numpy()
+
+    def answer(res):
+        return [(r.id, r.distance) for r in res]
+    graphs, db.index._q8 = db.index._q8, q8graph.Q8Graphs(db.index.device)
+    want = {(i, k): answer(db.search(qs[i], k))
+            for i in range(64) for k in (10, 5)}
+    db.index._q8 = graphs
+    before = _q8_counts()
+    bad, errors = [], []
+
+    def reader(t):
+        try:
+            for r in range(200):
+                i, k = (t * 7 + r) % 64, (10, 5)[(t + r) % 2]
+                if answer(db.search(qs[i], k)) != want[i, k]:
+                    bad.append((t, r))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=reader, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not bad, (errors, bad[:5])
+    moved = {k: v - before[k] for k, v in _q8_counts().items()}
+    assert moved["captures"] == 2 and moved["replays"] >= 790, moved
+    db.close()
+
+
+@pytest.mark.cuda
+def test_q8_graph_replayed_b2_launches_seen_by_the_profiler(tmp_path):
+    """A B2 launch replayed from a graph captured before the profiler
+    started shows in the profiler's trace, one a replay, and each replay
+    adds its launch to ``fused_int8_pool.launches`` (the traced run's
+    launch check compares the two)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    idx, rows = _q8_index("scan_pallas_int8", "l2")
+    q = (rows[:1] + 0.01).cpu().numpy()
+    idx.search_batch(q, 10)
+    idx.search_batch(q, 10)  # captured here
+    captures = _q8_counts()["captures"]
+    before = tk.fused_int8_pool.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            idx.search_batch(q, 10)
+        torch.cuda.synchronize()
+    assert tk.fused_int8_pool.launches == before + 20
+    assert _q8_counts()["captures"] == captures
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    seen = sum(1 for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"
+               and "pool_kernel" in e.get("name", ""))
+    assert seen == 20, seen

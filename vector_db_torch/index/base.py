@@ -238,6 +238,17 @@ def backfill_short_rows(index, padded: torch.Tensor, q_n: int, k_eff: int,
     return torch.where(miss_all, fd, dists), torch.where(miss_all, fs, slots)
 
 
+def host_results(q_n: int, k: int, k_eff: int, ids: np.ndarray,
+                 dists: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host [q_n, k] result arrays from host [>= q_n, >= k_eff] ids and
+    distances: their first ``k_eff`` columns, then -1 / +inf."""
+    out_ids = np.full((q_n, k), -1, np.int32)
+    out_d = np.full((q_n, k), np.inf, np.float32)
+    out_ids[:, :k_eff] = ids[:q_n, :k_eff]
+    out_d[:, :k_eff] = dists[:q_n, :k_eff]
+    return out_ids, out_d
+
+
 def to_host_results(q_n: int, k: int, k_eff: int, ids: torch.Tensor,
                     slots_to_ids: Optional[torch.Tensor],
                     dists: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
@@ -251,8 +262,6 @@ def to_host_results(q_n: int, k: int, k_eff: int, ids: torch.Tensor,
             ids = torch.where(ids >= 0,
                               slots_to_ids[ids.clamp(min=0).long()],
                               torch.full_like(ids, -1))
-        out_ids = np.full((q_n, k), -1, np.int32)
-        out_d = np.full((q_n, k), np.inf, np.float32)
-        out_ids[:, :k_eff] = ids[:q_n, :k_eff].cpu().numpy()
-        out_d[:, :k_eff] = dists[:q_n, :k_eff].cpu().numpy()
-        return out_ids, out_d
+        return host_results(q_n, k, k_eff,
+                            ids[:q_n, :k_eff].cpu().numpy(),
+                            dists[:q_n, :k_eff].cpu().numpy())

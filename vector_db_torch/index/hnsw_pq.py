@@ -49,6 +49,11 @@ row is encoded, and ``search_batch`` scans:
     below 700,000 live rows, scan_pallas_int8 at and above (the reference's
     crossover, :func:`_auto_scan_mode`); compressed store: adc_fast.
 
+On the card, a search of at most 8 queries under ``scan_exact`` or the
+per-row ``scan_pallas_int8`` of a raw store replays its padded-8 program
+from a CUDA graph (``index/q8graph.py``, :meth:`HnswPqIndex._mode_program`):
+the same launches on the same tensors, so the same answers.
+
 The compressed store (``raw_store=False``) keeps int8 rows, exact norms
 and optionally a residual level (``refine_residual``) and no f32 matrix;
 ``bulk_load_stream`` fills it chunk by chunk.  Caches derived from the
@@ -82,7 +87,8 @@ from ..ops.kernels import (IVF_PW, LANES, fused_int8_pool, fused_int8g_pool,
                            pq_decode_recon_t, preserved_pool_width)
 from ..ops.topk import merge_topk
 from ..ops.kmeans import kmeans_fit, kmeans_fit_blocked, subspace_kmeans_fit
-from ..utils.stats import span
+from ..utils.stats import GLOBAL, span
+from . import q8graph
 from .base import (DeferInsertMixin, VectorIndex, as_queries,
                    pad_queries_pow2, pow2, to_host_results)
 from .hnsw import (fix_entry_after_unlink, graph_from_host, graph_to_host,
@@ -233,6 +239,8 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         # concurrent searches must not both refresh a cache in place; an
         # RLock: the scan_ivf layout reads the scan shadows under it
         self._cache_lock = threading.RLock()
+        # searches of at most 8 queries replayed from CUDA graphs
+        self._q8 = q8graph.for_device(self.device)
 
     # ------------------------------------------------------------- mutation
     _ROW_RECORDS = ("_scan8_dirty", "_scan8g_dirty", "_scan16_dirty",
@@ -303,6 +311,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         index's device) into an empty index, then train + encode."""
         accepted = self.store.bulk_load(ids, vectors)
         self._note_store_rewrite()
+        self._q8.clear()
         if accepted:
             self.train()
         return accepted
@@ -323,6 +332,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         if self.store.size() > 0:
             raise ValueError("bulk_load_stream requires an empty index")
         self._note_store_rewrite()
+        self._q8.clear()
         if self.config.use_graph:
             raise ValueError(
                 "bulk_load_stream does not build the HNSW graph; "
@@ -570,6 +580,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
     def build(self) -> None:
         """Train if needed, else re-encode every live row and, with the
         graph, rebuild it."""
+        self._q8.clear()
         if not self.trained:
             self.train()
         else:
@@ -950,15 +961,22 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         return min(chunk - chunk % 128, max(capacity, 128))
 
     def search_batch(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        with span("index.copy_in"):
-            padded, q_n = pad_queries_pow2(
-                as_queries(queries, self.dim, self.device))
         st = self.store.state
         raw = self.store.raw
         n_live = self.store.size()
         k_eff = min(k, st.capacity)
         k_pad = min(pow2(k_eff), st.capacity)
         resid, rscales = self._int8_resid_store()
+        if self._q8.capturer is not None:
+            queries = torch.as_tensor(queries, dtype=torch.float32)
+            if queries.ndim == 2 and queries.shape[1] == self.dim \
+                    and 0 < queries.shape[0] <= q8graph.Q_ROWS:
+                got = self._q8_search(queries, k, k_eff, k_pad, n_live)
+                if got is not None:
+                    return got
+        with span("index.copy_in"):
+            padded, q_n = pad_queries_pow2(
+                as_queries(queries, self.dim, self.device))
 
         if not self.trained or n_live <= k:
             # exact fallback until trained, and whenever every row is wanted
@@ -980,7 +998,10 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         if not raw and mode in RAW_ONLY_MODES:
             raise ValueError(f"search_mode={mode!r} needs the raw f32 store "
                              "(raw_store=False)")
-        if mode == "scan_pallas_int8" and not raw:
+        program = self._mode_program(mode, k_pad, padded.shape[0])
+        if program is not None:
+            dists, ext = program.run(padded)
+        elif mode == "scan_pallas_int8" and not raw:
             off, sc, cvec = self._scan8p_shadow()
             w = preserved_pool_width(st.capacity)
             dists, ext = pallas_scan8p_refine(
@@ -993,12 +1014,6 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             w = min(SHADOW_PAD_ROWS, base8.shape[0])
             dists, ext = pallas_scan8g_refine(
                 padded, st.vectors, base8, off, sv, sgn, cvec, st.ids, k_pad,
-                self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
-        elif mode == "scan_pallas_int8":
-            base8, off, sc, cvec = self._scan8_shadow()
-            w = min(SHADOW_PAD_ROWS, base8.shape[0])
-            dists, ext = pallas_scan8_refine(
-                padded, st.vectors, base8, off, sc, cvec, st.ids, k_pad,
                 self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
         elif mode == "scan_pallas":
             base16, off, sc, cvec = self._scan16_shadow()
@@ -1017,10 +1032,6 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             dists, ext = bf16_scan_refine(
                 padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
                 self.metric, min(max(4 * k_pad, 32), st.capacity), block_n=bn)
-        elif mode == "scan_exact":
-            dists, ext = exact_scan_search(
-                padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
-                self.metric, self._f32_scan_block(st.capacity, padded.shape[0]))
         elif mode == "scan_int8":
             i8 = self._int8_refine_store()
             if i8 is None:
@@ -1047,6 +1058,51 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         else:
             dists, ext = self._adc(padded, k_pad, resid, rscales)
         return to_host_results(q_n, k, k_eff, ext, None, dists)
+
+    def _mode_program(self, mode: str, k_pad: int, q_pad: int
+                      ) -> Optional[q8graph.Program]:
+        """The program of ``q_pad`` padded queries under the modes the
+        padded-8 graph captures, on the raw store: ``scan_exact``, and
+        ``scan_pallas_int8`` with the per-row epilogue (B2, then the exact
+        re-rank); None for every other mode."""
+        if not self.store.raw:
+            return None
+        st = self.store.state
+        store = (st.vectors, st.norms, st.valid, st.ids)
+        if mode == "scan_exact":
+            block = self._f32_scan_block(st.capacity, q_pad)
+            return q8graph.Program(
+                lambda q: exact_scan_search(q, *store, k_pad, self.metric,
+                                            block),
+                (mode, k_pad, block, self.metric), store)
+        if mode == "scan_pallas_int8" \
+                and self.config.int8_epilogue != "global":
+            base8, off, sc, cvec = self._scan8_shadow()
+            w = min(SHADOW_PAD_ROWS, base8.shape[0])
+            pool = min(max(4 * k_pad, 64), w)
+            return q8graph.Program(
+                lambda q: pallas_scan8_refine(
+                    q, st.vectors, base8, off, sc, cvec, st.ids, k_pad,
+                    self.metric, pool=pool, w=w),
+                (mode, k_pad, pool, w, self.metric),
+                store + (base8, off, sc, cvec))
+        return None
+
+    def _q8_search(self, queries: torch.Tensor, k: int, k_eff: int,
+                   k_pad: int, n_live: int):
+        """Host answers of at most 8 queries by a graph replay
+        (``index/q8graph``), or None where the call runs eagerly: the
+        exact fallback, a mode outside the captured set, or the first call
+        under its key (counted in ``q8graph.eager``)."""
+        if self.trained and n_live > k:
+            program = self._mode_program(self.resolve_mode(n_live), k_pad,
+                                         q8graph.Q_ROWS)
+            if program is not None:
+                got = self._q8.search(program, queries, k, k_eff)
+                if got is not None:
+                    return got
+        GLOBAL.bump("q8graph.eager")
+        return None
 
     def _refine_width(self, k_pad: int) -> int:
         """Candidates the ``adc`` and graph modes re-rank."""
@@ -1303,6 +1359,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         self._ivf_overlay_dev = None
         self._codes_version += 1
         self._note_store_rewrite()
+        self._q8.clear()
 
 
 def flagship_search(queries, codebooks, codes, valid, base, ids, k, refine,

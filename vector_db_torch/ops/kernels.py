@@ -32,11 +32,15 @@ checkout's sources with ``nvcc`` at first use (one compiler per source, in
 parallel, into ``build/torch_kernels/`` beside the package, keyed by the
 sources' hash) and loaded with ctypes.  A missing ``nvcc``, a failed build
 and a failed launch raise; no path sends a CUDA tensor to the plain
-version.  Each wrapper counts its kernel launches in ``<function>.launches``.
+version.  Each wrapper counts its kernel launches in ``<function>.launches``;
+while its thread captures a CUDA graph (:func:`captured_launches`) a launch
+goes to the capture's tally instead, and each replay of the graph adds the
+tally back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -170,6 +174,37 @@ def build_kernels() -> _Library:
     path, the compiler's log and the build time."""
     LIBRARY.get()
     return LIBRARY
+
+
+# ------------------------------------------------------------- launches
+class _Tally(threading.local):
+    counts: Optional[dict] = None
+
+
+_TALLY = _Tally()
+
+
+def _count_launch(fn) -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.launches``, or, while
+    this thread captures a CUDA graph, in the capture's tally: a captured
+    launch runs only when the graph replays."""
+    counts = _TALLY.counts
+    if counts is None:
+        fn.launches += 1
+    else:
+        counts[fn] = counts.get(fn, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within, this thread's kernel launches are tallied and not counted;
+    yields the tally, {wrapper: launches}, which the graph's owner adds to
+    the counters at each replay."""
+    saved, _TALLY.counts = _TALLY.counts, {}
+    try:
+        yield _TALLY.counts
+    finally:
+        _TALLY.counts = saved
 
 
 # ------------------------------------------------------- fused_int8_pool
@@ -312,7 +347,7 @@ def fused_int8_pool(q: torch.Tensor, base8: torch.Tensor,
         raise ValueError("base8 rows must be whole 4-byte words (d % 4 == 0)")
     out = _launch_scaled_pool("vdb_fused_int8_pool", q, base8, sel_off,
                               sel_scale, pool_width(w), base8.shape[1])
-    fused_int8_pool.launches += 1
+    _count_launch(fused_int8_pool)
     return out
 
 
@@ -519,7 +554,7 @@ def fused_packed_pool(q: torch.Tensor, packed: torch.Tensor,
         raise ValueError("sel_off/sel_scale must be [N] like packed's rows")
     out = _launch_scaled_pool("vdb_fused_packed_pool", q, packed, sel_off,
                               sel_scale, w, 4 * packed.shape[1])
-    fused_packed_pool.launches += 1
+    _count_launch(fused_packed_pool)
     return out
 
 
@@ -582,7 +617,7 @@ def pq_decode_recon_t(codes_t: torch.Tensor, cbt: torch.Tensor) -> torch.Tensor:
             codes_t.data_ptr(), max(codes_t.stride(0), n), cbt.data_ptr(),
             out.data_ptr(), s, n, sd, k, stream)
     _raise_on_error(lib, "vdb_pq_decode_recon_t", rc)
-    pq_decode_recon_t.launches += 1
+    _count_launch(pq_decode_recon_t)
     return out
 
 
@@ -693,7 +728,7 @@ def fused_int8g_pool(q: torch.Tensor, base8: torch.Tensor,
         (q8.data_ptr(), base8.data_ptr(), off_i.data_ptr()), (d,),
         q.shape[0], n, w, q.device, d, S8_POOL_STAGES,
         val_dtype=torch.int32)
-    fused_int8g_pool.launches += 1
+    _count_launch(fused_int8g_pool)
     return _int8g_finish(vals_i, slots, c, n)
 
 
@@ -768,7 +803,7 @@ def fused_raw_pool(q: torch.Tensor, base16: torch.Tensor,
                     (q16.data_ptr(), base16.data_ptr(), sel_off.data_ptr(),
                      sel_scale.data_ptr()), (d8,), q.shape[0], n,
                     pool_width(w), q.device, 2 * d8, BF16_POOL_STAGES)
-    fused_raw_pool.launches += 1
+    _count_launch(fused_raw_pool)
     return out
 
 
@@ -847,7 +882,7 @@ def fused_adc_pool(q: torch.Tensor, codes_t: torch.Tensor, cbt: torch.Tensor,
                      max(codes_t.stride(0), n), cbk.data_ptr(),
                      masked_norms.data_ptr()), (s, sd, k), q.shape[0], n,
                     pool_width(w), q.device, 2 * d8, BF16_POOL_STAGES)
-    fused_adc_pool.launches += 1
+    _count_launch(fused_adc_pool)
     return out
 
 
@@ -1150,7 +1185,7 @@ def fused_ivf_pool(counts: torch.Tensor, qsel: torch.Tensor, cm: torch.Tensor,
             qsel.shape[1], winners, plan.tiles, plan.splits, plan.stages,
             int(plan.streamed), stream)
     _raise_on_error(lib, "vdb_fused_ivf_pool", rc)
-    fused_ivf_pool.launches += 1
+    _count_launch(fused_ivf_pool)
     return vals, pos
 
 
@@ -1295,7 +1330,7 @@ def fused_scan_topk(q: torch.Tensor, base: torch.Tensor,
             vals.data_ptr(), idxs.data_ptr(), qn, n, d, winners,
             block_n // LANES, buckets, stream)
     _raise_on_error(lib, "vdb_fused_scan_topk", rc)
-    fused_scan_topk.launches += 1
+    _count_launch(fused_scan_topk)
     return _scan_topk_finish(q.to(torch.float32), vals, idxs, k)
 
 

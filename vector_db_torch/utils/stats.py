@@ -34,6 +34,8 @@ call's root), ``facade.results`` (building the result objects),
 ``index.search`` (the facade's call into the index), ``index.copy_in``
 (the queries to the device and their padding), ``index.scan`` (the scan or
 pool and its select), ``index.refine`` (the exact re-rank of a pool),
+``index.replay`` (a padded-8 search's CUDA graph replay, which runs the
+scan and the re-rank without their spans: ``index/q8graph``),
 ``index.fetch`` (the answers to the host), ``index.shadow`` (a scan
 shadow built or refreshed, noted ``whole`` or ``incremental``; adc_fast's
 decode tables, ``fast_tables``; a packed refine store of the raw rows,
