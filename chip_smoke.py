@@ -312,6 +312,9 @@ import time
 import numpy as np
 import torch
 
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
+from perfbench.roofline import HBM_BYTES_S, PEAK_OPS_S
+
 DEVICE = "cuda"
 K = 10
 DIM = 512
@@ -388,9 +391,6 @@ WIDE_N = 65_536
 WIDE_Q = (13, 1024)
 SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)
 STAGE_SWEEP = (3, 4, 6, 8, 9)
-#: the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fused_int8_pool": ("vector_db_torch/csrc/fused_int8_pool.cu",
                         "vector_db_tpu/ops/pallas_kernels.py:585"),
@@ -1923,7 +1923,7 @@ def phase_ivf():
         raise RuntimeError("8a CRUD: add_batch refused rows")
     found = [r[0].id if r else -1 for r in db.search_batch(new, K)]
     hit = sum(f == i for f, i in zip(found, new_ids)) / 300
-    overlay = ix._ivf_overlay.size
+    overlay = ix._caches.ivf.value.overlay.size
     victim = ids[0][0]
     if not db.delete_vector(victim):
         raise RuntimeError("8a CRUD: delete_vector failed")
@@ -1934,11 +1934,11 @@ def phase_ivf():
     t0 = time.perf_counter()
     db.search_batch(queries[:1], K)
     relayout_s = time.perf_counter() - t0
-    drained = ix._ivf_overlay.size == 0 and ix._ivf_cache[0] == \
-        ix.store.version
+    lay = ix._caches.ivf
+    drained = lay.value.overlay.size == 0 and lay.key == ix.store.version
     say(f"phase 8a CRUD: 300 adds found={hit} overlay={overlay} "
         f"removed id gone={gone} overlay after 800 more adds and a search="
-        f"{ix._ivf_overlay.size} relayout={drained} rows={db.size()}")
+        f"{lay.value.overlay.size} relayout={drained} rows={db.size()}")
     timing("phase 8a relayout search (Q=1, layout rebuilt)", relayout_s, "s")
     add(read_launches("8a CRUD", must_launch=("fused_ivf_pool",)))
     if hit < 0.99 or overlay != 300 or not gone or not drained:
@@ -3809,11 +3809,11 @@ def cross_check(step, dbs, oracles, gens, last):
 def hold_global_rebuild(db, before):
     """The re-add's wide rows clipped against the global shadow's scale
     past 1% of the live rows: the search rebuilt it (a new, wider sv)."""
-    base8, off, sv, sgn, cvec = db.index._scan8g_shadow()
-    sv1 = float(sv)
+    shadow = db.index._scan8g_shadow()  # (..., sv, ..., clipped)
+    sv1, clipped = float(shadow[2]), shadow[-1]
     say(f"phase 13a global shadow: sv {before} -> {sv1} after the re-add, "
-        f"clipped since the rebuild {db.index._scan8g_clipped}")
-    if not (sv1 > 2 * before and db.index._scan8g_clipped == 0):
+        f"clipped since the rebuild {clipped}")
+    if not (sv1 > 2 * before and clipped == 0):
         raise RuntimeError("13a: the clip rebuild of the global shadow did "
                            "not run")
 
@@ -3830,23 +3830,24 @@ def hold_shadows(db, label):
     n, d = st.vectors.shape
     metric = idx.metric
     checks = {}
-    if idx._scan8_cache is not None:
-        base8, off, sc, cvec = idx._scan8_cache[1]
+    caches = idx._caches
+    if caches.scan8.value is not None:
+        base8, off, sc, cvec, aux = caches.scan8.value
         r8, off_s, sc_s = hp._quantize_shadow_rows(
-            st.vectors, st.norms, st.valid, cvec, idx._scan8_aux, metric)
+            st.vectors, st.norms, st.valid, cvec, aux, metric)
         checks["per_row"] = (
             torch.equal(base8[:n, :d][st.valid], r8[st.valid])
             and torch.equal(sc[:n][st.valid], sc_s[st.valid]), off[:n], off_s)
-    if idx._scan8g_cache is not None:
-        base8, off, sv, _, cvec = idx._scan8g_cache[1]
+    if caches.scan8g.value is not None:
+        base8, off, sv, _, cvec, aux, _ = caches.scan8g.value
         r8, off_s, _ = hp._quantize_global_rows(
-            st.vectors, st.norms, st.valid, cvec, idx._scan8g_aux, sv, metric)
+            st.vectors, st.norms, st.valid, cvec, aux, sv, metric)
         checks["global"] = (torch.equal(base8[:n, :d][st.valid], r8[st.valid]),
                             off[:n], off_s)
-    if idx._scan16_cache is not None:
-        base16, off, sc, cvec = idx._scan16_cache[1]
+    if caches.scan16.value is not None:
+        base16, off, sc, cvec, aux = caches.scan16.value
         off_s, sc_s = hp._condition16_rows(
-            st.vectors, st.norms, st.valid, cvec, idx._scan16_aux, metric)
+            st.vectors, st.norms, st.valid, cvec, aux, metric)
         checks["bf16"] = (torch.equal(base16[:n, :d][st.valid],
                                       st.vectors[st.valid].to(torch.bfloat16))
                           and torch.equal(sc[:n][st.valid], sc_s[st.valid]),
@@ -3924,7 +3925,7 @@ def cross_crud():
     for i, (op, ids, gauss, spec) in enumerate(steps):
         t0 = time.perf_counter()
         if op == "re-add":
-            sv_before = float(dbs["gauss"].index._scan8g_cache[1][2])
+            sv_before = float(dbs["gauss"].index._caches.scan8g.value[2])
         cross_apply(dbs, paths, op, ids, {"gauss": gauss,
                                           "spectral": spec})
         if op in ("add", "re-add"):

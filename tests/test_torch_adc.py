@@ -151,11 +151,11 @@ def test_incremental_fast_tables_match_a_rebuild():
         device="cpu")
     port.bulk_load(range(3000), torch.from_numpy(base[:3000]))
     port.search_batch(_t(base[:4]), K)                 # builds the tables
-    cache = port._fast_cache
+    cache = port._caches.fast.value
     port.add_batch(range(3000, 3100), base[3000:3100])  # 100 re-encoded slots
     port.remove(5)
     ct, cbt, cnorms = port._fast_tables()
-    assert port._fast_cache[2] is cache[2]             # refreshed in place
+    assert port._caches.fast.value[0] is cache[0]      # refreshed in place
     np.testing.assert_array_equal(ct.numpy(), port.codes.T.numpy())
     full = hp._recon_norms(port.codes.T.contiguous(), cbt)
     np.testing.assert_allclose(cnorms.numpy(), full.numpy(), rtol=1e-5)
@@ -194,7 +194,7 @@ def test_raw_index_adc_fast_matches_reference(refine_store):
         assert _overlap(port_ids, ref_ids) >= 0.99
         assert _overlap(port_ids, gt) >= _overlap(ref_ids, gt) - 0.005
     if refine_store != "f32":
-        cached = port._packed_cache[1]
+        cached = port._caches.refine.value
         fresh = (dist.pack_bf16_rows(port.store.state.vectors),) \
             if refine_store == "bf16" else \
             dist.pack_int8_rows(port.store.state.vectors)

@@ -257,14 +257,16 @@ def test_member_table_follows_its_dirty_flag():
     port = hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(**cfg), device="cpu")
     base = _corpus(1000, 49)
     port.add_batch(range(1000), base)
-    assert port._members is None and port._members_dirty
+    members = port._caches.members
+    assert members.value is None             # void: built at the search
     port.search_batch(base[:2], K)
-    table = port._members
-    assert table is not None and not port._members_dirty
+    table = members.value[0]
+    assert table is not None and members.value is not None
     port.search_batch(base[:2], K)
-    assert port._members is table            # reused while nothing moved
+    assert members.value[0] is table         # reused while nothing moved
     port.remove(5)
-    assert port._members_dirty
+    assert members.value is None             # voided by the remove
     ids, _ = port.search_batch(base[5:6], K)
-    assert port._members is not table and 5 not in ids[0]
-    assert 5 not in port._members.numpy() and 5 not in port._overflow.numpy()
+    assert members.value[0] is not table and 5 not in ids[0]
+    assert 5 not in members.value[0].numpy() \
+        and 5 not in members.value[2].numpy()

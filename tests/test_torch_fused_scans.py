@@ -403,9 +403,9 @@ def test_index_modes_match_reference_before_and_after_churn(trained, mode,
         assert _overlap(port_ids, gt) >= _overlap(ref_ids, gt) - 0.005
         assert np.all(np.diff(port_d, axis=1) >= 0)
     if mode == "scan_pallas":
-        assert port._scan16_cache[0] == port.store.version
+        assert port._caches.scan16.key == port.store.version
     if extra.get("int8_epilogue"):
-        assert port._scan8g_cache[0] == port.store.version
+        assert port._caches.scan8g.key == port.store.version
 
 
 @pytest.mark.parametrize("mode,extra", MODES[:3],
@@ -458,18 +458,20 @@ def test_clipped_rows_force_a_global_shadow_rebuild(trained):
     port.load_state_arrays(arrays)
     q = torch.from_numpy(queries[:4])
     port.search_batch(q, K)
-    shadow = port._scan8g_cache[1]
+    shadow = port._caches.scan8g.value  # (..., sv, ..., clipped)
     sv0 = float(shadow[2])
     r = np.random.default_rng(19)
     wide = lambda m: (r.standard_normal((m, D)) * 20.0).astype(np.float32)
     port.add_batch(range(20_000, 20_010), wide(10))
     port.search_batch(q, K)
-    assert port._scan8g_cache[1][0] is shadow[0]  # refreshed in place
-    assert port._scan8g_clipped == 10 and float(port._scan8g_cache[1][2]) == sv0
+    value = port._caches.scan8g.value
+    assert value[0] is shadow[0]  # refreshed in place
+    assert value[-1] == 10 and float(value[2]) == sv0
     port.add_batch(range(20_010, 20_070), wide(60))
     ids, _ = port.search_batch(wide(1), K)
-    assert port._scan8g_clipped == 0 and float(port._scan8g_cache[1][2]) > sv0
-    assert port._scan8g_cache[1][0] is not shadow[0]
+    value = port._caches.scan8g.value
+    assert value[-1] == 0 and float(value[2]) > sv0
+    assert value[0] is not shadow[0]
 
 
 def test_compressed_fused_adc_matches_reference():

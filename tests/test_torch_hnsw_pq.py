@@ -170,7 +170,6 @@ def test_lazy_training_and_exact_fallback():
     assert idx.trained and idx.codebooks.shape == (8, 256, 4)
     ids, _ = idx.search_batch(x[:4], 3)
     np.testing.assert_array_equal(ids[:, 0], np.arange(4))
-    assert hp._MODE_ROADMAP == {}
     for mode in ("pca", "adc", "graph"):
         hp.HnswPqIndex(D, CAP, "l2", HnswPqConfig(search_mode=mode),
                        device="cpu")

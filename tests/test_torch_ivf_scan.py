@@ -431,7 +431,7 @@ def test_scan_ivf_index_matches_reference(raw):
     assert _overlap(port_ids, ref_ids) >= 0.99
     assert _overlap(port_ids, gt) >= _overlap(ref_ids, gt) - 0.005
     assert np.all(np.diff(port_d, axis=1) >= 0)
-    lay = port._ivf_cache[1]
+    lay = port._caches.ivf.value
     ref_lay = ref._ivf_cache[2]
     assert lay.cap == ref_lay.cap and lay.spilled == ref_lay.spilled
     np.testing.assert_array_equal(lay.pos2slot.numpy(),
@@ -460,7 +460,7 @@ def test_scan_ivf_crud_overlay_and_relayout_match_reference():
     assert port.add_batch(ids_a, xa) == ref.add_batch(ids_a, xa)
     rows.update(zip(ids_a, xa))
     ids = check()
-    assert port._ivf_overlay.size == ref._ivf_overlay.size == 300
+    assert port._caches.ivf.value.overlay.size == ref._ivf_overlay.size == 300
     # removing a returned neighbour takes effect at once
     victim = int(ids[0, 0])
     assert port.remove(victim) and ref.remove(victim)
@@ -475,8 +475,8 @@ def test_scan_ivf_crud_overlay_and_relayout_match_reference():
     assert port.add_batch(ids_b, xb) == ref.add_batch(ids_b, xb)
     rows.update(zip(ids_b, xb))
     check()
-    assert port._ivf_overlay.size == ref._ivf_overlay.size == 0
-    assert port._ivf_cache[0] == port.store.version
+    assert port._caches.ivf.value.overlay.size == ref._ivf_overlay.size == 0
+    assert port._caches.ivf.key == port.store.version
 
 
 def test_scan_ivf_checkpoints_cross_both_ways():

@@ -233,7 +233,7 @@ def test_pca_mode_trains_and_searches_like_the_reference(metric, store):
     new_ids = list(range(10_000, 10_100))
     assert port.add_batch(new_ids, new) == ref.add_batch(new_ids, new)
     rows.update(zip(new_ids, new))
-    assert port._proxy_norms is None         # dropped by the encode
+    assert port._caches.proxy_norms.value is None  # dropped by the encode
     _compare(ref, port, queries, rows, metric)
     # every added row is found by its own vector, through the proxy
     ids, _ = port.search_batch(new[:16], 1)

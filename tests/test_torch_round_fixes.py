@@ -18,7 +18,8 @@ Where the reference's answer is deterministic (policies, table layouts,
 widths, popcounts, exact searches) the same seeded numpy inputs also go
 through ``vector_db_tpu`` and the two must agree.  Where the reference
 reaches a private of the JAX package, the port's counterpart is used:
-``_scan8g_cache[1]`` is the port's (base8, off, sv, sgn, center) tuple, the
+``_caches.scan8g.value`` is the port's (base8, off, sv, sgn, center, aux,
+clipped) tuple, the
 Annoy spy wraps ``annoy.descend``, meshes are ``make_mesh(devices=[cpu] *
 n)``.  Torch's intra-op threads are capped (``_few_threads``): the cases
 are small and run beside other test workers.
@@ -577,9 +578,14 @@ class TestTakeDirtyGuard:
         an IndexError or an empty refresh."""
         idx = HnswPqIndex(dim=32, capacity=256, config=HnswPqConfig(),
                           device=CPU)
-        attr = idx._ROW_RECORDS[0]
-        setattr(idx, attr, [np.zeros(0, np.int64), np.zeros(0, np.int64)])
-        assert idx._take_dirty(attr) is None
+        cache = idx._caches.scan8
+        cache.get(0, lambda: "built")
+        cache.note(np.zeros(0, np.int64), 8192)
+        cache.note(np.zeros(0, np.int64), 8192)
+        refreshed = []
+        assert cache.get(1, lambda: "rebuilt",
+                         lambda v, s: refreshed.append(s)) == "rebuilt"
+        assert not refreshed
 
     def test_record_counts_rows_as_it_grows(self):
         """Each write adds its rows to the record's running count (no sum
@@ -589,15 +595,15 @@ class TestTakeDirtyGuard:
             num_subspaces=2, training_samples=256), device=CPU)
         idx.add_batch(range(600), np.ones((600, 8), np.float32))
         idx.search_batch(np.zeros((1, 8), np.float32), 1)
-        for attr in idx._ROW_RECORDS:
-            setattr(idx, attr, type(idx._scan8_dirty)())
+        rows = idx._caches[:5]  # the row-keyed caches
+        for cache in rows:
+            cache._take()  # an empty record
         for vid in range(300):
             assert idx.remove(vid)
-        for attr in idx._ROW_RECORDS:
-            rec = getattr(idx, attr)
-            assert rec.rows == sum(a.size for a in rec) == 300
+        for cache in rows:
+            assert cache._rows == sum(a.size for a in cache._record) == 300
         idx._note_row_mutation(np.arange(8192 - 300 + 1))
-        assert all(getattr(idx, a) is None for a in idx._ROW_RECORDS)
+        assert all(cache._record is None for cache in rows)
 
 
 class TestDeferInsertPolicy:
@@ -850,7 +856,7 @@ class TestInt8GlobalEpilogue:
         qs = vecs[100:108] + 0.01 * rng.standard_normal((8, 64)).astype(
             np.float32)
         idx.search_batch(qs, 5)  # builds the shadow cache
-        assert idx._scan8g_cache is not None
+        assert idx._caches.scan8g.value is not None
         for vid in range(100, 104):
             assert idx.remove(vid)
         new = rng.standard_normal((4, 64)).astype(np.float32)
@@ -1060,12 +1066,12 @@ class TestScan8gClipRebuild:
 
     @staticmethod
     def _sv(idx):
-        return float(idx._scan8g_cache[1][2])
+        return float(idx._caches.scan8g.value[2])
 
     def test_many_clipped_rows_trigger_rebuild(self, rng):
         idx, vecs = self._index(rng)
         idx.search_batch(vecs[:8], 5)
-        assert idx._scan8g_cache is not None
+        assert idx._caches.scan8g.value is not None
         sv0 = self._sv(idx)
         # 128 rows far outside the calibrated range (> max(64, 1% of N))
         wide = 10.0 * rng.standard_normal((128, 64)).astype(np.float32)
@@ -1073,7 +1079,7 @@ class TestScan8gClipRebuild:
         idx.search_batch(vecs[:8], 5)  # counts the clips -> rebuild
         sv1 = self._sv(idx)
         assert sv1 > sv0 * 2, (sv0, sv1)
-        assert idx._scan8g_clipped == 0
+        assert idx._caches.scan8g.value[-1] == 0  # clipped since built
         ids, _ = idx.search_batch(wide[:8], 1)
         assert (ids[:, 0] == np.arange(9000, 9008)).all()
 
@@ -1085,7 +1091,7 @@ class TestScan8gClipRebuild:
         idx.add_batch(range(9000, 9008), wide)
         idx.search_batch(vecs[:4], 5)
         assert self._sv(idx) == sv0  # no rebuild
-        assert 0 < idx._scan8g_clipped <= 8
+        assert 0 < idx._caches.scan8g.value[-1] <= 8
 
     def test_global_shadow_containment_at_100k(self, rng):
         """The global-scale shadow's pool at 100k x 512, scored with the

@@ -79,7 +79,36 @@
 
 #include <type_traits>
 
-#include "pool_tile.cuh"  // pool::merge_splits_kernel, pool::kMaxSmem
+namespace pool {
+
+constexpr int kMaxSmem = 232448;  // dynamic shared memory of one H100 block
+
+// Merge the per-split partial pools (blocks that split one tile's passes,
+// gridDim.z) in split (= pass) order with strict <, so a tie keeps the
+// earlier pass exactly as the single-block loop would (the TPU kernels'
+// `_pool_accumulate`, pallas_kernels.py:375-397).
+template <typename Val>
+__global__ void merge_splits_kernel(const Val* __restrict__ part_vals,
+                                    const int32_t* __restrict__ part_slots,
+                                    Val* __restrict__ vals,
+                                    int32_t* __restrict__ slots, long long qw,
+                                    int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= qw) return;
+  Val bv = part_vals[i];
+  int32_t bs = part_slots[i];
+  for (int z = 1; z < splits; ++z) {
+    const Val v = part_vals[z * qw + i];
+    if (v < bv) {
+      bv = v;
+      bs = part_slots[z * qw + i];
+    }
+  }
+  vals[i] = bv;
+  slots[i] = bs;
+}
+
+}  // namespace pool
 
 namespace wg {
 

@@ -249,6 +249,13 @@ def host_results(q_n: int, k: int, k_eff: int, ids: np.ndarray,
     return out_ids, out_d
 
 
+def slot_ids(slots: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The external ids of store slots (the store's ``ids`` tensor), -1
+    where a slot is -1."""
+    return torch.where(slots >= 0, ids[slots.clamp(min=0).long()],
+                       torch.full_like(slots, -1))
+
+
 def to_host_results(q_n: int, k: int, k_eff: int, ids: torch.Tensor,
                     slots_to_ids: Optional[torch.Tensor],
                     dists: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
@@ -259,9 +266,7 @@ def to_host_results(q_n: int, k: int, k_eff: int, ids: torch.Tensor,
     ``index.fetch``, which holds the wait for the answers)."""
     with span("index.fetch"):
         if slots_to_ids is not None:
-            ids = torch.where(ids >= 0,
-                              slots_to_ids[ids.clamp(min=0).long()],
-                              torch.full_like(ids, -1))
+            ids = slot_ids(ids, slots_to_ids)
         return host_results(q_n, k, k_eff,
                             ids[:q_n, :k_eff].cpu().numpy(),
                             dists[:q_n, :k_eff].cpu().numpy())

@@ -56,11 +56,15 @@ the same launches on the same tensors, so the same answers.
 
 The compressed store (``raw_store=False``) keeps int8 rows, exact norms
 and optionally a residual level (``refine_residual``) and no f32 matrix;
-``bulk_load_stream`` fills it chunk by chunk.  Caches derived from the
-store or the codes are keyed on version counters (``store.version``, the
-codes' own ``_codes_version``): the port writes in place, so the
-reference's array-identity keys would never change.  Unlike the reference,
-the [L, cap, M] graph is allocated only under ``use_graph=True``.
+``bulk_load_stream`` fills it chunk by chunk.  What a search derives from
+the store or the codes (the scan shadows, the refine rows, the ADC tables,
+the scan_ivf layout, the member table, the proxy norms) is one registry of
+``core/derived.DerivedCache`` (:class:`_Caches`), keyed on version counters
+(``store.version``, the codes' own ``_codes_version``): the port writes in
+place, so the reference's array-identity keys would never change.  Every
+row write is noted in the row-keyed caches' records; an untracked rewrite
+or a reload voids them all.  Unlike the reference, the [L, cap, M] graph
+is allocated only under ``use_graph=True``.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ import numpy as np
 import torch
 
 from ..api.config import HnswPqConfig
+from ..core.derived import DerivedCache
 from ..core.member_table import build_member_table
 from ..core.store import VectorStore
 from ..ops import adc, ivf_scan, pca
@@ -90,13 +95,10 @@ from ..ops.kmeans import kmeans_fit, kmeans_fit_blocked, subspace_kmeans_fit
 from ..utils.stats import GLOBAL, span
 from . import q8graph
 from .base import (DeferInsertMixin, VectorIndex, as_queries,
-                   pad_queries_pow2, pow2, to_host_results)
+                   pad_queries_pow2, pow2, slot_ids, to_host_results)
 from .hnsw import (fix_entry_after_unlink, graph_from_host, graph_to_host,
                    sample_graph_levels)
 
-#: search modes of the reference still to port, by ROADMAP item (none: a
-#: mode no branch of search_batch names runs the ``adc`` scan, as there)
-_MODE_ROADMAP: dict = {}
 #: modes that read the raw f32 rows (refused by a compressed store)
 RAW_ONLY_MODES = ("scan_exact", "scan_pallas", "scan_bf16", "graph")
 #: live rows at which auto switches from scan_exact to scan_pallas_int8
@@ -112,12 +114,21 @@ RECON_NORM_CHUNK = 1 << 19
 COARSE_BLOCK_ELEMS = 1 << 26
 
 
-class _DirtyRecord(list):
-    """Arrays of store slots written since a cache was built, with their
-    running row count (summing the arrays at every write made a run of
-    single-row writes quadratic in its length)."""
+class _Caches(NamedTuple):
+    """HnswPqIndex's derived caches (``core/derived``), each read through
+    one getter.  The first five are keyed on ``store.version`` and noted
+    every row write, ``scan8p`` keyed on it too, ``fast`` on
+    ``_codes_version``; the last two are voided by hand."""
 
-    rows = 0
+    scan8: DerivedCache
+    scan8g: DerivedCache
+    scan16: DerivedCache
+    refine: DerivedCache
+    ivf: DerivedCache
+    scan8p: DerivedCache
+    fast: DerivedCache
+    members: DerivedCache
+    proxy_norms: DerivedCache
 
 
 class HnswPqIndex(DeferInsertMixin, VectorIndex):
@@ -178,105 +189,50 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         # defer insert policy: trained graph-mode adds are buffered here
         # and searches fold them into the exact refine
         self._init_pending(self.store.capacity)
-        # the quota + overflow member table of the pruned ``adc`` scan,
-        # rebuilt when coarse_assign or the live set moved
-        self._members: Optional[torch.Tensor] = None
-        self._overflow: Optional[torch.Tensor] = None
-        self._members_dirty = True
         # PCA proxy (search_mode="pca", proxy_dims > 0): mean / basis fitted
-        # at training, proxy rows [cap, p] bf16 written by every encode,
-        # their squared norms cached until the next write
+        # at training, proxy rows [cap, p] bf16 written by every encode
         self.pca_mean: Optional[torch.Tensor] = None
         self.pca_basis: Optional[torch.Tensor] = None
         self.proxy: Optional[torch.Tensor] = None
-        self._proxy_norms: Optional[torch.Tensor] = None
         # the coarse quantizer (config.nlist > 0): centroids [nlist, dim] in
         # probe space, and each slot's nearest centroid on the host (-1 for
         # dead slots, and for rows train() places under scan_ivf, whose
         # layout takes its own top-8 choices), as the reference keeps them
         self.coarse_centroids: Optional[torch.Tensor] = None
         self.coarse_assign = np.full(self.store.capacity, -1, np.int32)
-        # derived caches, each (version key, value):
-        #   _scan8_cache  raw int8 scan shadow (base8, off, sc, center_vec)
-        #                 with its centering constant _scan8_aux
-        #   _scan8g_cache raw global-scale int8 shadow (base8, off, sv, sgn,
-        #                 center_vec), centering _scan8g_aux, and the live
-        #                 rows clipped since its build, _scan8g_clipped
-        #   _scan16_cache raw bf16 shadow (base16, off, sc, center_vec),
-        #                 centering _scan16_aux
-        #   _scan8p_cache compressed scan conditioning (off, sc, center_vec)
-        #   _packed_cache raw-store bf16 or int8 refine store
-        #   _fast_cache   ADC tables (codes_t, cbt, recon norms), keyed on
-        #                 (_codes_version, codebooks)
-        #   _ivf_cache    the scan_ivf layout (_IvfLayout); rows written
-        #                 since its build are disabled in its grid and kept
-        #                 in _ivf_overlay (host slots, scored exactly), up
-        #                 to _IVF_OVERLAY_MAX before the next search relays
-        #                 it out
-        self._scan8_cache: Optional[tuple] = None
-        self._scan8_aux: Optional[torch.Tensor] = None
-        self._scan8g_cache: Optional[tuple] = None
-        self._scan8g_aux: Optional[torch.Tensor] = None
-        self._scan8g_clipped = 0
-        self._scan16_cache: Optional[tuple] = None
-        self._scan16_aux: Optional[tuple] = None
-        self._scan8p_cache: Optional[tuple] = None
-        self._packed_cache: Optional[tuple] = None
-        self._fast_cache: Optional[tuple] = None
-        self._ivf_cache: Optional[tuple] = None
-        self._ivf_overlay = np.empty(0, np.int64)
-        self._ivf_overlay_dev: Optional[torch.Tensor] = None
-        # rows (store slots) written since a cache was built, for its
-        # incremental refresh: [] = none, None = unknown -> full rebuild.
-        # _fast_dirty records re-encoded slots and has one writer,
-        # _encode_slots (removals touch no code).
-        self._scan8_dirty: Optional[list] = _DirtyRecord()
-        self._scan8g_dirty: Optional[list] = _DirtyRecord()
-        self._scan16_dirty: Optional[list] = _DirtyRecord()
-        self._pack_dirty: Optional[list] = _DirtyRecord()
-        self._fast_dirty: Optional[list] = _DirtyRecord()
-        self._ivf_dirty: Optional[list] = _DirtyRecord()
-        # concurrent searches must not both refresh a cache in place; an
-        # RLock: the scan_ivf layout reads the scan shadows under it
-        self._cache_lock = threading.RLock()
+        # one lock: no two searches refresh a cache at once; an RLock, as
+        # the scan_ivf layout reads the scan shadows under it
+        lock = threading.RLock()
+        shadow = ("whole", "incremental")
+        refine = ("bf16_refine" if config.refine_store == "bf16"
+                  else "int8_refine",) * 2
+        dev = self.device
+        self._caches = _Caches(
+            scan8=DerivedCache(lock, shadow, dev),
+            scan8g=DerivedCache(lock, shadow, dev),
+            scan16=DerivedCache(lock, shadow, dev),
+            refine=DerivedCache(lock, refine, dev),
+            ivf=DerivedCache(lock, None, dev),
+            scan8p=DerivedCache(lock, shadow),
+            fast=DerivedCache(lock, ("fast_tables",) * 2, dev),
+            members=DerivedCache(lock), proxy_norms=DerivedCache(lock))
         # searches of at most 8 queries replayed from CUDA graphs
         self._q8 = q8graph.for_device(self.device)
 
     # ------------------------------------------------------------- mutation
-    _ROW_RECORDS = ("_scan8_dirty", "_scan8g_dirty", "_scan16_dirty",
-                    "_pack_dirty", "_ivf_dirty")
-
-    def _note_slots(self, attr: str, slots: np.ndarray) -> None:
-        """Append slots to a dirty record; past max(8192, capacity / 8)
-        rows the record degrades to a full rebuild (None)."""
-        rec = getattr(self, attr)
-        if rec is None:
-            return
+    def _note_row_mutation(self, slots: np.ndarray, caches=None) -> None:
+        """Record store rows written or removed in the dirty records of
+        ``caches`` (by default the row-keyed ones); past max(8192, capacity
+        / 8) rows a record is void (a rebuild)."""
         arr = np.asarray(slots, np.int64).ravel()
-        rec.append(arr)
-        rec.rows += arr.size
-        if rec.rows > max(8192, self.store.capacity // 8):
-            setattr(self, attr, None)
-
-    def _note_row_mutation(self, slots: np.ndarray) -> None:
-        """Record store rows written or removed, for the row caches."""
-        for attr in self._ROW_RECORDS:
-            self._note_slots(attr, slots)
+        limit = max(8192, self.store.capacity // 8)
+        for cache in self._caches[:5] if caches is None else caches:
+            cache.note(arr, limit)
 
     def _note_store_rewrite(self) -> None:
-        """An untracked rewrite of the whole store: every record is void."""
-        for attr in self._ROW_RECORDS + ("_fast_dirty",):
-            setattr(self, attr, None)
-
-    def _take_dirty(self, attr: str) -> Optional[torch.Tensor]:
-        """Consume a record: its unique slots on the device, or None when
-        it is empty or void (the caller then rebuilds)."""
-        rec = getattr(self, attr)
-        setattr(self, attr, _DirtyRecord())
-        if not rec or sum(a.size for a in rec) == 0:
-            return None
-        return torch.as_tensor(np.unique(np.concatenate(rec)),
-                               device=self.device)
+        """An untracked rewrite of the whole store: every cache is void."""
+        for cache in self._caches:
+            cache.void()
 
     def add_batch(self, ids: Sequence[int], vectors) -> list[int]:
         accepted, slots = self.store.add_batch(ids, vectors)
@@ -377,8 +333,8 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             # the freelist reflects whatever was written, even on a raise
             self.store._free = list(range(cap - 1, start - 1, -1))
             self._codes_version += 1
-            self._proxy_norms = None
-            self._members_dirty = True
+            self._caches.proxy_norms.void()
+            self._caches.members.void()
         return start
 
     def _fit_quantizers(self, data: torch.Tensor) -> None:
@@ -435,6 +391,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             iters=self.config.training_iterations, plus_plus=True)
         self.trained = True
         self._codes_version += 1
+        self._caches.fast.void()  # a refresh never mixes two codebooks
 
     def _fit_proxy(self, sample: torch.Tensor) -> None:
         """Under ``search_mode="pca"`` with ``proxy_dims > 0``: fit the PCA
@@ -453,7 +410,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         self.pca_basis = torch.as_tensor(basis, device=self.device)
         self.proxy = torch.zeros((self.store.capacity, basis.shape[1]),
                                  dtype=torch.bfloat16, device=self.device)
-        self._proxy_norms = None
+        self._caches.proxy_norms.void()
 
     def _project(self, vecs: torch.Tensor) -> torch.Tensor:
         """Proxy rows of store rows (normalized first under cosine)."""
@@ -467,7 +424,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             return False
         self._note_row_mutation(np.asarray([slot]))
         self.coarse_assign[slot] = -1
-        self._members_dirty = True
+        self._caches.members.void()
         if not self.config.use_graph or self._unpend_slot(slot):
             return True  # no graph, or the row never reached it
         was_entry = self.graph.entry == slot
@@ -539,8 +496,8 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         """New coarse centroids: the scan_ivf layout built on the old ones
         is dropped."""
         self.coarse_centroids = centroids
-        self._ivf_cache = None
-        self._members_dirty = True
+        self._caches.ivf.void()
+        self._caches.members.void()
 
     def _nearest_coarse(self, vecs: torch.Tensor) -> np.ndarray:
         """Each row's nearest coarse centroid (rows normalized under
@@ -558,24 +515,22 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         for s in range(0, slots.size, step):
             sl = slots[s:s + step]
             self.coarse_assign[sl] = self._nearest_coarse(self.store.rows(sl))
-        self._members_dirty = True
+        self._caches.members.void()
 
     def _member_table(self) -> tuple:
         """(members [nlist, L], L, overflow) of the pruned ``adc`` scan:
         each cluster keeps at most a quota of 4x the mean size, members
         past it spill into the shared overflow list every query scans
-        (``core/member_table``); rebuilt on the host when the assignment or
-        the live set moved."""
-        with self._cache_lock:
-            if self._members is None or self._members_dirty:
-                table, _, over = build_member_table(
-                    self.coarse_assign, self.store.state.valid.cpu().numpy(),
-                    int(self.coarse_centroids.shape[0]), quota_mult=4.0,
-                    align=32)
-                self._members = torch.as_tensor(table, device=self.device)
-                self._overflow = torch.as_tensor(over, device=self.device)
-                self._members_dirty = False
-            return self._members, self._members.shape[1], self._overflow
+        (``core/member_table``); rebuilt on the host after the assignment
+        or the live set moved (which void it)."""
+        return self._caches.members.get(True, self._build_member_table)
+
+    def _build_member_table(self) -> tuple:
+        table, _, over = build_member_table(
+            self.coarse_assign, self.store.state.valid.cpu().numpy(),
+            int(self.coarse_centroids.shape[0]), quota_mult=4.0, align=32)
+        table = torch.as_tensor(table, device=self.device)
+        return table, table.shape[1], torch.as_tensor(over, device=self.device)
 
     def build(self) -> None:
         """Train if needed, else re-encode every live row and, with the
@@ -607,9 +562,10 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                                            self.codebooks)
             if self.proxy is not None:
                 self.proxy[sl] = self._project(rows)
-                self._proxy_norms = None
+        if self.proxy is not None:
+            self._caches.proxy_norms.void()
         self._codes_version += 1
-        self._note_slots("_fast_dirty", slots)
+        self._note_row_mutation(slots, (self._caches.fast,))
 
     def _pq_space(self, vecs: torch.Tensor) -> torch.Tensor:
         """Vectors as the quantizer sees them: normalized under cosine,
@@ -622,119 +578,90 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
 
     # ------------------------------------------------------- derived caches
     def _scan8_shadow(self) -> tuple:
-        """(base8, off, sc, center_vec) for scan_pallas_int8 on a raw
+        """(base8, off, sc, center_vec, aux) for scan_pallas_int8 on a raw
         store, current with the store.  Rows written since the last build
         are requantized against the cached centering (O(dirty * d)); an
         unknown or over-threshold rewrite rebuilds it whole."""
-        with self._cache_lock:
-            st = self.store.state
-            cache = self._scan8_cache
-            if cache is not None and cache[0] == self.store.version:
-                return cache[1]
-            slots = self._take_dirty("_scan8_dirty")
-            if cache is not None and self._scan8_aux is not None \
-                    and slots is not None:
-                shadow = cache[1]
-                with span("index.shadow", note="incremental"):
-                    _update_scan8_shadow(*shadow[:3], st.vectors, st.norms,
-                                         st.valid, slots, shadow[3],
-                                         self._scan8_aux, self.metric)
-            else:
-                with span("index.shadow", note="whole"):
-                    *shadow, self._scan8_aux = _build_scan8_shadow(
-                        st.vectors, st.norms, st.valid, self.metric,
-                        SHADOW_PAD_ROWS)
-            self._scan8_cache = (self.store.version, tuple(shadow))
-            return self._scan8_cache[1]
+        return self._caches.scan8.get(self.store.version, self._build_scan8,
+                                      self._refresh_scan8)
+
+    def _build_scan8(self) -> tuple:
+        st = self.store.state
+        return _build_scan8_shadow(st.vectors, st.norms, st.valid,
+                                   self.metric, SHADOW_PAD_ROWS)
+
+    def _refresh_scan8(self, shadow: tuple, slots: torch.Tensor) -> tuple:
+        st = self.store.state
+        _update_scan8_shadow(*shadow[:3], st.vectors, st.norms, st.valid,
+                             slots, *shadow[3:], self.metric)
+        return shadow
 
     def _scan8g_shadow(self) -> tuple:
-        """(base8, off, sv, sgn, center_vec) for scan_pallas_int8 with
-        ``int8_epilogue="global"`` on a raw store, current with the store.
-        Rows written since the last build are requantized against the
-        cached centering AND the cached global scale ``sv`` (a wider row
-        clips at +-127); once the live rows clipped since the build pass
-        max(64, 1% of the live rows), or on an unknown rewrite, the shadow
-        is rebuilt whole, which refreshes ``sv``."""
-        with self._cache_lock:
-            st = self.store.state
-            cache = self._scan8g_cache
-            if cache is not None and cache[0] == self.store.version:
-                return cache[1]
-            slots = self._take_dirty("_scan8g_dirty")
-            rebuild = cache is None or self._scan8g_aux is None \
-                or slots is None
-            if not rebuild:
-                base8, off, sv, _, cvec = cache[1]
-                with span("index.shadow", note="incremental"):
-                    self._scan8g_clipped += _update_scan8g_shadow(
-                        base8, off, st.vectors, st.norms, st.valid, slots,
-                        cvec, self._scan8g_aux, sv, self.metric)
-                rebuild = self._scan8g_clipped > max(
-                    64, 0.01 * self.store.size())
-            if rebuild:
-                self._scan8g_cache = None  # free the old shadow first
-                with span("index.shadow", note="whole"):
-                    *shadow, self._scan8g_aux = _build_scan8g_shadow(
-                        st.vectors, st.norms, st.valid, self.metric,
-                        SHADOW_PAD_ROWS)
-                self._scan8g_clipped = 0
-                value = tuple(shadow)
-            else:
-                value = cache[1]
-            self._scan8g_cache = (self.store.version, value)
-            return value
+        """(base8, off, sv, sgn, center_vec, aux, clipped) for
+        scan_pallas_int8 with ``int8_epilogue="global"`` on a raw store,
+        current with the store.  Rows written since the last build are
+        requantized against the cached centering AND the cached global
+        scale ``sv`` (a wider row clips at +-127); once the live rows
+        clipped since the build pass max(64, 1% of the live rows), or on an
+        unknown rewrite, the shadow is rebuilt whole, which refreshes
+        ``sv``."""
+        return self._caches.scan8g.get(self.store.version,
+                                       self._build_scan8g,
+                                       self._refresh_scan8g)
+
+    def _build_scan8g(self) -> tuple:
+        st = self.store.state
+        return _build_scan8g_shadow(st.vectors, st.norms, st.valid,
+                                    self.metric, SHADOW_PAD_ROWS) + (0,)
+
+    def _refresh_scan8g(self, shadow: tuple, slots: torch.Tensor):
+        base8, off, sv, _, cvec, aux, clipped = shadow
+        st = self.store.state
+        clipped += _update_scan8g_shadow(base8, off, st.vectors, st.norms,
+                                         st.valid, slots, cvec, aux, sv,
+                                         self.metric)
+        if clipped > max(64, 0.01 * self.store.size()):
+            return None
+        return shadow[:6] + (clipped,)
 
     def _scan16_shadow(self) -> tuple:
-        """(base16, off, sc, center_vec) for scan_pallas on a raw store,
-        current with the store: rows written since the last build are
-        reconditioned against the cached centering, an unknown or
+        """(base16, off, sc, center_vec, aux) for scan_pallas on a raw
+        store, current with the store: rows written since the last build
+        are reconditioned against the cached centering, an unknown or
         over-threshold rewrite rebuilds it whole."""
-        with self._cache_lock:
-            st = self.store.state
-            cache = self._scan16_cache
-            if cache is not None and cache[0] == self.store.version:
-                return cache[1]
-            slots = self._take_dirty("_scan16_dirty")
-            if cache is not None and self._scan16_aux is not None \
-                    and slots is not None:
-                base16, off, sc, cvec = cache[1]
-                with span("index.shadow", note="incremental"):
-                    _update_scan16_shadow(base16, off, sc, st.vectors,
-                                          st.norms, st.valid, slots, cvec,
-                                          self._scan16_aux, self.metric)
-                value = cache[1]
-            else:
-                self._scan16_cache = None  # free the old shadow first
-                with span("index.shadow", note="whole"):
-                    *shadow, self._scan16_aux = _build_scan16_shadow(
-                        st.vectors, st.norms, st.valid, self.metric,
-                        SHADOW_PAD_ROWS)
-                value = tuple(shadow)
-            self._scan16_cache = (self.store.version, value)
-            return value
+        return self._caches.scan16.get(self.store.version,
+                                       self._build_scan16,
+                                       self._refresh_scan16)
+
+    def _build_scan16(self) -> tuple:
+        st = self.store.state
+        return _build_scan16_shadow(st.vectors, st.norms, st.valid,
+                                    self.metric, SHADOW_PAD_ROWS)
+
+    def _refresh_scan16(self, shadow: tuple, slots: torch.Tensor) -> tuple:
+        st = self.store.state
+        _update_scan16_shadow(*shadow[:3], st.vectors, st.norms, st.valid,
+                              slots, *shadow[3:], self.metric)
+        return shadow
 
     def _scan8p_shadow(self) -> tuple:
         """(off, sc, center_vec) for scan_pallas_int8 on a compressed
         store: O(N) conditioning vectors (the kernel reads the store's own
         packed rows), rebuilt whenever the store's version moved."""
-        with self._cache_lock:
-            st = self.store.state
-            if self._scan8p_cache is None \
-                    or self._scan8p_cache[0] != self.store.version:
-                with span("index.shadow", note="whole"):
-                    self._scan8p_cache = (
-                        self.store.version, _build_scan8p_shadow(
-                            st.packed, st.scales, st.norms, st.valid,
-                            self.metric))
-            return self._scan8p_cache[1]
+        return self._caches.scan8p.get(self.store.version,
+                                       self._build_scan8p)
+
+    def _build_scan8p(self) -> tuple:
+        st = self.store.state
+        return _build_scan8p_shadow(st.packed, st.scales, st.norms, st.valid,
+                                    self.metric)
 
     def _packed_refine_store(self) -> Optional[torch.Tensor]:
         """The bf16 refine store of a raw store with refine_store="bf16",
         current with the store (dirty rows repacked only), else None."""
         if self.config.refine_store != "bf16" or not self.store.raw:
             return None
-        return self._raw_refine_cache(lambda v: (pack_bf16_rows(v),),
-                                      "bf16_refine")[0]
+        return self._refine_rows()[0]
 
     def _int8_refine_store(self) -> Optional[tuple]:
         """(packed [cap, d/4] int32, scales [cap]) int8 refine rows, or
@@ -744,28 +671,28 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             return self.store.state.packed, self.store.state.scales
         if self.config.refine_store != "int8":
             return None
-        return self._raw_refine_cache(pack_int8_rows, "int8_refine")
+        return self._refine_rows()
 
-    def _raw_refine_cache(self, pack, note: str) -> tuple:
-        """A per-row packing of the raw store (``pack`` returns a tuple of
-        [N, ...] tensors), kept current: the rows in _pack_dirty are
-        repacked in place, bit-identical to a full rebuild.  A build or
-        repack is the span ``index.shadow`` noted ``note``."""
-        with self._cache_lock:
-            vecs = self.store.state.vectors
-            cache = self._packed_cache
-            if cache is not None and cache[0] == self.store.version:
-                return cache[1]
-            slots = self._take_dirty("_pack_dirty")
-            with span("index.shadow", note=note):
-                if cache is not None and slots is not None:
-                    for dst, src in zip(cache[1], pack(vecs[slots])):
-                        dst[slots] = src
-                    value = cache[1]
-                else:
-                    value = pack(vecs)
-            self._packed_cache = (self.store.version, value)
-            return value
+    def _refine_rows(self) -> tuple:
+        """The raw store packed a row at a time for the refine (a tuple of
+        [N, ...] tensors: bf16 rows, or int8 words and scales), kept
+        current: the rows written since are repacked in place,
+        bit-identical to a whole rebuild (span note ``bf16_refine`` or
+        ``int8_refine``)."""
+        return self._caches.refine.get(self.store.version, self._pack_refine,
+                                       self._repack_refine)
+
+    def _pack_refine(self, slots: Optional[torch.Tensor] = None) -> tuple:
+        vecs = self.store.state.vectors
+        rows = vecs if slots is None else vecs[slots]
+        if self.config.refine_store == "bf16":
+            return (pack_bf16_rows(rows),)
+        return pack_int8_rows(rows)
+
+    def _repack_refine(self, packed: tuple, slots: torch.Tensor) -> tuple:
+        for dst, src in zip(packed, self._pack_refine(slots)):
+            dst[slots] = src
+        return packed
 
     def _int8_refine_args(self, i8: Optional[tuple], resid, rscales) -> dict:
         """The int8 refine keywords of the pool searches from an
@@ -787,33 +714,23 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
 
     def _fast_tables(self) -> tuple:
         """(codes_t [S, cap] uint8, cbt [S*sd, K], reconstruction norms
-        [cap]) for adc_fast, current with the codes.  Re-encoded slots are
+        [cap]) for adc_fast, current with the codes (keyed on
+        ``_codes_version``; new codebooks void them).  Re-encoded slots are
         refreshed in place (_update_fast_tables); new codebooks or an
-        unknown rewrite rebuild them, the norms in RECON_NORM_CHUNK-column
-        decode passes (never a [d, cap] reconstruction).  A build or refresh
-        is the span ``index.shadow`` noted ``fast_tables``."""
-        with self._cache_lock:
-            cache = self._fast_cache
-            if cache is not None and cache[0] == self._codes_version \
-                    and cache[1] is self.codebooks:
-                return cache[2:]
-            slots = self._take_dirty("_fast_dirty")
-            with span("index.shadow", note="fast_tables"):
-                if cache is not None and cache[1] is self.codebooks \
-                        and slots is not None:
-                    ct, cbt, cnorms = cache[2:]
-                    _update_fast_tables(ct, cnorms, self.codes,
-                                        self.codebooks, slots)
-                else:
-                    self._fast_cache = None  # free the old tables first
-                    ct = self.codes.T.contiguous()
-                    cbt = adc.codebooks_to_cbt(self.codebooks)
-                    cnorms = torch.cat([
-                        _recon_norms(ct[:, s:s + RECON_NORM_CHUNK], cbt)
-                        for s in range(0, ct.shape[1], RECON_NORM_CHUNK)])
-            self._fast_cache = (self._codes_version, self.codebooks, ct, cbt,
-                                cnorms)
-            return self._fast_cache[2:]
+        unknown rewrite rebuild them (:func:`_build_fast_tables`).  A build
+        or refresh is the span ``index.shadow`` noted ``fast_tables``."""
+        return self._caches.fast.get(self._codes_version,
+                                     self._build_fast_tables,
+                                     self._refresh_fast_tables)
+
+    def _build_fast_tables(self) -> tuple:
+        return _build_fast_tables(self.codes, self.codebooks)
+
+    def _refresh_fast_tables(self, tables: tuple, slots: torch.Tensor
+                             ) -> tuple:
+        _update_fast_tables(tables[0], tables[2], self.codes, self.codebooks,
+                            slots)
+        return tables
 
     # ------------------------------------------------------ scan_ivf layout
     #: rows written since the last layout that a search scores exactly
@@ -828,31 +745,23 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         positions get a +inf offset and their slots join the exact overlay,
         O(dirty) per search.  Past ``_IVF_OVERLAY_MAX`` overlay rows, or
         after an untracked rewrite, the layout is built again."""
-        with self._cache_lock:
-            cache = self._ivf_cache
-            if cache is not None and cache[0] == self.store.version:
-                return cache[1]
-            if cache is not None:
-                slots = self._take_dirty("_ivf_dirty")
-                if slots is not None:
-                    overlay = np.union1d(self._ivf_overlay,
-                                         slots.cpu().numpy())
-                    if overlay.size <= self._IVF_OVERLAY_MAX:
-                        lay = cache[1]
-                        pos = lay.slot2pos[slots]
-                        lay.off_cm[pos[pos >= 0].long()] = float("inf")
-                        lay.slot2pos[slots] = -1
-                        self._ivf_overlay = overlay
-                        self._ivf_overlay_dev = None
-                        self._ivf_cache = (self.store.version, lay)
-                        return lay
-            self._ivf_cache = None  # free the old grid first
-            lay = self._build_ivf_layout()
-            self._ivf_cache = (self.store.version, lay)
-            self._ivf_dirty = _DirtyRecord()
-            self._ivf_overlay = np.empty(0, np.int64)
-            self._ivf_overlay_dev = None
-            return lay
+        return self._caches.ivf.get(self.store.version,
+                                    self._build_ivf_layout,
+                                    self._refresh_ivf_layout)
+
+    def _refresh_ivf_layout(self, lay: "_IvfLayout", slots: torch.Tensor
+                            ) -> Optional["_IvfLayout"]:
+        overlay = np.union1d(lay.overlay, slots.cpu().numpy())
+        if overlay.size > self._IVF_OVERLAY_MAX:
+            return None
+        pos = lay.slot2pos[slots]
+        lay.off_cm[pos[pos >= 0].long()] = float("inf")
+        lay.slot2pos[slots] = -1
+        # -1 padded to a power of two: a bounded set of shapes, as there
+        padded = np.full(pow2(overlay.size), -1, np.int64)
+        padded[:overlay.size] = overlay
+        return lay._replace(overlay=overlay, overlay_dev=torch.as_tensor(
+            padded, device=self.device))
 
     def _build_ivf_layout(self) -> "_IvfLayout":
         """Every live row's top-8 clusters (``ivf_scan.coarse_choices``),
@@ -879,7 +788,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         rows = st.capacity
         chunk = max(LANES, COARSE_BLOCK_ELEMS // nlist)
         if self.store.raw:
-            base8, off, sc, cvec = self._scan8_shadow()
+            base8, off, sc, cvec, _ = self._scan8_shadow()
             packed_src = base8[:rows].view(torch.int32)
             choices = ivf_scan.coarse_choices(st.vectors, None, cents,
                                               self.metric, 8, chunk)
@@ -894,19 +803,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         cm, off_cm, sc_cm = _gather_ivf_cm(packed_src, off[:rows], sc[:rows],
                                            pos2slot)
         return _IvfLayout(cents, cm, off_cm, sc_cm, cvec, pos2slot, slot2pos,
-                          cap, int(spilled))
-
-    def _ivf_overlay_padded(self) -> Optional[torch.Tensor]:
-        """The overlay slots on the device, padded with -1 to a power of
-        two (a bounded set of shapes, as in the reference), or None."""
-        if self._ivf_overlay.size == 0:
-            return None
-        if self._ivf_overlay_dev is None:
-            n = self._ivf_overlay.size
-            arr = np.full(pow2(n), -1, np.int64)
-            arr[:n] = self._ivf_overlay
-            self._ivf_overlay_dev = torch.as_tensor(arr, device=self.device)
-        return self._ivf_overlay_dev
+                          cap, int(spilled), np.empty(0, np.int64), None)
 
     # ------------------------------------------------------------- graph ops
     def _graph_insert(self, slots: np.ndarray) -> None:
@@ -1001,70 +898,32 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         program = self._mode_program(mode, k_pad, padded.shape[0])
         if program is not None:
             dists, ext = program.run(padded)
-        elif mode == "scan_pallas_int8" and not raw:
-            off, sc, cvec = self._scan8p_shadow()
-            w = preserved_pool_width(st.capacity)
-            dists, ext = pallas_scan8p_refine(
-                padded, st.packed, st.scales, st.norms, off, sc, cvec,
-                st.ids, k_pad, self.metric, pool=min(max(4 * k_pad, 64), w),
-                w=w, resid=resid, rscales=rscales)
-        elif mode == "scan_pallas_int8" \
-                and self.config.int8_epilogue == "global":
-            base8, off, sv, sgn, cvec = self._scan8g_shadow()
-            w = min(SHADOW_PAD_ROWS, base8.shape[0])
-            dists, ext = pallas_scan8g_refine(
-                padded, st.vectors, base8, off, sv, sgn, cvec, st.ids, k_pad,
-                self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
-        elif mode == "scan_pallas":
-            base16, off, sc, cvec = self._scan16_shadow()
-            w = min(SHADOW_PAD_ROWS, base16.shape[0])
-            dists, ext = pallas_scan_refine(
-                padded, st.vectors, base16, off, sc, cvec, st.ids, k_pad,
-                self.metric, pool=min(max(4 * k_pad, 64), w), w=w)
-        elif mode == "scan_bf16":
-            # stream blocks once the full-row bf16 scores would pass 512 MB
-            if padded.shape[0] * st.capacity * 2 > 512 << 20:
-                bn = max(131072, min(st.capacity,
-                                     (1 << 28) // max(padded.shape[0], 1)))
-                bn -= bn % 128
-            else:
-                bn = 0
-            dists, ext = bf16_scan_refine(
-                padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
-                self.metric, min(max(4 * k_pad, 32), st.capacity), block_n=bn)
-        elif mode == "scan_int8":
-            i8 = self._int8_refine_store()
-            if i8 is None:
-                raise ValueError("search_mode='scan_int8' needs "
-                                 "raw_store=False or refine_store='int8'")
-            with span("index.scan"):
-                dists, slots = blocked_knn_int8(
-                    padded, i8[0], i8[1], st.valid, k_pad,
-                    metric=self.metric, b_norms=st.norms,
-                    block_n=min(262144, st.capacity), resid=resid,
-                    rscales=rscales)
-            return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
-        elif mode == "adc_fast":
-            dists, ext = self._adc_fast(padded, k_pad, resid, rscales)
-        elif mode == "scan_ivf":
-            dists, ext = self._scan_ivf(padded, k_pad, resid, rscales)
-        elif mode == "pca":
-            dists, ext = self._pca(padded, k_pad, resid, rscales)
-        elif self.config.use_graph and self.graph.entry >= 0:
-            # (mode "graph" without use_graph has no graph to search and
-            # runs the adc scan, as in the reference)
-            dists, slots = self._graph_search(padded, k_pad)
-            return to_host_results(q_n, k, k_eff, slots, st.ids, dists)
         else:
-            dists, ext = self._adc(padded, k_pad, resid, rscales)
+            search = self._MODE_SEARCH.get(mode)
+            if search is None:
+                # a mode without a search of its own ("graph", "adc"): the
+                # graph where one is built, else the adc scan (the reference)
+                search = (HnswPqIndex._graph_search
+                          if self.config.use_graph and self.graph.entry >= 0
+                          else HnswPqIndex._adc)
+            dists, ext = search(self, padded, k_pad, resid, rscales)
         return to_host_results(q_n, k, k_eff, ext, None, dists)
+
+    def _pool_shape(self, k_pad: int, rows: int) -> tuple:
+        """(pool, w) of a pool mode over ``rows`` rows: buckets of w (at
+        most SHADOW_PAD_ROWS of a raw store's shadow, else the preserved
+        width), the best min(max(4 k_pad, 64), w) re-ranked."""
+        w = (min(SHADOW_PAD_ROWS, rows) if self.store.raw
+             else preserved_pool_width(rows))
+        return min(max(4 * k_pad, 64), w), w
 
     def _mode_program(self, mode: str, k_pad: int, q_pad: int
                       ) -> Optional[q8graph.Program]:
         """The program of ``q_pad`` padded queries under the modes the
         padded-8 graph captures, on the raw store: ``scan_exact``, and
         ``scan_pallas_int8`` with the per-row epilogue (B2, then the exact
-        re-rank); None for every other mode."""
+        re-rank); None for every other mode.  The shadow's count of whole
+        builds is part of the key: a rebuilt shadow is captured anew."""
         if not self.store.raw:
             return None
         st = self.store.state
@@ -1077,14 +936,14 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                 (mode, k_pad, block, self.metric), store)
         if mode == "scan_pallas_int8" \
                 and self.config.int8_epilogue != "global":
-            base8, off, sc, cvec = self._scan8_shadow()
-            w = min(SHADOW_PAD_ROWS, base8.shape[0])
-            pool = min(max(4 * k_pad, 64), w)
+            base8, off, sc, cvec, _ = self._scan8_shadow()
+            pool, w = self._pool_shape(k_pad, base8.shape[0])
             return q8graph.Program(
                 lambda q: pallas_scan8_refine(
                     q, st.vectors, base8, off, sc, cvec, st.ids, k_pad,
                     self.metric, pool=pool, w=w),
-                (mode, k_pad, pool, w, self.metric),
+                (mode, k_pad, pool, w, self.metric,
+                 self._caches.scan8.builds),
                 store + (base8, off, sc, cvec))
         return None
 
@@ -1117,10 +976,8 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                 "search_mode='pca' needs a fitted proxy: set proxy_dims > 0 "
                 "and search_mode='pca' before training (or retrain/build())")
         st = self.store.state
-        with self._cache_lock:
-            if self._proxy_norms is None:
-                self._proxy_norms = pca.rows_sq_norms(self.proxy)
-            proxy_norms = self._proxy_norms
+        proxy_norms = self._caches.proxy_norms.get(True,
+                                                   self._build_proxy_norms)
         return pca.pca_proxy_search(
             padded, self.pca_mean, self.pca_basis, self.proxy, proxy_norms,
             st.valid, st.vectors if self.store.raw else None, st.ids,
@@ -1130,7 +987,10 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             **self._int8_refine_args(self._int8_refine_store(), resid,
                                      rscales))
 
-    def _graph_search(self, padded, k_pad):
+    def _build_proxy_norms(self) -> torch.Tensor:
+        return pca.rows_sq_norms(self.proxy)
+
+    def _graph_search(self, padded, k_pad, resid=None, rscales=None):
         """Graph mode: ADC-distance traversal with a beam of
         max(pow2(ef_search), refine), the first ``refine`` of its pool
         re-ranked exactly; pending rows are scored by one [Q, P] product
@@ -1143,10 +1003,13 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         _, cand = hnsw_pq_search(self.graph, self.codes, tables, st.valid, ef)
         cand = cand[:, :refine]
         if self._pending_count > 0:
-            return _graph_refine_pending(
+            dists, slots = _graph_refine_pending(
                 padded, st.vectors, st.valid, cand, self._pending_padded(),
                 k_pad, self.metric)
-        return blocked_rerank(padded, st.vectors, cand, k_pad, self.metric)
+        else:
+            dists, slots = blocked_rerank(padded, st.vectors, cand, k_pad,
+                                          self.metric)
+        return dists, slot_ids(slots, st.ids)
 
     def _adc(self, padded, k_pad, resid, rscales):
         """adc on either store: the exhaustive table scan, or the pruned
@@ -1204,7 +1067,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                 "the partition count)")
         st = self.store.state
         lay = self._ivf_layout()
-        args = (self._ivf_overlay_padded(), k_pad, self.metric,
+        args = (lay.overlay_dev, k_pad, self.metric,
                 *self.ivf_search_shape(padded.shape[0], k_pad),
                 max(1, self.config.ivf_winners))
         if self.store.raw:
@@ -1234,6 +1097,66 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             select_r=self.config.adc_select_r,
             **self._int8_refine_args(self._int8_refine_store(), resid,
                                      rscales))
+
+    def _scan_pool8(self, padded, k_pad, resid, rscales):
+        """scan_pallas_int8 outside :meth:`_mode_program`: B4 over the
+        compressed store, B7 over the raw store's global-scale shadow."""
+        st = self.store.state
+        if not self.store.raw:
+            off, sc, cvec = self._scan8p_shadow()
+            pool, w = self._pool_shape(k_pad, st.capacity)
+            return pallas_scan8p_refine(
+                padded, st.packed, st.scales, st.norms, off, sc, cvec,
+                st.ids, k_pad, self.metric, pool=pool, w=w, resid=resid,
+                rscales=rscales)
+        base8, off, sv, sgn, cvec, *_ = self._scan8g_shadow()
+        pool, w = self._pool_shape(k_pad, base8.shape[0])
+        return pallas_scan8g_refine(padded, st.vectors, base8, off, sv, sgn,
+                                    cvec, st.ids, k_pad, self.metric,
+                                    pool=pool, w=w)
+
+    def _scan_pool16(self, padded, k_pad, resid, rscales):
+        """scan_pallas: B6 over the bf16 shadow."""
+        st = self.store.state
+        base16, off, sc, cvec, _ = self._scan16_shadow()
+        pool, w = self._pool_shape(k_pad, base16.shape[0])
+        return pallas_scan_refine(padded, st.vectors, base16, off, sc, cvec,
+                                  st.ids, k_pad, self.metric, pool=pool, w=w)
+
+    def _scan_bf16(self, padded, k_pad, resid, rscales):
+        """scan_bf16, streamed once its bf16 scores would pass 512 MB."""
+        st = self.store.state
+        if padded.shape[0] * st.capacity * 2 > 512 << 20:
+            bn = max(131072, min(st.capacity,
+                                 (1 << 28) // max(padded.shape[0], 1)))
+            bn -= bn % 128
+        else:
+            bn = 0
+        return bf16_scan_refine(
+            padded, st.vectors, st.norms, st.valid, st.ids, k_pad,
+            self.metric, min(max(4 * k_pad, 32), st.capacity), block_n=bn)
+
+    def _scan_int8(self, padded, k_pad, resid, rscales):
+        """scan_int8: the exhaustive scan over int8 rows."""
+        st = self.store.state
+        i8 = self._int8_refine_store()
+        if i8 is None:
+            raise ValueError("search_mode='scan_int8' needs "
+                             "raw_store=False or refine_store='int8'")
+        with span("index.scan"):
+            dists, slots = blocked_knn_int8(
+                padded, i8[0], i8[1], st.valid, k_pad, metric=self.metric,
+                b_norms=st.norms, block_n=min(262144, st.capacity),
+                resid=resid, rscales=rscales)
+        return dists, slot_ids(slots, st.ids)
+
+    #: the searches of the modes that have one of their own (beside the
+    #: padded-8 program's, :meth:`_mode_program`); every other mode runs
+    #: the graph where one is built, else the adc scan
+    _MODE_SEARCH = {"scan_pallas_int8": _scan_pool8,
+                    "scan_pallas": _scan_pool16, "scan_bf16": _scan_bf16,
+                    "scan_int8": _scan_int8, "adc_fast": _adc_fast,
+                    "scan_ivf": _scan_ivf, "pca": _pca}
 
     # ---------------------------------------------------------------- state
     def size(self) -> int:
@@ -1349,14 +1272,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                     torch.bfloat16).to(dev)
         else:
             self.pca_mean = self.pca_basis = self.proxy = None
-        self._proxy_norms = None
-        self._members = self._overflow = None
         # the new store restarts its version: drop every derived cache
-        self._scan8_cache = self._scan8p_cache = None
-        self._scan8g_cache = self._scan16_cache = None
-        self._packed_cache = self._fast_cache = self._ivf_cache = None
-        self._ivf_overlay = np.empty(0, np.int64)
-        self._ivf_overlay_dev = None
         self._codes_version += 1
         self._note_store_rewrite()
         self._q8.clear()
@@ -1719,6 +1635,17 @@ def _recon_norms(ct_blk, cbt):
     return torch.sum(r.square_(), dim=0)
 
 
+def _build_fast_tables(codes, codebooks) -> tuple:
+    """(codes_t [S, cap] uint8 contiguous, cbt [S*sd, K], reconstruction
+    norms [cap]) of the decode kernel, the norms in RECON_NORM_CHUNK-column
+    decode passes (never a [d, cap] reconstruction)."""
+    ct = codes.T.contiguous()
+    cbt = adc.codebooks_to_cbt(codebooks)
+    cnorms = torch.cat([_recon_norms(ct[:, s:s + RECON_NORM_CHUNK], cbt)
+                        for s in range(0, ct.shape[1], RECON_NORM_CHUNK)])
+    return ct, cbt, cnorms
+
+
 def _update_fast_tables(ct, cnorms, codes, codebooks, slots) -> None:
     """Refresh the ADC tables of re-encoded slots in place: their codes_t
     columns, and their reconstruction norms from per-subspace square norms
@@ -1842,6 +1769,8 @@ class _IvfLayout(NamedTuple):
     slot2pos: torch.Tensor   # [capacity] int32 store slot -> grid position
     cap: int                 # rows per cluster
     spilled: int             # rows placed outside their top-8 clusters
+    overlay: np.ndarray      # slots written since, scored exactly (host)
+    overlay_dev: Optional[torch.Tensor]  # it -1 padded to pow2, or None
 
 
 def _gather_ivf_cm(packed_src, off, sc, pos2slot):

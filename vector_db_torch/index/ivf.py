@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..api.config import IvfConfig
+from ..core.derived import DerivedCache
 from ..core.member_table import build_member_table
 from ..core.store import VectorStore
 from ..ops.distance import (blocked_knn, blocked_rerank, pairwise_dist,
@@ -94,10 +95,8 @@ class IvfIndex(VectorIndex):
         self.assignments = np.full(
             (self.store.capacity, max(1, self.config.multi_assign)), -1,
             np.int32)
-        self.members: Optional[torch.Tensor] = None   # [C, L] slot table
-        self.overflow: Optional[torch.Tensor] = None  # quota-spilled slots
-        self._max_len = 0
-        self._members_dirty = True
+        # the member table, voided by every mutation that moves it
+        self._member_cache = DerivedCache()
         self.trained = False
         self.seed = 42
         self._removals_since_train = 0
@@ -114,7 +113,7 @@ class IvfIndex(VectorIndex):
         if slot is None:
             return False
         self.assignments[slot, :] = -1
-        self._members_dirty = True
+        self._member_cache.void()
         # the centroids drift from the live rows: retrain past a quarter
         self._removals_since_train += 1
         if self.trained and \
@@ -141,7 +140,7 @@ class IvfIndex(VectorIndex):
         self.assignments[:] = -1
         self._assign_slots(live)
         self.trained = True
-        self._members_dirty = True
+        self._member_cache.void()
         self._removals_since_train = 0
 
     def _assign_slots(self, slots: np.ndarray) -> None:
@@ -157,21 +156,19 @@ class IvfIndex(VectorIndex):
                               self.metric)
             top_a = torch.topk(d, a, dim=1, largest=False, sorted=True)[1]
             self.assignments[blk, :a] = top_a.cpu().numpy()
-        self._members_dirty = True
+        self._member_cache.void()
 
     def _member_table(self) -> tuple[torch.Tensor, int, torch.Tensor]:
-        """The quota-capped [C, L] member table (quota 8x the mean cluster)
-        and the overflow list, rebuilt after mutations."""
-        if self.members is not None and not self._members_dirty:
-            return self.members, self._max_len, self.overflow
+        """The quota-capped [C, L] member table (quota 8x the mean cluster),
+        L and the overflow list, rebuilt after mutations."""
+        return self._member_cache.get(True, self._build_member_table)
+
+    def _build_member_table(self) -> tuple[torch.Tensor, int, torch.Tensor]:
         table, max_len, over = build_member_table(
             self.assignments, self.store.state.valid.cpu().numpy(),
             int(self.centroids.shape[0]), quota_mult=8.0, align=8)
-        self.members = torch.as_tensor(table, device=self.device)
-        self.overflow = torch.as_tensor(over, device=self.device)
-        self._max_len = max_len
-        self._members_dirty = False
-        return self.members, max_len, self.overflow
+        return (torch.as_tensor(table, device=self.device), max_len,
+                torch.as_tensor(over, device=self.device))
 
     def fill_slots(self, k_pad: int) -> np.ndarray:
         """The fixed-seed random fill pool [k_pad] (-1 padded): live slots
@@ -241,6 +238,4 @@ class IvfIndex(VectorIndex):
                                                   np.float32),
                                        device=self.device)
                           if "centroids" in arrays else None)
-        self._members_dirty = True
-        self.members = None
-        self.overflow = None
+        self._member_cache.void()

@@ -10,7 +10,7 @@ on ``ops/kernels.pq_decode_recon_t``, B3), or by the distance-table scans
 
 The codes stay ``[cap, S]`` (the reference's state and checkpoint layout);
 the decode kernel reads a contiguous ``[S, cap]`` copy, cached with the
-reconstruction norms and keyed on a version counter every encode bumps.
+reconstruction norms (``core/derived``) on a counter every encode bumps.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..api.config import PqConfig
+from ..core.derived import DerivedCache
 from ..core.store import VectorStore
 from ..ops import adc
 from ..ops.distance import blocked_knn, normalize_rows, rerank_columns
@@ -29,7 +30,7 @@ from ..ops.kmeans import subspace_kmeans_fit
 from ..ops.topk import merge_topk
 from .base import (VectorIndex, as_queries, pad_queries_pow2, pow2,
                    to_host_results)
-from .hnsw_pq import RECON_NORM_CHUNK, _recon_norms
+from .hnsw_pq import _build_fast_tables
 
 
 class PqIndex(VectorIndex):
@@ -59,7 +60,7 @@ class PqIndex(VectorIndex):
         # variance-balancing dimension permutation (PQ space = rows[:, perm])
         self.perm: Optional[torch.Tensor] = None
         self._codes_version = 0
-        self._fast_cache: Optional[tuple] = None
+        self._fast = DerivedCache()
 
     # ------------------------------------------------------------- mutation
     def add_batch(self, ids: Sequence[int], vectors) -> list[int]:
@@ -114,20 +115,11 @@ class PqIndex(VectorIndex):
     def _fast_tables(self) -> tuple:
         """(codes_t [S, cap] uint8 contiguous, cbt [S*sd, K], reconstruction
         norms [cap]) for the decode kernel, current with the codes: rebuilt
-        after an encode, the norms in RECON_NORM_CHUNK-column decode
-        passes."""
-        cache = self._fast_cache
-        if cache is not None and cache[0] == self._codes_version \
-                and cache[1] is self.codebooks:
-            return cache[2:]
-        self._fast_cache = None  # free the old tables first
-        ct = self.codes.T.contiguous()
-        cbt = adc.codebooks_to_cbt(self.codebooks)
-        cnorms = torch.cat([_recon_norms(ct[:, s:s + RECON_NORM_CHUNK], cbt)
-                            for s in range(0, ct.shape[1], RECON_NORM_CHUNK)])
-        self._fast_cache = (self._codes_version, self.codebooks, ct, cbt,
-                            cnorms)
-        return self._fast_cache[2:]
+        after an encode (``hnsw_pq._build_fast_tables``)."""
+        return self._fast.get(self._codes_version, self._build_fast_tables)
+
+    def _build_fast_tables(self) -> tuple:
+        return _build_fast_tables(self.codes, self.codebooks)
 
     # --------------------------------------------------------------- search
     def search_batch(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -205,7 +197,7 @@ class PqIndex(VectorIndex):
         self.codes = torch.tensor(np.asarray(arrays["codes"], np.uint8),
                                   device=dev)
         self._codes_version += 1
-        self._fast_cache = None
+        self._fast.void()
         self.trained = bool(np.asarray(arrays["trained"])[0])
         self.codebooks = (torch.tensor(np.asarray(arrays["codebooks"],
                                                   np.float32), device=dev)

@@ -11,11 +11,11 @@ one copy brings back into a pinned buffer; the host waits on one event.  A
 replay runs the eager program's own launches, in the same order, on the same
 tensors, so its answers are the eager path's, bit for bit.
 
-The key is the program's scalars (mode, k, pool, width, metric) and the
-data pointer, shape and dtype of every tensor it reads.  A write in place
-is seen by the replay, which reads the memory its launches name when it
-runs; a reallocated tensor (a reload, a whole shadow rebuild, ``bulk_load``)
-gives a new key.  The first call under a key runs eagerly, which also loads
+The key is the program's scalars (mode, k, pool, width, metric, the
+shadow's count of whole builds) and the data pointer, shape and dtype of
+every tensor it reads.  A write in place is seen by the replay, which reads
+the memory its launches name when it runs; a reallocation (a reload,
+``bulk_load``) or a whole shadow rebuild gives a new key.  The first call under a key runs eagerly, which also loads
 the kernels and warms cuBLAS; the second captures and replays; later calls
 replay.  An index keeps at most :data:`MAX_GRAPHS` graphs and drops the
 oldest (which frees its memory pool).

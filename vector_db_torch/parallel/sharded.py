@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.derived import DerivedCache
 from ..core.device import resolve_device
 from ..index import hnsw_pq
 from ..index.hnsw_pq import (_build_scan8_shadow, _build_scan8g_shadow,
@@ -902,8 +903,8 @@ class ShardedDatabase:
                 self._pieces[name] = [
                     torch.zeros((self.per_shard, wide), dtype=tdtype,
                                 device=d) for d in self._devices]
-        self._cond_cache: dict[int, tuple] = {}
-        self._proxy_cache: dict[int, tuple] = {}
+        self._cond = [DerivedCache() for _ in range(self.n_shards)]
+        self._proxy = [DerivedCache() for _ in range(self.n_shards)]
         self._pca_gen = 0
         self.pca_mean = self.pca_basis = None
         self.codebooks: Optional[torch.Tensor] = None
@@ -1320,26 +1321,21 @@ class ShardedDatabase:
         version moved since it was built (readers share the cache, so the
         check and the fill hold ``_refresh_lock``)."""
         with self._refresh_lock:
-            self._fill_conditioning()
-        return [list(col) for col in zip(
-            *(self._cond_cache[sh][1] for sh in range(self.n_shards)))]
+            got = [self._cond[sh].get(self._versions[sh],
+                                      functools.partial(self._build_cond, sh))
+                   for sh, _ in _shards(self.mesh)]
+        return [list(col) for col in zip(*got)]
 
-    def _fill_conditioning(self) -> None:
+    def _build_cond(self, sh: int) -> tuple:
         p = self._pieces
-        for sh, dev in _shards(self.mesh):
-            got = self._cond_cache.get(sh)
-            if got is not None and got[0] == self._versions[sh]:
-                continue
-            if not self.raw:
-                built = _cond_int8_local(p["packed"][sh], p["scales"][sh],
-                                         p["norms"][sh], p["valid"][sh],
-                                         self.metric)
-            else:
-                local = (_cond_raw8g_local if self.int8_epilogue == "global"
-                         else _cond_raw8_local)
-                built = local(p["vectors"][sh], p["norms"][sh],
-                              p["valid"][sh], self.metric)
-            self._cond_cache[sh] = (self._versions[sh], built)
+        if not self.raw:
+            return _cond_int8_local(p["packed"][sh], p["scales"][sh],
+                                    p["norms"][sh], p["valid"][sh],
+                                    self.metric)
+        local = (_cond_raw8g_local if self.int8_epilogue == "global"
+                 else _cond_raw8_local)
+        return local(p["vectors"][sh], p["norms"][sh], p["valid"][sh],
+                     self.metric)
 
     def _search_fused_impl(self, queries, k: int, pool: int = 64
                            ) -> tuple[np.ndarray, np.ndarray]:
@@ -1393,33 +1389,28 @@ class ShardedDatabase:
         again only where the shard's version or the basis moved (under
         ``_refresh_lock``, as the conditioning)."""
         with self._refresh_lock:
-            self._fill_proxies()
-        got = [self._proxy_cache[sh] for sh in range(self.n_shards)]
-        return [g[1] for g in got], [g[2] for g in got]
+            got = [self._proxy[sh].get(
+                (self._versions[sh], self._pca_gen),
+                functools.partial(self._build_proxy, sh, dev))
+                for sh, dev in _shards(self.mesh)]
+        return [g[0] for g in got], [g[1] for g in got]
 
-    def _fill_proxies(self) -> None:
+    def _build_proxy(self, sh: int, dev: torch.device) -> tuple:
         p = self._pieces
-        for sh, dev in _shards(self.mesh):
-            key = (self._versions[sh], self._pca_gen)
-            got = self._proxy_cache.get(sh)
-            if got is not None and got[0] == key:
-                continue
-            if self.raw:
-                def rows(a, b, sh=sh):
-                    return p["vectors"][sh][a:b]
-            else:
-                def rows(a, b, sh=sh):
-                    v = unpack_int8_rows(p["packed"][sh][a:b],
-                                         p["scales"][sh][a:b])
-                    if self.residual:
-                        v = v + unpack_int8_rows(p["resid"][sh][a:b],
-                                                 p["rscales"][sh][a:b])
-                    return v
-            proxy = _project_rows(rows, self.per_shard,
-                                  self.pca_mean.to(dev),
-                                  self.pca_basis.to(dev),
-                                  self.metric == "cosine")
-            self._proxy_cache[sh] = (key, proxy, pca_ops.rows_sq_norms(proxy))
+        if self.raw:
+            def rows(a, b):
+                return p["vectors"][sh][a:b]
+        else:
+            def rows(a, b):
+                v = unpack_int8_rows(p["packed"][sh][a:b],
+                                     p["scales"][sh][a:b])
+                if self.residual:
+                    v = v + unpack_int8_rows(p["resid"][sh][a:b],
+                                             p["rscales"][sh][a:b])
+                return v
+        proxy = _project_rows(rows, self.per_shard, self.pca_mean.to(dev),
+                              self.pca_basis.to(dev), self.metric == "cosine")
+        return proxy, pca_ops.rows_sq_norms(proxy)
 
     @_reads
     def search_pca(self, queries, k: int, select_r: int = 256
