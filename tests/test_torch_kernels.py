@@ -115,7 +115,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
-        tk._Library().get()
+        tk.kernel_library().get()
 
 
 def test_concurrent_first_calls_load_once(monkeypatch):
@@ -124,7 +124,7 @@ def test_concurrent_first_calls_load_once(monkeypatch):
     import threading
     import time
 
-    lib = tk._Library()
+    lib = tk.kernel_library()
     calls = []
     handle = object()
 
@@ -180,7 +180,7 @@ def test_build_names_are_unique_per_thread(monkeypatch, tmp_path):
 
     def build():
         with pytest.raises(Stop):
-            tk._Library().get()
+            tk.kernel_library().get()
 
     threads = [threading.Thread(target=build) for _ in range(2)]
     for t in threads:

@@ -27,7 +27,9 @@ pytest.importorskip("jax")
 
 from vector_db_tpu.core.types import make_results as ref_make_results  # noqa: E402
 from vector_db_torch import HnswPqConfig, IndexType, VectorDatabase  # noqa: E402
-from vector_db_torch.core.types import (BULK_FROM, SearchResult,  # noqa: E402
+from vector_db_torch.core import types  # noqa: E402
+from vector_db_torch.core.types import (BUILDER, BULK_FROM,  # noqa: E402
+                                        SearchResult, build_results,
                                         make_results, make_results_batch)
 from vector_db_torch.utils.stats import GLOBAL  # noqa: E402
 
@@ -178,6 +180,258 @@ def test_built_objects_behave_like_constructed_ones():
         built[0].similarity = 1.0
     back = pickle.loads(pickle.dumps(built))
     assert back == built and all(type(r) is SearchResult for r in back)
+
+
+# ------------------------------------------------------------ the C builder
+def native_count():
+    return GLOBAL.snapshot()["counts"].get("results.native", 0)
+
+
+def id_layout(layout, ids):
+    """``ids`` as int32, int64, an int64 view every other column of a
+    wider array (not contiguous), or a transposed (Fortran-ordered) int64
+    array."""
+    if layout == "strided":
+        wide = np.full((ids.shape[0], 2 * ids.shape[1]), 7, np.int64)
+        wide[:, ::2] = ids
+        return wide[:, ::2]
+    if layout == "transposed":
+        return np.ascontiguousarray(ids.T, dtype=np.int64).T
+    return ids.astype(layout)
+
+
+@pytest.mark.parametrize("layout", ["int32", "int64", "strided",
+                                    "transposed"])
+@pytest.mark.parametrize("kind", ["plain", "specials"])
+def test_bulk_ids_of_any_integer_layout(kind, layout):
+    """Any integer ids; transposed, the distances are Fortran-ordered too."""
+    ids, sq = case(kind, "l2", 1024, 10, seed=5)
+    ids = id_layout(layout, ids)
+    if layout == "transposed":
+        sq = np.ascontiguousarray(sq.T).T
+        assert sq.flags.f_contiguous and not sq.flags.c_contiguous
+    assert ids.flags.c_contiguous == (layout in ("int32", "int64"))
+    assert_same(make_results_batch(ids, sq), oracle(ids, sq, "l2"))
+
+
+@pytest.mark.parametrize("q", [0, 64])
+def test_no_answers(q):
+    """Q = 0 and calls whose every answer is dropped: one empty list a row,
+    from the builder itself as from the facade's shaping."""
+    ids = np.full((q, 10), -1, np.int64)
+    sq = np.zeros((q, 10), np.float32)
+    before = native_count()
+    assert make_results_batch(ids, sq) == [[] for _ in range(q)]
+    assert native_count() == before
+    zeros = np.zeros((q, 10))
+    keep = np.zeros((q, 10), bool)
+    assert build_results(ids, zeros, zeros, keep) == [[] for _ in range(q)]
+    assert build_results(ids, zeros, zeros, None) == [
+        [SearchResult(-1, 0.0, 0.0)] * 10 for _ in range(q)]
+
+
+@pytest.mark.parametrize("q,k", [(1, 10), (4, 10), (1024, 10)])
+def test_native_counts_the_bulk_answers(q, k):
+    ids, sq = case("specials", "l2", q, k)
+    before = native_count(), counts()[0]
+    make_results_batch(ids, sq)
+    answers = counts()[0] - before[1]
+    assert native_count() - before[0] == (answers if q * k >= BULK_FROM
+                                          else 0)
+
+
+def test_built_objects_are_tracked_dataclass_instances():
+    """Each built object: a tracked SearchResult, frozen, its fields in
+    field order, no larger than a constructed one (no per-object dict)."""
+    import gc
+    import tracemalloc
+
+    ids, sq = case("plain", "l2", 1024, 10, seed=6)
+    built = make_results_batch(ids, sq)
+    flat = [r for row in built for r in row]
+    assert all(type(r) is SearchResult and gc.is_tracked(r) for r in flat)
+    assert gc.is_tracked(built) and gc.is_tracked(built[0])
+    made = SearchResult(flat[0].id, flat[0].distance)
+    assert list(vars(flat[0]).items()) == list(vars(made).items())
+    for name in ("id", "distance", "similarity"):
+        with pytest.raises(dataclasses.FrozenInstanceError):
+            setattr(flat[1], name, 0)
+        with pytest.raises(dataclasses.FrozenInstanceError):
+            delattr(flat[1], name)
+
+    values = [(r.id, r.distance, r.similarity) for r in flat]
+    tracemalloc.start()
+    try:
+        base = tracemalloc.get_traced_memory()[0]
+        again = make_results_batch(ids, sq)
+        built_bytes = tracemalloc.get_traced_memory()[0] - base
+        del again
+        base = tracemalloc.get_traced_memory()[0]
+        constructed = [[SearchResult(i + 0, d + 0.0, s + 0.0)
+                        for i, d, s in values[q * 10:q * 10 + 10]]
+                       for q in range(1024)]
+        made_bytes = tracemalloc.get_traced_memory()[0] - base
+    finally:
+        tracemalloc.stop()
+    assert len(constructed) == 1024
+    assert built_bytes <= made_bytes + 64 * 1024
+
+
+def test_no_reference_leak():
+    """A built object, row and list hold the references a constructed one
+    holds, and 200 builds of [1024, 10] leave the traced memory flat."""
+    import sys
+    import tracemalloc
+
+    ids, sq = case("plain", "l2", 1024, 10, seed=7)
+    ids += 1000         # ids above the small-int cache
+    built = make_results_batch(ids, sq)
+    made = [[SearchResult(r.id + 0, r.distance + 0.0, r.similarity + 0.0)
+             for r in row] for row in built]
+    assert sys.getrefcount(built) == sys.getrefcount(made)
+    assert sys.getrefcount(built[3]) == sys.getrefcount(made[3])
+    b, m = built[3][4], made[3][4]
+    assert sys.getrefcount(b) == sys.getrefcount(m)
+    for name in ("id", "distance", "similarity"):
+        assert (sys.getrefcount(getattr(b, name))
+                == sys.getrefcount(getattr(m, name)))
+    del built, made, b, m
+
+    make_results_batch(ids, sq)
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        for _ in range(200):
+            make_results_batch(ids, sq)
+        grown = tracemalloc.get_traced_memory()[0] - before
+    finally:
+        tracemalloc.stop()
+    assert grown < 64 * 1024
+
+
+def test_builder_errors_raise_and_release():
+    """A failing call raises the Python error, and the objects built
+    before it are released."""
+    import sys
+
+    class Failing:
+        made = 0
+
+        def __new__(cls):
+            cls.made += 1
+            if cls.made > 25:
+                raise RuntimeError("no more objects")
+            return object.__new__(cls)
+
+    lib = BUILDER.get()
+    ids = np.arange(40, dtype=np.int64).reshape(4, 10)
+    vals = np.zeros((4, 10))
+    args = (ids.ctypes.data, vals.ctypes.data, vals.ctypes.data, None, 4, 10)
+    refs = sys.getrefcount(Failing)
+    with pytest.raises(RuntimeError, match="no more objects"):
+        lib.vdb_build_results(Failing, *args)
+    assert Failing.made == 26
+    assert sys.getrefcount(Failing) == refs
+    with pytest.raises(TypeError, match="not a type"):
+        lib.vdb_build_results(5, *args)
+    with pytest.raises(ValueError, match="C-contiguous"):
+        build_results(ids[:, ::2], vals[:, ::2], vals[:, ::2], None)
+    with pytest.raises(ValueError, match="C-contiguous"):
+        build_results(ids, vals.astype(np.float32), vals, None)
+    with pytest.raises(TypeError, match="integers"):
+        make_results_batch(ids.astype(np.float64), vals)
+
+
+def test_concurrent_first_use_builds_once(monkeypatch, tmp_path):
+    """Six threads making a process's first bulk call together: one build,
+    one handle, and every thread's builder works."""
+    import threading
+
+    from vector_db_torch.ops import kernels as tk
+
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
+    lib = tk._Library(BUILDER.name, BUILDER.sources, BUILDER.compiler,
+                      BUILDER.load)
+    ids, sq = case("specials", "l2", 64, 10, seed=8)
+    arrays = types._finish_bulk(ids, sq, "l2")[0]
+    want = oracle(ids, sq, "l2")
+    start = threading.Barrier(6)
+    got = [None] * 6
+
+    def first_call(i):
+        start.wait(timeout=60)
+        handle = lib.get()
+        ids64, dist, sim, keep = arrays
+        got[i] = (handle, handle.vdb_build_results(
+            SearchResult, ids64.ctypes.data, dist.ctypes.data,
+            sim.ctypes.data, keep.ctypes.data, *ids64.shape))
+
+    threads = [threading.Thread(target=first_call, args=(i,))
+               for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert all(g is not None and g[0] is lib.lib for g in got)
+    for _, out in got:
+        assert_same(out, want)
+    assert len(list((tmp_path / "build").glob("*.so"))) == 1
+
+
+def test_failed_build_raises_with_the_log(monkeypatch, tmp_path):
+    """A host source that does not compile: the build raises with the
+    compiler's log, and nothing is loaded."""
+    from vector_db_torch.ops import kernels as tk
+
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "results_host.c").write_text(
+        "int vdb_build_results(void) { return undeclared_name; }\n")
+    monkeypatch.setattr(tk, "_CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
+    lib = tk._Library(BUILDER.name, BUILDER.sources, BUILDER.compiler,
+                      BUILDER.load)
+    with pytest.raises(RuntimeError, match="(?s)results_host.c.*"
+                                           "undeclared_name"):
+        lib.get()
+    assert lib.lib is None
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_no_sources_raises(monkeypatch, tmp_path):
+    """A package installed without its ``csrc/`` files: the build names
+    what it looked for, and links nothing."""
+    from vector_db_torch.ops import kernels as tk
+
+    (tmp_path / "csrc").mkdir()
+    monkeypatch.setattr(tk, "_CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
+    lib = tk._Library(BUILDER.name, BUILDER.sources, BUILDER.compiler,
+                      BUILDER.load)
+    with pytest.raises(RuntimeError, match="no source matches "
+                                           "'results_host.c'"):
+        lib.get()
+    assert lib.lib is None
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("missing", ["compiler", "header"])
+def test_missing_host_toolchain_raises(monkeypatch, tmp_path, missing):
+    """No host C compiler, or no ``Python.h``: the error names it."""
+    import shutil
+    import sysconfig
+
+    from vector_db_torch.ops import kernels as tk
+
+    if missing == "compiler":
+        monkeypatch.setattr(shutil, "which", lambda name: None)
+        match = "no host C compiler"
+    else:
+        monkeypatch.setattr(sysconfig, "get_paths",
+                            lambda: {"include": str(tmp_path)})
+        match = "Python.h not found in " + str(tmp_path)
+    with pytest.raises(RuntimeError, match=match):
+        tk.host_cc()
 
 
 def test_constructor_unchanged():

@@ -3,13 +3,15 @@
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-import itertools
 import math
+import sysconfig
 from typing import Sequence
 
 import numpy as np
 
+from ..ops.kernels import _Library, host_cc
 from ..utils.stats import GLOBAL
 
 
@@ -80,10 +82,12 @@ class SearchResult:
 #: exact one by half an ulp at most, under ``2**-24`` below ``_EXACT_BELOW``.
 _HALF_BAND = 0.5 - 1e-6
 _EXACT_BELOW = 1e9
-#: answers a call from which the arithmetic runs in bulk: below it numpy's
-#: fixed cost (some twenty array operations) outweighs Python's arithmetic
-#: answer by answer (a single query's 10 answers in bulk made its call's
-#: p95 0.07-0.14 ms slower on an H100 machine's host)
+#: answers a call from which the arithmetic runs in bulk and the objects are
+#: built in C: below it numpy's fixed cost (some twenty array operations)
+#: outweighs Python's arithmetic answer by answer (a single query's 10
+#: answers in bulk made its call's p95 0.07-0.14 ms slower on an H100
+#: machine's host), and the C builder's arrays outweigh the Python loop
+#: (10 answers: 12 us in the loop, 21 us through the builder there)
 BULK_FROM = 32
 
 
@@ -108,8 +112,12 @@ def _finish_bulk(ids: np.ndarray, sq_dists: np.ndarray, metric: str):
     """A call's answers with the arithmetic over the whole arrays in
     float64: the same IEEE operations as :func:`_finish_each`, the rounding by
     ``rint`` away from a half and by ``round`` near one (or where huge, or
-    not finite).  Returns as :func:`_finish_each`, a row an iterator."""
-    sq = np.asarray(sq_dists, dtype=np.float64)
+    not finite).  Returns ((ids int64, distances, similarities, the kept
+    entries or None where every entry is kept), answers, the similarities
+    ``round`` took); the arrays are [Q, k] and C-contiguous."""
+    if not np.can_cast(ids.dtype, np.int64):
+        raise TypeError(f"ids must be integers within int64, not {ids.dtype}")
+    sq = np.ascontiguousarray(sq_dists, dtype=np.float64)
     keep = np.isfinite(sq)
     keep &= ids >= 0
     answers = int(np.count_nonzero(keep))
@@ -128,11 +136,44 @@ def _finish_bulk(ids: np.ndarray, sq_dists: np.ndarray, metric: str):
         at = np.flatnonzero(slow)
         sim.flat[at] = [round(1.0 / (1.0 + 0.5 * d), 4)
                         for d in dist.flat[at].tolist()]
+    arrays = (np.ascontiguousarray(ids, dtype=np.int64), dist, sim,
+              keep if answers < keep.size else None)
+    return arrays, answers, n_slow
 
-    rows = map(zip, ids.tolist(), dist.tolist(), sim.tolist())
-    if answers < keep.size:     # rows padded past k_eff or with a drop
-        rows = map(itertools.compress, rows, keep.tolist())
-    return rows, answers, n_slow
+
+def _load_builder(path) -> ctypes.PyDLL:
+    lib = ctypes.PyDLL(str(path))
+    lib.vdb_build_results.argtypes = ([ctypes.py_object]
+                                      + [ctypes.c_void_p] * 4
+                                      + [ctypes.c_ssize_t] * 2)
+    lib.vdb_build_results.restype = ctypes.py_object
+    return lib
+
+
+#: ``csrc/results_host.c``, built for this interpreter's C API at first use
+BUILDER = _Library(f"vdb_results_host_{sysconfig.get_config_var('SOABI')}",
+                   "results_host.c", host_cc, _load_builder)
+
+
+def build_results(ids: np.ndarray, dist: np.ndarray, sim: np.ndarray,
+                  keep) -> list[list[SearchResult]]:
+    """One SearchResult list a row of [Q, k] arrays (ids int64, dist and sim
+    float64, keep bool or None), built by ``csrc/results_host.c``: entry
+    (q, c) where ``keep`` holds, with its fields as given."""
+    shape = ids.shape
+    arrays = [(ids, np.int64), (dist, np.float64), (sim, np.float64)]
+    if keep is not None:
+        arrays.append((keep, np.bool_))
+    for a, dtype in arrays:
+        if (len(shape) != 2 or a.dtype != dtype or a.shape != shape
+                or not a.flags.c_contiguous):
+            raise ValueError(
+                f"build_results: {a.dtype}{list(a.shape)} is not a "
+                f"C-contiguous {np.dtype(dtype)}[Q, k] like the ids "
+                f"{ids.dtype}{list(shape)}")
+    return BUILDER.get().vdb_build_results(
+        SearchResult, ids.ctypes.data, dist.ctypes.data, sim.ctypes.data,
+        None if keep is None else keep.ctypes.data, *shape)
 
 
 def make_results_batch(
@@ -142,29 +183,33 @@ def make_results_batch(
     query, equal field for field to :func:`make_results` on each row.
 
     From ``BULK_FROM`` answers the arithmetic runs once over the arrays
-    (:func:`_finish_bulk`), below answer by answer.  Each object is built
-    without ``__init__``, its three finished fields written into its
-    ``__dict__`` in field order.  Bumps ``results.answers`` and
+    (:func:`_finish_bulk`) and the objects are built in C
+    (:func:`build_results`); below, both answer by answer in Python, each
+    object built without ``__init__``, its three finished fields written
+    into its ``__dict__`` in field order.  Bumps ``results.answers``,
     ``results.round_fallback`` (the similarities Python's ``round`` took)
-    once a call."""
+    and ``results.native`` (the answers built in C) once a call."""
     ids = np.asarray(ids)
-    finish = _finish_bulk if ids.size >= BULK_FROM else _finish_each
-    rows, answers, n_round = finish(ids, sq_dists, metric)
+    if ids.size >= BULK_FROM:
+        arrays, answers, n_round = _finish_bulk(ids, sq_dists, metric)
+        out = build_results(*arrays)
+        GLOBAL.bump("results.native", answers)
+    else:
+        rows, answers, n_round = _finish_each(ids, sq_dists, metric)
+        new = object.__new__
+        out = []
+        for row_answers in rows:
+            row = []
+            for i, d, s in row_answers:
+                o = new(SearchResult)
+                fields = o.__dict__
+                fields["id"] = i
+                fields["distance"] = d
+                fields["similarity"] = s
+                row.append(o)
+            out.append(row)
     GLOBAL.bump("results.answers", answers)
     GLOBAL.bump("results.round_fallback", n_round)
-
-    new = object.__new__
-    out: list[list[SearchResult]] = []
-    for row_answers in rows:
-        row = []
-        for i, d, s in row_answers:
-            o = new(SearchResult)
-            fields = o.__dict__
-            fields["id"] = i
-            fields["distance"] = d
-            fields["similarity"] = s
-            row.append(o)
-        out.append(row)
     return out
 
 

@@ -32,7 +32,10 @@ checkout's sources with ``nvcc`` at first use (one compiler per source, in
 parallel, into ``build/torch_kernels/`` beside the package, keyed by the
 sources' hash) and loaded with ctypes.  A missing ``nvcc``, a failed build
 and a failed launch raise; no path sends a CUDA tensor to the plain
-version.  Each wrapper counts its kernel launches in ``<function>.launches``;
+version.  The same build (:class:`_Library`) makes the facade's host-side
+result builder, ``csrc/results_host.c``, with the host C compiler
+(:func:`host_cc`; ``core/types.py``).  Each wrapper counts its kernel
+launches in ``<function>.launches``;
 while its thread captures a CUDA graph (:func:`captured_launches`) a launch
 goes to the capture's tally instead, and each replay of the graph adds the
 tally back.
@@ -44,10 +47,13 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import shlex
+import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -70,14 +76,27 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 # ------------------------------------------------------------------- build
 class _Library:
-    """The kernels' shared library, built once per process and source hash.
+    """A shared library built from sources under ``csrc/`` once per process
+    and source hash.
+
+    ``sources`` globs the files under ``csrc/`` whose bytes key the build,
+    headers included (a file whose suffix ends in ``h`` is not compiled);
+    ``compiler()`` gives the command that compiles one source (``-c -o obj
+    src`` follow) and the one that links the objects (``-o lib objs``
+    follow), and raises where the compiler is missing; ``load(path)`` opens
+    the built file and declares its entry points.  The file is
+    ``lib<name>_<hash>.so`` in ``BUILD_DIR``.
 
     The first callers of :meth:`get` may be several threads of a server at
     once: a lock makes one of them build and load, the others wait for its
     handle.  Build files carry the pid and the thread id, so processes
     sharing a checkout never write the same object file either."""
 
-    def __init__(self):
+    def __init__(self, name: str, sources: str,
+                 compiler: Callable[[], tuple[list[str], list[str]]],
+                 load: Callable[[Path], ctypes.CDLL]):
+        self.name, self.sources = name, sources
+        self.compiler, self.load = compiler, load
         self.lib: Optional[ctypes.CDLL] = None
         self.path: Optional[Path] = None
         self.build_log = ""
@@ -94,31 +113,28 @@ class _Library:
     def _load(self) -> None:
         import time
 
-        from torch.utils.cpp_extension import CUDA_HOME
-
-        sources = sorted(_CSRC.glob("*.cu"))
+        hashed = sorted(_CSRC.glob(self.sources))
+        sources = [src for src in hashed if not src.suffix.endswith("h")]
+        if not sources:
+            raise RuntimeError(
+                f"no source matches {self.sources!r} under {_CSRC}: the "
+                f"package was installed without its csrc/ files")
         digest = hashlib.sha256()
-        for src in sorted(_CSRC.glob("*.cu*")):  # the headers too
+        for src in hashed:
             digest.update(src.read_bytes())
-        out = BUILD_DIR / f"libvdb_torch_kernels_{digest.hexdigest()[:16]}.so"
+        out = BUILD_DIR / f"lib{self.name}_{digest.hexdigest()[:16]}.so"
         log_path = out.with_suffix(".log")
         if not out.exists():
-            nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
-            if not CUDA_HOME or not os.path.exists(nvcc):
-                raise RuntimeError(
-                    "nvcc not found (CUDA_HOME is unset or has no bin/nvcc); "
-                    "the CUDA kernels cannot be built")
+            compile_cmd, link_cmd = self.compiler()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tag = (f"{digest.hexdigest()[:16]}.{os.getpid()}"
                    f".{threading.get_ident()}")
             objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
             tmp = out.with_suffix(f".{tag}.tmp")
-            flags = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
             t0 = time.perf_counter()
-            # one nvcc per source, all at once, then one link
+            # one compiler per source, all at once, then one link
             procs = [subprocess.Popen(
-                [*flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                [*compile_cmd, "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for src, obj in zip(sources, objs)]
             logs = [p.communicate()[0] for p in procs]
@@ -126,7 +142,7 @@ class _Library:
                       in zip(sources, procs, logs) if p.returncode != 0]
             if not failed:
                 link = subprocess.run(
-                    [*flags, "-shared", "-o", str(tmp), *map(str, objs)],
+                    [*link_cmd, "-o", str(tmp), *map(str, objs)],
                     capture_output=True, text=True)
                 logs.append(link.stdout + link.stderr)
                 if link.returncode != 0:
@@ -137,36 +153,82 @@ class _Library:
                 obj.unlink(missing_ok=True)
             if failed:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError("nvcc failed:\n" + "\n".join(
-                    f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+                raise RuntimeError(
+                    f"{Path(compile_cmd[0]).name} failed:\n" + "\n".join(
+                        f"{name} ({rc}):\n{log}" for name, rc, log in failed))
             os.replace(tmp, out)
         self.build_log = log_path.read_text() if log_path.exists() else ""
-        lib = ctypes.CDLL(str(out))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # the pools end (..., w, splits, stages, streamed, stream)
-        for pool in (lib.vdb_fused_int8_pool, lib.vdb_fused_packed_pool):
-            pool.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
-        lib.vdb_fused_int8g_pool.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
-        lib.vdb_fused_raw_pool.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-        lib.vdb_fused_adc_pool.argtypes = ([ptr, ptr, i64] + [ptr] * 6
-                                           + [i32] * 9 + [ptr])
-        for entry in ("vdb_fused_int8_pool", "vdb_fused_packed_pool",
-                      "vdb_fused_int8g_pool", "vdb_fused_raw_pool",
-                      "vdb_fused_adc_pool"):
-            getattr(lib, entry).restype = i32
-        lib.vdb_pq_decode_recon_t.argtypes = ([ptr, i64, ptr, ptr]
-                                              + [i32] * 4 + [ptr])
-        lib.vdb_fused_ivf_pool.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
-        lib.vdb_fused_scan_topk.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-        for entry in ("vdb_pq_decode_recon_t", "vdb_fused_ivf_pool",
-                      "vdb_fused_scan_topk"):
-            getattr(lib, entry).restype = i32
-        lib.vdb_cuda_error_string.argtypes = [i32]
-        lib.vdb_cuda_error_string.restype = ctypes.c_char_p
-        self.lib, self.path = lib, out
+        self.lib, self.path = self.load(out), out
 
 
-LIBRARY = _Library()
+def _nvcc() -> tuple[list[str], list[str]]:
+    """nvcc's compile and link commands for sm_90a."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
+    if not CUDA_HOME or not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME is unset or has no bin/nvcc); "
+            "the CUDA kernels cannot be built")
+    flags = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    return [*flags, "-Xptxas", "-v"], [*flags, "-shared"]
+
+
+def host_cc() -> tuple[list[str], list[str]]:
+    """The host C compiler's compile and link commands for a library of
+    this interpreter's C API: ``sysconfig``'s ``CC`` where it is on the
+    PATH, else ``cc``."""
+    cc = shlex.split(sysconfig.get_config_var("CC") or "")
+    if not cc or shutil.which(cc[0]) is None:
+        cc = ["cc"]
+        if shutil.which("cc") is None:
+            raise RuntimeError(
+                "no host C compiler: neither sysconfig's CC nor cc is on the "
+                "PATH; the batched search's result builder "
+                "(csrc/results_host.c) needs one (e.g. gcc)")
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        raise RuntimeError(
+            f"Python.h not found in {include}: the batched search's result "
+            f"builder (csrc/results_host.c) needs this interpreter's "
+            f"development headers (e.g. python3-dev)")
+    return [*cc, "-O2", "-fPIC", "-I", include], [*cc, "-shared"]
+
+
+def _load_kernels(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # the pools end (..., w, splits, stages, streamed, stream)
+    for pool in (lib.vdb_fused_int8_pool, lib.vdb_fused_packed_pool):
+        pool.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+    lib.vdb_fused_int8g_pool.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.vdb_fused_raw_pool.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+    lib.vdb_fused_adc_pool.argtypes = ([ptr, ptr, i64] + [ptr] * 6
+                                       + [i32] * 9 + [ptr])
+    for entry in ("vdb_fused_int8_pool", "vdb_fused_packed_pool",
+                  "vdb_fused_int8g_pool", "vdb_fused_raw_pool",
+                  "vdb_fused_adc_pool"):
+        getattr(lib, entry).restype = i32
+    lib.vdb_pq_decode_recon_t.argtypes = ([ptr, i64, ptr, ptr]
+                                          + [i32] * 4 + [ptr])
+    lib.vdb_fused_ivf_pool.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
+    lib.vdb_fused_scan_topk.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    for entry in ("vdb_pq_decode_recon_t", "vdb_fused_ivf_pool",
+                  "vdb_fused_scan_topk"):
+        getattr(lib, entry).restype = i32
+    lib.vdb_cuda_error_string.argtypes = [i32]
+    lib.vdb_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def kernel_library() -> _Library:
+    """The CUDA kernels' library, not yet built: the ``.cu`` sources (the
+    ``.cuh`` headers key it too), built with ``nvcc``."""
+    return _Library("vdb_torch_kernels", "*.cu*", _nvcc, _load_kernels)
+
+
+LIBRARY = kernel_library()
 
 
 def build_kernels() -> _Library:
