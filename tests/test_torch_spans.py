@@ -8,7 +8,9 @@ not on a cache hit; ``bulk_load`` holds the quantizers' fitting; the
 buffer drops its oldest records and counts them; under ``torch.profiler``
 the spans are ``user_annotation`` events of the same names and nesting.
 Answers are bit-equal with tracing on and off.  Both scan modes run their
-CPU versions (``scan_pallas_int8``: the plain int8 pool).
+CPU versions (``scan_pallas_int8``: the plain int8 pool).  The codes-only
+(``adc_fast``) and the cluster-pruned (``scan_ivf``) searches have their
+stages, their derived caches' spans and their counters checked at the end.
 """
 
 import collections
@@ -442,3 +444,102 @@ def test_adc_decoded_rows_sum_over_chunks(monkeypatch):
                             **{"pool_mode": "approx", **kw})
         assert stats.GLOBAL.counts.get("adc.decoded_rows", 0) - before \
             == want, kw
+
+
+# ------------------------------------------- scan_ivf: the cluster-pruned scan
+#: the cluster-pruned configuration's options, scaled down (6,000 x 64: 8
+#: clusters by auto_ivf_geometry, 4 probed)
+IVF = dict(num_subspaces=8, training_samples=2000, search_mode="scan_ivf",
+           nlist=0, nprobe=4)
+
+
+def ivf_db(spectral):
+    db = (VectorDatabase.builder().with_dimension(M_DIM)
+          .with_max_elements(M_N + 64).with_index_type(IndexType.HNSWPQ)
+          .with_device("cpu").with_index_config(HnswPqConfig(**IVF))
+          .build())
+    db.bulk_load(np.arange(M_N), spectral[0])
+    return db
+
+
+def ivf_counts(db):
+    c = db.metrics()["counts"]
+    return tuple(c.get(f"ivf.{n}", 0)
+                 for n in ("probes", "probed_rows", "pool_rows"))
+
+
+@pytest.mark.parametrize("api", ["search", "search_batch"])
+def test_scan_ivf_one_scan_and_one_refine_a_call(spectral, api):
+    db = ivf_db(spectral)
+    answers(db, spectral[1][:2], api)          # lays the grid out
+    stats.set_tracing(True)
+    answers(db, spectral[1][:3], api)
+    stats.set_tracing(False)
+    spans, dropped = stats.take_spans()
+    assert dropped == 0
+    check_nesting(spans)
+    calls = by_call(spans)
+    assert len(calls) == (3 if api == "search" else 1)
+    for call in calls.values():
+        names = {s.seq: s.name for s in call}
+        under = sorted(s.name for s in call
+                       if s.parent is not None
+                       and names[s.parent] == "index.search")
+        assert under == sorted(SEARCH_STAGES | {"index.refine"})
+
+
+def test_scan_ivf_layout_spanned_on_the_first_search_and_refreshed(
+        spectral):
+    """The first search after a load builds the int8 shadow (``whole``)
+    and then lays the grid out from it (``ivf_layout``), side by side, so
+    the ``index.shadow`` spans' sum is the time they cover; the next search
+    is a hit; after writes, the shadow's refresh and the overlay's
+    (``ivf_overlay``), which leaves the grid as it is."""
+    db = ivf_db(spectral)
+    notes = []
+    for step in range(3):
+        if step == 2:
+            db.add_batch(range(M_N, M_N + 8), spectral[1][:8])
+        stats.set_tracing(True)
+        db.search_batch(spectral[1], K)
+        stats.set_tracing(False)
+        spans, _ = stats.take_spans()
+        check_nesting(spans)
+        by_seq = {s.seq: s for s in spans}
+        shadows = [s for s in spans if s.name == "index.shadow"]
+        notes.append(sorted((s.note, by_seq[s.parent].name)
+                            for s in shadows))
+        if step == 0:
+            spans_s = sum(s.end - s.start for s in shadows)
+            ends = sorted((s.start, s.end) for s in shadows)
+            covered = sum(e - a for a, e in ends)
+            assert all(a1 >= e0 for (_, e0), (a1, _) in zip(ends, ends[1:]))
+            assert spans_s == covered
+    assert notes == [[("ivf_layout", "index.search"),
+                      ("whole", "index.search")], [],
+                     [("incremental", "index.search"),
+                      ("ivf_overlay", "index.search")]]
+
+
+@pytest.mark.parametrize("q_n", [1, 64])
+def test_scan_ivf_counters_count_the_shapes(spectral, q_n):
+    """A call of q_n queries counts what the cluster scan is asked to do
+    for the padded batch (one query pads to 8, 64 stays 64): q_pad x nprobe
+    probes, those times the mean fill n_live / nlist scored rows, and q_pad
+    x the pool width (min(max(4 k_pad, 256), nprobe x 128) = 256)
+    re-ranked."""
+    rng = np.random.default_rng(5)
+    queries = rng.standard_normal((q_n, M_DIM)).astype(np.float32)
+    db = ivf_db(spectral)
+    db.search_batch(queries[:2], K)
+    nlist = db.index.coarse_centroids.shape[0]
+    assert nlist == 8
+    before = ivf_counts(db)
+    if q_n == 1:
+        db.search(queries[0], K)
+    else:
+        db.search_batch(queries, K)
+    got = tuple(a - b for a, b in zip(ivf_counts(db), before))
+    q_pad = max(q_n, 8)
+    probes = q_pad * IVF["nprobe"]
+    assert got == (probes, round(probes * M_N / nlist), q_pad * 256)

@@ -212,7 +212,7 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
             scan8g=DerivedCache(lock, shadow, dev),
             scan16=DerivedCache(lock, shadow, dev),
             refine=DerivedCache(lock, refine, dev),
-            ivf=DerivedCache(lock, None, dev),
+            ivf=DerivedCache(lock, ("ivf_layout", "ivf_overlay"), dev),
             scan8p=DerivedCache(lock, shadow),
             fast=DerivedCache(lock, ("fast_tables",) * 2, dev),
             members=DerivedCache(lock), proxy_norms=DerivedCache(lock))
@@ -744,7 +744,10 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
         removed since the build are handled without moving grid rows: their
         positions get a +inf offset and their slots join the exact overlay,
         O(dirty) per search.  Past ``_IVF_OVERLAY_MAX`` overlay rows, or
-        after an untracked rewrite, the layout is built again."""
+        after an untracked rewrite, the layout is built again.  The int8
+        rows it gathers are made current first, so that their build's span
+        stands beside the layout's and not inside it."""
+        (self._scan8_shadow if self.store.raw else self._scan8p_shadow)()
         return self._caches.ivf.get(self.store.version,
                                     self._build_ivf_layout,
                                     self._refresh_ivf_layout)
@@ -1067,8 +1070,17 @@ class HnswPqIndex(DeferInsertMixin, VectorIndex):
                 "the partition count)")
         st = self.store.state
         lay = self._ivf_layout()
-        args = (lay.overlay_dev, k_pad, self.metric,
-                *self.ivf_search_shape(padded.shape[0], k_pad),
+        nprobe, p_cap, pool = self.ivf_search_shape(padded.shape[0], k_pad)
+        # the work asked of the cluster scan, from host sizes: probes of the
+        # padded batch, the rows they score at the mean fill, the pool slots
+        # the refine re-ranks (the overlay's slots beside them uncounted)
+        probes = padded.shape[0] * nprobe
+        GLOBAL.bump("ivf.probes", probes)
+        GLOBAL.bump("ivf.probed_rows", round(
+            probes * self.store.size() / self.coarse_centroids.shape[0]))
+        GLOBAL.bump("ivf.pool_rows",
+                    padded.shape[0] * min(pool, nprobe * IVF_PW))
+        args = (lay.overlay_dev, k_pad, self.metric, nprobe, p_cap, pool,
                 max(1, self.config.ivf_winners))
         if self.store.raw:
             return pallas_ivf_refine_raw(padded, lay, st.vectors, st.valid,
@@ -1787,18 +1799,21 @@ def _ivf_candidates_overlay(queries, lay, valid, overlay, metric, nprobe,
     """The head of both scan_ivf refines: the pruned candidates
     (``ivf_scan.ivf_pool_candidates``) with dead slots dropped, and the
     live overlay slots appended to every query's candidates (disjoint from
-    the pool: their grid positions are disabled)."""
-    _, slots = ivf_scan.ivf_pool_candidates(
-        queries, lay.centroids, lay.cm_packed, lay.off_cm, lay.sc_cm,
-        lay.cvec, lay.pos2slot, metric, nprobe, p_cap, pool, winners)
-    slots = torch.where((slots >= 0) & valid[slots.clamp(min=0).long()],
-                        slots, -1)
-    if overlay is not None:
-        ov = torch.where((overlay >= 0) & valid[overlay.clamp(min=0)],
-                         overlay, -1).to(slots.dtype)
-        slots = torch.cat([slots, ov[None, :].expand(slots.shape[0], -1)],
-                          dim=1)
-    return slots
+    the pool: their grid positions are disabled).  The span
+    ``index.scan``: the probe, the prober inversion, the cluster scan, the
+    pool select and the overlay's merge."""
+    with span("index.scan"):
+        _, slots = ivf_scan.ivf_pool_candidates(
+            queries, lay.centroids, lay.cm_packed, lay.off_cm, lay.sc_cm,
+            lay.cvec, lay.pos2slot, metric, nprobe, p_cap, pool, winners)
+        slots = torch.where((slots >= 0) & valid[slots.clamp(min=0).long()],
+                            slots, -1)
+        if overlay is not None:
+            ov = torch.where((overlay >= 0) & valid[overlay.clamp(min=0)],
+                             overlay, -1).to(slots.dtype)
+            slots = torch.cat([slots, ov[None, :].expand(slots.shape[0], -1)],
+                              dim=1)
+        return slots
 
 
 def pallas_ivf_refine_packed(queries, lay, packed, scales, norms, valid, ids,

@@ -4,7 +4,11 @@ The counterpart of ``vector_db_tpu/utils/stats.py``, one system in one
 module:
 
   * `Counters` — cheap process-wide counters/timers any component can bump
-    (`GLOBAL`, read through ``VectorDatabase.metrics()``).
+    (`GLOBAL`, read through ``VectorDatabase.metrics()``).  Among them the
+    work a search asks of a layer, counted on the host from shapes:
+    ``adc.decoded_rows`` and ``adc.refined`` (``ops/adc``), and
+    ``ivf.probes``, ``ivf.probed_rows`` and ``ivf.pool_rows`` (scan_ivf's
+    padded batch, ``index/hnsw_pq``).
   * `timed(name)` — always on: adds the host wall time of a section to a
     `Counters` timer and counts its calls.
   * `span(name)` — a named, nested section of the program.  Off by
@@ -39,8 +43,9 @@ scan and the re-rank without their spans: ``index/q8graph``),
 ``index.fetch`` (the answers to the host), ``index.shadow`` (a scan
 shadow built or refreshed, noted ``whole`` or ``incremental``; adc_fast's
 decode tables, ``fast_tables``; a packed refine store of the raw rows,
-``bf16_refine`` or ``int8_refine``), ``ingest.bulk_load`` and
-``ingest.train`` (the quantizers' fitting).  The
+``bf16_refine`` or ``int8_refine``; the scan_ivf layout built,
+``ivf_layout``, or its overlay refreshed, ``ivf_overlay``),
+``ingest.bulk_load`` and ``ingest.train`` (the quantizers' fitting).  The
 ``ingest.*`` spans wait for the device at their end while recording, so
 their length is the work's and not its enqueue; spans on the search path
 never wait.
